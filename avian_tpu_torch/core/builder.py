@@ -1,14 +1,18 @@
 """Host-side scene construction (port of ``avian_tpu/core/builder.py``).
 
-The subset the cube-pile slice needs: ``add_body``, ``box``,
+The subset the ported scenes need: ``add_body``, ``add_body_2d``, ``box``,
 ``half_space`` and ``finalize``. Everything is numpy until ``finalize``,
 with the reference's mass properties and padding, so a scene built here
 equals the reference's leaf for leaf.
 """
 
+import math
+
 import numpy as np
 import torch
 
+from avian_tpu_torch.core import types
+from avian_tpu_torch.core.device import resolve
 from avian_tpu_torch.core.state import World
 from avian_tpu_torch.core.types import BodyType, ShapeType
 
@@ -136,6 +140,15 @@ class SceneBuilder:
         )
         return len(self._bodies) - 1
 
+    def add_body_2d(self, pos=(0.0, 0.0), angle: float = 0.0, **kw) -> int:
+        """A body constrained to the XY plane: translation Z and rotation
+        X/Y locked. ``pos`` is (x, y), ``angle`` the rotation about Z."""
+        locked = kw.pop("locked_axes", 0) | types.LOCK_TZ | types.LOCK_RX | types.LOCK_RY
+        q = (0.0, 0.0, math.sin(angle / 2), math.cos(angle / 2))
+        return self.add_body(
+            pos=(pos[0], pos[1], 0.0), quat=q, locked_axes=locked, **kw
+        )
+
     def add_collider(
         self,
         body: int,
@@ -212,8 +225,10 @@ class SceneBuilder:
         j = max_joints if max_joints is not None else 0
         if nb > n or nc > m:
             raise ValueError("capacity below the number of bodies/colliders")
+        device = resolve(device)
 
-        world = World.zeros(n, m, c, j)
+        # Assembled from numpy on the host, then moved to ``device`` once.
+        world = World.zeros(n, m, c, j, device="cpu")
         t = torch.from_numpy
 
         col = {k: [cd[k] for cd in self._colliders] for k in _COLLIDER_KEYS}
@@ -322,4 +337,4 @@ class SceneBuilder:
             gravity=torch.tensor(self.gravity, dtype=torch.float32),
             shape_pairs=self.shape_pairs(),
         )
-        return world.to(device) if device is not None else world
+        return world.to(device)

@@ -1,14 +1,17 @@
-"""Static (trace-time) configuration.
+"""Static per-simulation configuration.
 
 Counterpart of the reference's compile-time features + runtime resources that
 are fixed per simulation (``SolverConfig`` ``src/dynamics/solver/plugin.rs:216-302``,
 ``NarrowPhaseConfig`` ``src/collision/narrow_phase/mod.rs:203-255``,
 ``SubstepCount`` ``src/dynamics/solver/schedule.rs:185-191``).
 
-Everything here is hashable and passed as a static argument to ``jax.jit`` —
-changing a value triggers a recompile, exactly like toggling a cargo feature
-rebuilds the reference. Per-scene *dynamic* knobs (gravity, material tables)
-live in the ``World`` pytree instead.
+Everything here is a frozen dataclass of Python scalars. The port runs
+eagerly, so nothing is compiled against these values: each stage reads them
+on the host every step and hands them to its kernels as scalar arguments,
+and a changed value takes effect at the next ``physics_step``. The field
+names and defaults are the JAX package's, so that one config describes the
+same simulation in both. Per-scene *dynamic* knobs (gravity, materials)
+live in the ``World`` instead.
 """
 
 from dataclasses import dataclass, field, replace
@@ -55,7 +58,7 @@ class PhysicsConfig:
     """Top-level static physics configuration.
 
     Capacities are *not* stored here — they are implied by the World's array
-    shapes (static under jit either way).
+    shapes.
     """
 
     dt: float = 1.0 / 60.0
@@ -64,7 +67,7 @@ class PhysicsConfig:
     solver: SolverConfig = field(default_factory=SolverConfig)
     narrow_phase: NarrowPhaseConfig = field(default_factory=NarrowPhaseConfig)
 
-    # --- TPU-native scheduling knobs (no reference counterpart) ---
+    # --- Scheduling knobs of the data-parallel solver (no Avian counterpart) ---
     # Maximum constraint-graph colors; edges that don't fit fall into the
     # final color, solved with an under-relaxed (averaged-Jacobi) update.
     # The reference uses 24 greedy colors + a serial overflow color
@@ -88,11 +91,9 @@ class PhysicsConfig:
     sleeping_enabled: bool = True
     # All-asleep early-out: when every active dynamic body sleeps (and no
     # kinematic body moves, no sleeping body was teleported), the whole
-    # step short-circuits through a lax.cond — the TPU analogue of the
-    # reference popping sleeping islands' constraints and doing no work
-    # for them (``islands/sleeping.rs:355-426``). Under vmap the cond
-    # lowers to a select (no savings, no extra cost beyond one cheap
-    # predicate).
+    # step is skipped by a host-side branch on one device-to-host read: the
+    # analogue of the reference popping sleeping islands' constraints and
+    # doing no work for them (``islands/sleeping.rs:355-426``).
     sleep_early_out: bool = True
     # Swept CCD pass for bodies flagged ``swept_ccd`` (SweptCcd component,
     # ``ccd/mod.rs:389-419``). Off by default like the reference; speculative
@@ -100,9 +101,8 @@ class PhysicsConfig:
     swept_ccd: bool = False
     # Optional static hint: canonical (type_a, type_b) shape pairs the scene
     # can produce (``SceneBuilder.shape_pairs()``). The narrowphase dispatch
-    # only lowers these branches — under vmap, lax.switch evaluates every
-    # branch on the whole pair buffer, so unreachable branches cost real
-    # time. None = all supported pairs.
+    # only evaluates these pairs; a pair outside the hint gets the empty
+    # manifold. None = all supported pairs.
     shape_pairs: tuple | None = None
     # NaN quarantine: when True (default) a step that would produce
     # non-finite body state instead freezes the world and sets

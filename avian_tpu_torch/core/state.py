@@ -22,6 +22,8 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from avian_tpu_torch.core.device import resolve
+
 _INF = float("inf")
 MAX_POINTS = 4  # manifold points per contact pair
 
@@ -44,6 +46,7 @@ class _Columns:
 
     @classmethod
     def from_numpy(cls, tree, device=None):
+        device = resolve(device)
         out = {}
         for f in fields(cls):
             a = np.asarray(getattr(tree, f.name))
@@ -126,6 +129,8 @@ class Bodies(_Columns):
 
     @staticmethod
     def zeros(n: int, device=None) -> "Bodies":
+        device = resolve(device)
+
         def f3():
             return _f((n, 3), 0.0, device)
 
@@ -189,6 +194,7 @@ class Colliders(_Columns):
 
     @staticmethod
     def zeros(m: int, device=None) -> "Colliders":
+        device = resolve(device)
         return Colliders(
             shape_type=_i((m,), 0, device),
             params=_f((m, 8), 0.0, device),
@@ -271,6 +277,7 @@ class Contacts(_Columns):
 
     @staticmethod
     def zeros(c: int, device=None) -> "Contacts":
+        device = resolve(device)
         p = MAX_POINTS
         return Contacts(
             pair_key=_i((c,), -1, device, torch.int64),
@@ -338,6 +345,7 @@ class Joints(_Columns):
 
     @staticmethod
     def zeros(j: int, device=None) -> "Joints":
+        device = resolve(device)
         return Joints(
             jtype=_i((j,), 0, device),
             body_a=_i((j,), 0, device),
@@ -399,6 +407,7 @@ class World:
     @staticmethod
     def zeros(n_bodies, n_colliders=None, n_contacts=None, n_joints=8,
               device=None) -> "World":
+        device = resolve(device)
         m = n_colliders if n_colliders is not None else n_bodies
         c = n_contacts if n_contacts is not None else 8 * m
         return World(
@@ -418,6 +427,7 @@ class World:
         leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, world)``)."""
         if getattr(tree, "custom_shapes", ()):
             raise NotImplementedError("custom shapes are not ported yet")
+        device = resolve(device)
         m = np.asarray(tree.colliders.shape_type).shape[-1]
         leaves = {
             k: torch.from_numpy(np.array(getattr(tree, k))).to(device)

@@ -3,29 +3,45 @@
 - ``box_manifold`` (Kernel A, CUDA): box/box and box/plane manifolds;
 - ``grid_sweep`` (Kernel B, CUDA): the broadphase's same-cell window sweep;
 - ``integrate_bodies`` (Kernel C, Triton): substep integration;
-- ``solve_color`` (Kernel D, CUDA): one color of the contact solver.
+- ``solve_color`` (Kernel D, CUDA): one color of the contact solver;
+- ``collider_aabbs`` (Kernel E, CUDA): collider poses, AABBs and cell keys;
+- ``contact_rows`` (Kernel F, CUDA): contact persistence and warm-start carry;
+- ``color_edges`` (Kernel G, CUDA): edge coloring, bucketing and the run rank;
+- ``pack_constraints`` (Kernel H, CUDA): the packed constraint rows.
 
-``build`` compiles ``csrc/*.cu`` at first use. Each wrapper counts its
-launches in ``<wrapper>.launches``; ``reset_launches`` zeroes all four.
+``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
+entry wrappers (one per launch kind); each adds one to its ``launches``
+where it launches, and nowhere else. ``launches()`` sums them per kernel
+and ``reset_launches`` zeroes them all.
 """
 
 from avian_tpu_torch.kernels import box_manifold as _a
 from avian_tpu_torch.kernels import grid_sweep as _b
 from avian_tpu_torch.kernels import integrate_bodies as _c
 from avian_tpu_torch.kernels import solve_color as _d
+from avian_tpu_torch.kernels import collider_aabbs as _e
+from avian_tpu_torch.kernels import contact_rows as _f
+from avian_tpu_torch.kernels import color_edges as _g
+from avian_tpu_torch.kernels import pack_constraints as _h
+from avian_tpu_torch.kernels import run_rank as _r
 
 WRAPPERS = {
-    "box_manifold": _a.box_manifold,
-    "grid_sweep": _b.grid_sweep,
-    "integrate_bodies": _c.integrate_bodies,
-    "solve_color": _d.solve_color,
+    "box_manifold": (_a.box_manifold,),
+    "grid_sweep": (_b.grid_sweep,),
+    "integrate_bodies": (_c.integrate_bodies,),
+    "solve_color": (_d.solve_color,),
+    "collider_aabbs": (_e.collider_aabbs, _e.cell_keys),
+    "contact_rows": (_f.contact_join, _f.contact_rows),
+    "color_edges": (_g.color_edges, _g.bucket_edges, _r.run_rank),
+    "pack_constraints": (_h.constraint_flags, _h.pack_constraints),
 }
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fns in WRAPPERS.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: sum(fn.launches for fn in fns) for name, fns in WRAPPERS.items()}

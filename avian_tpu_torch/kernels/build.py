@@ -1,10 +1,14 @@
 """Build and load the CUDA kernels of ``avian_tpu_torch/csrc``.
 
 At first use, ``library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, under
+Hopper (``sm_90a``), one ``nvcc`` process per source and all at once, links
+the objects into one shared library with a plain C interface under
 ``build/avian_tpu_torch/`` at the root of the checkout, and loads it with
 ``ctypes``. The file name carries a hash of the sources and flags, so a
 change to a source rebuilds. A failed build raises; there is no fallback.
+
+``launch`` calls one entry point on PyTorch's current stream, and ``require``
+is the wrappers' check of device, dtype, shape and contiguity.
 """
 
 import ctypes
@@ -15,12 +19,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "avian_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -30,6 +36,25 @@ _SIGNATURES = {
     "avian_box_manifold": [_I, _I] + [_P] * 12 + [_P],
     "avian_grid_sweep": [_P] * 5 + [_I, _I, _P],
     "avian_solve_color": [_I] * 5 + [_P] * 10 + [_F] * 5 + [_P],
+    # Kernel E
+    "avian_collider_aabbs": [_I] + [_P] * 10 + [_F] * 3 + [_P] * 4 + [_P],
+    "avian_cell_keys": [_I] + [_P] * 12 + [_P],
+    # Kernel F
+    "avian_contact_join": [_I] + [_P] * 4 + [_P],
+    "avian_contact_rows": [_I] + [_P] * 36 + [_F] * 4 + [_I] + [_P] * 21 + [_P],
+    # Kernel G
+    "avian_run_rank": [_I] + [_P] * 2 + [_P],
+    "avian_color_keys": [_I, _I] + [_P] * 6 + [_P],
+    "avian_color_rows": [_I] * 4 + [_P] * 5 + [_P],
+    "avian_color_init": [_I, _I, _I] + [_P] * 8 + [_P],
+    "avian_color_propose": [_I, _I] + [_P] * 8 + [_P],
+    "avian_color_win": [_I, _I] + [_P] * 8 + [_P],
+    "avian_color_finish": [_I, _I] + [_P] * 4 + [_P],
+    "avian_bucket_slots": [_I] * 3 + [_P] * 5 + [_P],
+    # Kernel H
+    "avian_pack_flags": [_I] + [_P] * 12 + [_P],
+    "avian_pack_count": [_I] + [_P] * 7 + [_P],
+    "avian_pack_rows": [_I] * 2 + [_P] * 30 + [_F] * 6 + [_P],
 }
 
 
@@ -61,22 +86,47 @@ def lib_path() -> Path:
     return BUILD_DIR / f"libavian_kernels_{_digest()}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; returns their output, raises on a failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    log = ""
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            for other in procs:
+                if other.poll() is None:
+                    other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        log += out
+    return log
+
+
+def _build(path: Path) -> None:
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    log = _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for obj, src in zip(objs, sources())
+    ])
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
+    path.with_suffix(".log").write_text(log)
+    os.replace(tmp, path)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = lib_path()
     if not path.exists():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
+        _build(path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -89,3 +139,30 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def require(what: str, device: torch.device, rows) -> None:
+    """Raise unless every ``(name, tensor, shape, dtype)`` of ``rows`` is a
+    contiguous tensor of that shape and dtype on ``device``."""
+    for name, x, shape, dtype in rows:
+        if x.device != device or x.dtype != dtype:
+            raise TypeError(
+                f"{what}: {name} must be {dtype} on {device}, got {x.dtype} on {x.device}"
+            )
+        if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+            raise ValueError(
+                f"{what}: {name} must be contiguous {tuple(shape)}, got {tuple(x.shape)}"
+            )
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` (which launches one kernel) on the current
+    stream of ``device``. Tensors pass as device pointers, Python ints and
+    floats as C ``int`` and ``float``; a launch the card refuses raises."""
+    fn = getattr(library(), name)
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"{name}: {len(args)} arguments for {len(fn.argtypes) - 1}")
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*conv, torch.cuda.current_stream().cuda_stream)
+    check(err, name)

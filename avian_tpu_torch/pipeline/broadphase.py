@@ -7,8 +7,10 @@ the packed cell keys, a same-cell window sweep with canonical-cell
 deduplication (Kernel B, ``kernels/grid_sweep.py``), compaction in
 (entry, window position) order, then a dense pass against at most 16
 "global" colliders (half-spaces and colliders > 4x the median extent).
-Slots, pair keys and ``dropped`` match the reference exactly. The rest is
-plain PyTorch: key emission, the sort, the compaction and the global pass.
+Slots, pair keys and ``dropped`` match the reference exactly. Poses, AABBs
+and key emission are Kernel E (``kernels/collider_aabbs.py``); the sort is
+``torch.sort`` (the reference calls ``lax.sort`` there); the extent
+reductions, the compaction and the global pass are plain PyTorch.
 """
 
 from dataclasses import dataclass
@@ -19,13 +21,10 @@ from avian_tpu_torch.core import types
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.state import World
 from avian_tpu_torch.geometry import shapes
+from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.kernels import grid_sweep as kb
-from avian_tpu_torch.math import quat as quat_m
-from avian_tpu_torch.math import vec
 
 MAX_GLOBALS = 16
-
-_CELL_OFFSETS = [[dx, dy, dz] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
 
 
 @dataclass(frozen=True)
@@ -53,33 +52,23 @@ class GridEntries:
     dyn: torch.Tensor        # bool[M]
 
 
-def update_collider_poses(world: World):
-    """World pose of each collider = body pose o local offset."""
+def update_aabbs_and_poses(world: World, config: PhysicsConfig):
+    """``(world with this step's AABBs, collider pos f32[M,3], quat f32[M,4])``:
+    world pose of each collider = body pose o local offset, and its AABB
+    expanded for speculative contacts (reference :85, :96). One launch of
+    Kernel E."""
     col = world.colliders
-    b = world.bodies
-    body = col.body_idx.long()
-    bq = b.quat[body]
-    pos = b.pos[body] + quat_m.rotate(bq, col.local_pos)
-    return pos, quat_m.mul(bq, col.local_quat)
+    lo, hi, pos, quat = ke.collider_aabbs(
+        world.bodies, col, config.dt,
+        config.narrow_phase.default_speculative_margin,
+        config.narrow_phase.contact_tolerance * config.length_unit,
+    )
+    return world.replace(colliders=col.replace(aabb_min=lo, aabb_max=hi)), pos, quat
 
 
 def update_aabbs(world: World, config: PhysicsConfig) -> World:
     """World AABBs, expanded for speculative contacts (reference :96)."""
-    col = world.colliders
-    pos, quat = update_collider_poses(world)
-    lo, hi = shapes.world_aabb(col.shape_type, col.params, pos, quat)
-    v = world.bodies.lin_vel[col.body_idx.long()]
-    speed = vec.length(v)
-    spec = torch.clamp(
-        col.speculative_margin, max=config.narrow_phase.default_speculative_margin
-    )
-    expand = (
-        torch.minimum(speed * config.dt, spec)
-        + col.collision_margin
-        + config.narrow_phase.contact_tolerance * config.length_unit
-    )
-    e = expand[:, None]
-    return world.replace(colliders=col.replace(aabb_min=lo - e, aabb_max=hi + e))
+    return update_aabbs_and_poses(world, config)[0]
 
 
 def sweep_window(config: PhysicsConfig, m: int) -> int:
@@ -92,14 +81,12 @@ def sweep_window(config: PhysicsConfig, m: int) -> int:
     return w
 
 
-def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
-    """Emit, sort and gather the grid entries (reference :217-279)."""
-    col = world.colliders
-    b = world.bodies
+def sweep_cell(col):
+    """``(cell f32[], in_sweep bool[M], is_global bool[M])``: the grid's cell
+    size (1.001 x the largest in-sweep AABB extent, on the device) and which
+    colliders go through the grid; half-spaces and colliders > 4x the median
+    extent are "global" (reference :217-243)."""
     m = col.capacity
-    dev = col.aabb_min.device
-    w = sweep_window(config, m)
-
     ext_axis = col.aabb_max - col.aabb_min
     ext_c = ext_axis.amax(dim=-1)
     is_plane = ext_c > shapes.BIG
@@ -110,35 +97,20 @@ def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
     is_big = finite & (ext_c > 4.0 * torch.clamp(median_ext, min=1e-6))
     is_global = is_plane | is_big
     in_sweep = col.active & ~is_global
-
-    body = col.body_idx.long()
-    dyn = (b.body_type[body] == types.BodyType.DYNAMIC) & b.active[body]
-
     cell = 1.001 * torch.clamp(
         torch.where(in_sweep[:, None], ext_axis, 0.0).max(), min=1e-3
     )
-    # Coordinates beyond i32 only occur for colliders outside the grid.
-    lim = 2.0e9
-    i0 = torch.floor(col.aabb_min / cell).clamp(-lim, lim).to(torch.int32)
-    i1 = torch.floor(col.aabb_max / cell).clamp(-lim, lim).to(torch.int32)
-    offsets = torch.tensor(_CELL_OFFSETS, dtype=torch.int32, device=dev)
-    cc = i0[:, None, :] + offsets[None, :, :]
-    entry_ok = (cc <= i1[:, None, :]).all(dim=-1) & in_sweep[:, None]
-    ckey = torch.where(entry_ok, kb.cell_key(cc), kb.SENTINEL).reshape(-1)
+    return cell, in_sweep, is_global
+
+
+def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
+    """Emit, sort and gather the grid entries (reference :217-279)."""
+    col = world.colliders
+    w = sweep_window(config, col.capacity)
+    cell, in_sweep, is_global = sweep_cell(col)
+    ckey, fpack, ipack = ke.cell_keys(world.bodies, col, cell, in_sweep)
     skey, order = torch.sort(ckey, stable=True)
     scol = order // 8
-
-    fpack = torch.cat([col.aabb_min, col.aabb_max], dim=-1)
-    ipack = torch.cat(
-        [
-            i0,
-            col.body_idx[:, None],
-            col.layer_members[:, None],
-            col.layer_filter[:, None],
-            dyn[:, None].to(torch.int32),
-        ],
-        dim=-1,
-    )
     return GridEntries(
         skey=skey.contiguous(),
         scol=scol,
@@ -146,7 +118,7 @@ def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
         si=ipack[scol].contiguous(),
         window=w,
         is_global=is_global,
-        dyn=dyn,
+        dyn=ipack[:, 6] > 0,
     )
 
 

@@ -4,7 +4,8 @@
 Island labels come from the reference's 10 rounds of min-label propagation
 with pointer jumping over a fixed-degree neighbor table, kept as written
 so that labels match exactly (a union-find would give the same labels only
-when the rounds converge). Plain PyTorch.
+when the rounds converge). Plain PyTorch, except the run rank of the
+neighbor table, which is Kernel G's (``kernels/run_rank.py``).
 """
 
 import torch
@@ -12,17 +13,17 @@ import torch
 from avian_tpu_torch.core import types
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.state import Bodies, Contacts, Joints
-from avian_tpu_torch.pipeline.coloring import run_rank
+from avian_tpu_torch.kernels.run_rank import run_rank
 
 _LABEL_ROUNDS = 10
 _MAX_DEGREE = 24
 
 
-def compute_islands(bodies: Bodies, contacts: Contacts, joints: Joints):
-    """(i32[N] island label = min body index in the component,
-    bool[N] neighbor-table overflow)."""
+def island_incidences(bodies: Bodies, contacts: Contacts, joints: Joints):
+    """The island graph's directed incidences, grouped by body: ``(src i64[2E]
+    the other end of each, sorted_key i32[2E] the body it belongs to with
+    ``N`` for a dead one, order i64[2E] the stable sort's permutation)``."""
     n = bodies.capacity
-    dev = bodies.pos.device
     non_static = bodies.active & (bodies.body_type != types.BodyType.STATIC)
     ca, cb = contacts.body_a.long(), contacts.body_b.long()
     c_ok = (
@@ -38,12 +39,21 @@ def compute_islands(bodies: Bodies, contacts: Contacts, joints: Joints):
     src = torch.cat([ea, eb])
     dst = torch.cat([eb, ea])
     ok2 = torch.cat([e_ok, e_ok])
-    d = _MAX_DEGREE
-    key = torch.where(ok2, dst, n)
+    key = torch.where(ok2, dst, n).to(torch.int32)
     sorted_key, order = torch.sort(key, stable=True)
+    return src, sorted_key, order
+
+
+def compute_islands(bodies: Bodies, contacts: Contacts, joints: Joints):
+    """(i32[N] island label = min body index in the component,
+    bool[N] neighbor-table overflow)."""
+    n = bodies.capacity
+    dev = bodies.pos.device
+    d = _MAX_DEGREE
+    src, sorted_key, order = island_incidences(bodies, contacts, joints)
     rank = run_rank(sorted_key)
     slot_ok = (rank < d) & (sorted_key < n)
-    slot = torch.clamp(sorted_key, 0, n - 1) * d + rank
+    slot = torch.clamp(sorted_key, 0, n - 1).long() * d + rank
     table = torch.full((n * d + 1,), n, dtype=torch.int64, device=dev)
     table[torch.where(slot_ok, slot, n * d)] = src[order]
     neighbors = table[:-1].reshape(n, d)
@@ -51,7 +61,7 @@ def compute_islands(bodies: Bodies, contacts: Contacts, joints: Joints):
     # masks this with the unsorted ``ok2`` against sorted entries, which
     # can miss a flag; the intended sorted mask is ``sorted_key < n``.)
     overflow = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
-    overflow[torch.where(slot_ok, n, sorted_key)] = True
+    overflow[torch.where(slot_ok, n, sorted_key).long()] = True
     overflow = overflow[:n]
 
     label = torch.arange(n, device=dev)

@@ -57,9 +57,9 @@ def _check_supported(world, config, hooks, custom_joints, custom_shapes):
 def prepare_step(world: World, config: PhysicsConfig) -> Prepared:
     """Collision detection and the per-step preparation of the solver."""
     h = config.substep_dt
-    world2 = bp_m.update_aabbs(world, config)
+    world2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
     bp = bp_m.broad_phase(world2, config)
-    contacts, sizes = np_m.narrow_phase(world2, bp, config)
+    contacts, sizes = np_m.narrow_phase(world2, bp, config, poses=(pos, quat))
     s = sb_m.prepare(world2.bodies)
     inc = int_m.pre_process_velocity_increments(world2.bodies, world2.gravity, h)
     table = int_m.integration_table(world2.bodies, inc)

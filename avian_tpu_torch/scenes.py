@@ -1,5 +1,7 @@
-"""Scenes of the ported slice (port of ``avian_tpu/scenes.py::cube_pile`` and
-the ``stack3`` golden scene of ``tests/golden_common.py``)."""
+"""Scenes of the ported slices (port of ``avian_tpu/scenes.py::cube_pile``,
+``box_pyramid`` and ``many_pyramids``, and the ``stack3`` golden scene of
+``tests/golden_common.py``). ``device=None`` builds the world on the card
+(``core.device.default_device``); pass ``device="cpu"`` for the CPU."""
 
 import math
 
@@ -70,3 +72,68 @@ def stack3(device=None):
         max_bodies=4, max_colliders=4, max_contacts=32, device=device
     )
     return world, ids
+
+
+def _pyramid_rows(b, base, half, x_off, y_off, z_off, planar):
+    """One pyramid of ``base`` rows; returns the body ids."""
+    size = 2.0 * half
+    ids = []
+    for row in range(base):
+        n_in_row = base - row
+        y = half + row * size + y_off
+        x0 = x_off - 0.5 * n_in_row * size
+        for i in range(n_in_row):
+            p = (x0 + (i + 0.5) * size, y * 1.0001)
+            if planar:
+                # 2D profile: Z translation and X/Y rotation locked.
+                body = b.add_body_2d(pos=p)
+            else:
+                body = b.add_body(pos=(p[0], p[1], z_off))
+            b.box(body, half, half, half, friction=0.6)
+            ids.append(body)
+    return ids
+
+
+def _finalize_boxes(b, ids, max_contacts, device):
+    n = len(ids) + 1
+    world = b.finalize(
+        max_bodies=n, max_colliders=n,
+        max_contacts=max_contacts or max(8 * n, 64), device=device,
+    )
+    return world, ids
+
+
+def box_pyramid(base: int = 20, half: float = 0.5, dim3_depth: bool = False,
+                max_contacts: int | None = None, device=None):
+    """Box pyramid on a ground plane; ``base=100`` gives 5,050 boxes.
+
+    ``dim3_depth=False``: the 2D profile (Z translation and X/Y rotation
+    locked). ``dim3_depth=True``: the same planar layout with fully free 3D
+    cubes. Returns (world, ids)."""
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    ids = _pyramid_rows(b, base, half, 0.0, 0.0, 0.0, planar=not dim3_depth)
+    return _finalize_boxes(b, ids, max_contacts, device)
+
+
+def many_pyramids(grid: int = 10, base: int = 10, half: float = 0.5,
+                  dim3: bool = False, max_contacts: int | None = None,
+                  device=None):
+    """A ``grid x grid`` field of base-``base`` pyramids (10 x 10 of base 10
+    gives 5,500 boxes). ``dim3=False``: the 2D profile, pyramids tiled in
+    the XY plane. ``dim3=True``: free 3D cubes, pyramids tiled over the XZ
+    ground plane. Returns (world, ids)."""
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    size = 2.0 * half
+    spacing_x = base * size + 2.0
+    ids = []
+    for gx in range(grid):
+        for gy in range(grid):
+            x_off = (gx - grid / 2) * spacing_x
+            y_off = 0.0 if dim3 else gy * (base * size + 1.0)
+            z_off = (gy - grid / 2) * 4.0 if dim3 else 0.0
+            ids += _pyramid_rows(b, base, half, x_off, y_off, z_off, planar=not dim3)
+    return _finalize_boxes(b, ids, max_contacts, device)

@@ -1,11 +1,11 @@
-"""Where one full step of the port's 10,000-cube pile spends its time on a
-CUDA card.
+"""Where one full step of the port spends its time on a CUDA card.
 
-    python3 profile_step.py [--out profile.json]
+    python3 profile_step.py [--scene pile|pyramid] [--out profile.json]
 
-Settles ``cube_pile(10_000)`` (160,000 contact slots, the smoke's config)
-for 30 steps, so that it is awake and its contacts are warm, and then
-measures from that state:
+Settles the scene with the smoke's config for 30 steps, so that it is awake
+and its contacts are warm: ``pile`` is ``cube_pile(10_000)`` with 160,000
+contact slots, ``pyramid`` is ``box_pyramid(base=100)`` (5,050 boxes, the 2D
+profile) with 24 slots per body, 121,224. Then it measures from that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
   synchronized after every stage, mean of 3 steps (solver and integration
@@ -37,7 +37,8 @@ from avian_tpu_torch.pipeline import sleeping as sleep_m
 from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
 
-N_CUBES, SETTLE_STEPS = 10_000, 30
+N_CUBES, PYRAMID_BASE, SETTLE_STEPS = 10_000, 100, 30
+PYRAMID_SLOTS = 24 * (PYRAMID_BASE * (PYRAMID_BASE + 1) // 2 + 1)
 CONFIG = PhysicsConfig(
     substeps=4, shape_pairs=((ShapeType.BOX, ShapeType.BOX), (ShapeType.BOX, ShapeType.PLANE))
 )
@@ -55,10 +56,10 @@ def stage_ms(world, config):
         t0[0] = now
 
     h = config.substep_dt
-    w2 = bp_m.update_aabbs(world, config)
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
     bp = bp_m.broad_phase(w2, config)
     mark("broadphase")
-    contacts, _ = np_m.narrow_phase(w2, bp, config)
+    contacts, _ = np_m.narrow_phase(w2, bp, config, poses=(pos, quat))
     mark("narrowphase")
     s = sb_m.prepare(w2.bodies)
     table = int_m.integration_table(
@@ -88,6 +89,7 @@ def stage_ms(world, config):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("pile", "pyramid"), default="pile")
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -97,13 +99,17 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda", 0)
-    world, _ = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
+    if args.scene == "pile":
+        world, ids = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
+    else:
+        world, ids = scenes.box_pyramid(PYRAMID_BASE, max_contacts=PYRAMID_SLOTS, device=device)
     for _ in range(SETTLE_STEPS):
         world = physics_step(world, CONFIG)
     torch.cuda.synchronize()
 
     runs = [stage_ms(world, CONFIG) for _ in range(3)]
-    result = {"card": smi, "cubes": N_CUBES, "after_steps": SETTLE_STEPS,
+    result = {"card": smi, "scene": args.scene, "boxes": len(ids),
+              "contact_slots": world.contacts.capacity, "after_steps": SETTLE_STEPS,
               "stage_ms": {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}}
 
     walls = []

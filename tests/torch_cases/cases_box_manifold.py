@@ -1,5 +1,5 @@
-"""Box/box and box/plane manifolds (Kernel A's twin on CPU) and the
-narrowphase stage against the JAX reference. Counts and per-pair feature-id
+"""Box/box and box/plane manifolds (Kernel A's twin on CPU) against the JAX
+reference (the narrowphase stage's cases are in ``cases_contacts.py``). Counts and per-pair feature-id
 sets must match exactly; geometry within 1e-5, compared point by point
 through the feature id (rounding may reorder near-tied box/plane corners)."""
 
@@ -11,14 +11,8 @@ import torch
 
 from avian_tpu.geometry import box_box as jbb
 from avian_tpu.geometry import narrowphase as jnp_geo
-from avian_tpu.pipeline import broadphase as jbp
-from avian_tpu.pipeline import contacts as jcontacts
 from avian_tpu_torch.geometry.narrowphase import compute_manifolds
 from avian_tpu_torch.kernels import box_manifold as ka
-from avian_tpu_torch.pipeline import broadphase as tbp
-from avian_tpu_torch.pipeline import contacts as tcontacts
-
-from port_common import assert_columns, pile_configs, settled_pile, to_jax, to_torch
 
 TOL = 1e-5
 _J_BOX_BOX = jax.jit(jax.vmap(jbb.box_box))
@@ -169,14 +163,15 @@ def test_dispatch_swaps_plane_first_pairs():
     """A plane given as collider A: swapped in, solved, swapped back."""
     from avian_tpu_torch import scenes
 
-    world, _ = scenes.cube_pile(8, max_contacts=64)
+    world, _ = scenes.cube_pile(8, max_contacts=64, device="cpu")
     col = world.colliders
     ca = torch.tensor([0, 3, 1], dtype=torch.int32)
     cb = torch.tensor([2, 0, 0], dtype=torch.int32)
     valid = torch.tensor([True, True, False])
-    from avian_tpu_torch.pipeline.broadphase import update_collider_poses
+    from avian_tpu_torch.core.config import PhysicsConfig
+    from avian_tpu_torch.pipeline.broadphase import update_aabbs_and_poses
 
-    pos, quat = update_collider_poses(world)
+    _, pos, quat = update_aabbs_and_poses(world, PhysicsConfig())
     man, sizes = compute_manifolds(col.shape_type, col.params, pos, quat, ca, cb, valid)
     direct, _ = compute_manifolds(col.shape_type, col.params, pos, quat,
                                   cb[:1], ca[:1], valid[:1])
@@ -185,63 +180,3 @@ def test_dispatch_swaps_plane_first_pairs():
     assert torch.equal(man.feature_id[0], direct.feature_id[0])
     assert int(man.count[2]) == 0 and float(man.separation[2, 0]) == 1e9
     assert sizes == {ka.BOX_PLANE: 2}
-
-
-def _contact_points_match(ref, port, body_quat):
-    """Per-point contact columns, matched through the feature id.
-
-    An edge/edge point (feature id 128 + 3 i + j) between parallel edges is
-    the closest pair of two parallel segments: its place along the edge is
-    ill-conditioned, and rounding may slide it there. Its anchors are held
-    to the tolerance across the edge only; everything else, penetration
-    included, to the full tolerance."""
-    n = np.asarray(ref.num_points)
-    np.testing.assert_array_equal(port.num_points.numpy(), n)
-    rf, pf = np.asarray(ref.feature_id), port.feature_id.numpy()
-    cols = ("anchor_a", "anchor_b", "penetration", "normal_impulse", "tangent_impulse")
-    r = {c: np.asarray(getattr(ref, c)) for c in cols}
-    p = {c: getattr(port, c).numpy() for c in cols}
-    body_a = np.asarray(ref.body_a)
-    slid = 0
-    for i in np.nonzero(n)[0]:
-        c = n[i]
-        ro = np.argsort(rf[i, :c], kind="stable")
-        po = np.argsort(pf[i, :c], kind="stable")
-        fids = rf[i, :c][ro]
-        np.testing.assert_array_equal(pf[i, :c][po], fids)
-        for col in cols:
-            rv, pv = r[col][i, :c][ro], p[col][i, :c][po]
-            if col.startswith("anchor") and c == 1 and fids[0] >= 128:
-                axis = np.eye(3, dtype=np.float32)[(fids[0] - 128) // 3]
-                q = body_quat[body_a[i]]
-                u, w = q[:3], q[3]
-                t = 2.0 * np.cross(u, axis)
-                edge = axis + w * t + np.cross(u, t)
-                diff = pv[0] - rv[0]
-                across = diff - np.dot(diff, edge) * edge
-                slid += int(np.abs(diff).max() > TOL)
-                assert np.abs(across).max() <= TOL, (i, col, diff, edge)
-                continue
-            np.testing.assert_allclose(pv, rv, atol=TOL, rtol=0)
-    return slid
-
-
-def test_narrow_phase_stage_matches_reference():
-    """Manifolds, persistence join, warm-start carry, contact ids, colors
-    and materials on a settled pile with a populated contact buffer."""
-    tw, template = settled_pile()
-    jw = to_jax(tw, template)
-    jcfg, tcfg = pile_configs()
-    jw2 = jax.jit(jbp.update_aabbs, static_argnums=1)(jw, jcfg)
-    jbpr = jax.jit(jbp.broad_phase, static_argnums=1)(jw2, jcfg)
-    ref = jax.jit(jcontacts.narrow_phase, static_argnums=2)(jw2, jbpr, jcfg)
-    tw2 = to_torch(jw2)
-    port, sizes = tcontacts.narrow_phase(tw2, tbp.broad_phase(tw2, tcfg), tcfg)
-    assert_columns(ref, port, atol=TOL, skip=(
-        "anchor_a", "anchor_b", "penetration", "feature_id", "normal_impulse",
-        "tangent_impulse", "max_normal_impulse",
-    ))
-    assert _contact_points_match(ref, port, np.asarray(jw2.bodies.quat)) <= 4
-    assert int(np.asarray(ref.touching).sum()) > 64
-    assert np.asarray(ref.was_touching).sum() > 0  # the join carried pairs
-    assert sizes[ka.BOX_BOX] > 0 and sizes[ka.BOX_PLANE] > 0

@@ -11,12 +11,21 @@ import torch
 
 from avian_tpu_torch import PhysicsConfig, kernels, physics_step, scenes
 from avian_tpu_torch.core.types import BodyType
+from avian_tpu_torch.geometry.narrowphase import compute_manifolds, manifold_buckets
 from avian_tpu_torch.kernels import box_manifold as ka
+from avian_tpu_torch.kernels import collider_aabbs as ke
+from avian_tpu_torch.kernels import color_edges as kg
+from avian_tpu_torch.kernels import contact_rows as kf
 from avian_tpu_torch.kernels import grid_sweep as kb
 from avian_tpu_torch.kernels import integrate_bodies as kc
+from avian_tpu_torch.kernels import pack_constraints as kh
 from avian_tpu_torch.kernels import solve_color as kd
+from avian_tpu_torch.kernels.run_rank import run_rank, run_rank_twin
 from avian_tpu_torch.pipeline import broadphase as bp_m
+from avian_tpu_torch.pipeline import contacts as np_m
+from avian_tpu_torch.pipeline import sleeping as sleep_m
 from avian_tpu_torch.pipeline import solver as sol_m
+from avian_tpu_torch.pipeline import solver_body as sb_m
 from avian_tpu_torch.pipeline.step import prepare_step
 
 pytestmark = pytest.mark.cuda
@@ -37,6 +46,31 @@ def pile(cuda):
     for _ in range(30):
         world = physics_step(world, CONFIG)
     return world
+
+
+@pytest.fixture(scope="module")
+def pyramid(cuda):
+    """A base-40 2D-profile pyramid (820 boxes) after 12 steps: awake, its
+    contacts warm, some of its colors still unsettled."""
+    world, _ = scenes.box_pyramid(40, max_contacts=24 * 821, device=cuda)
+    for _ in range(12):
+        world = physics_step(world, CONFIG)
+    return world
+
+
+@pytest.fixture(scope="module")
+def fresh_pyramid(cuda):
+    """The same pyramid after 2 steps: most of its constraints are still in
+    the overflow color."""
+    world, _ = scenes.box_pyramid(40, max_contacts=24 * 821, device=cuda)
+    for _ in range(2):
+        world = physics_step(world, CONFIG)
+    return world
+
+
+@pytest.fixture(params=["pile", "pyramid"])
+def settled(request):
+    return request.getfixturevalue(request.param)
 
 
 def _quats(rng, k):
@@ -63,16 +97,33 @@ def test_box_manifold_matches_twin(cuda, kind):
         assert float((x - y).abs().max()) <= 1e-5
 
 
-def test_grid_sweep_matches_twin(cuda, pile):
-    g = bp_m.grid_entries(bp_m.update_aabbs(pile, CONFIG), CONFIG)
+def test_box_manifold_matches_twin_on_the_step_s_pairs(cuda, settled):
+    """The scenes' own pairs: a pyramid's faces are exactly parallel."""
+    w2, pos, quat = bp_m.update_aabbs_and_poses(settled, CONFIG)
+    bp = bp_m.broad_phase(w2, CONFIG)
+    col = w2.colliders
+    buckets = manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a,
+                               bp.collider_b, bp.valid, CONFIG.shape_pairs)
+    assert {b.kind for b in buckets} == {ka.BOX_BOX, ka.BOX_PLANE}
+    for b in buckets:
+        got, want = ka.box_manifold(b.kind, *b.inputs), ka.box_manifold_twin(b.kind, *b.inputs)
+        assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+        for x, y in zip(got[:4], want[:4]):
+            assert float((x - y).abs().max()) <= 1e-5
+
+
+def test_grid_sweep_matches_twin(cuda, settled):
+    g = bp_m.grid_entries(bp_m.update_aabbs(settled, CONFIG), CONFIG)
     got = kb.grid_sweep(g.skey, g.sf, g.si, g.window)
     want = kb.grid_sweep_twin(g.skey, g.sf, g.si, g.window)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int((got[0] != 0).sum()) > 0
 
 
-def test_integrate_bodies_matches_twin(cuda, pile):
-    p = prepare_step(pile, CONFIG)
+def test_integrate_bodies_matches_twin(cuda, settled):
+    """On the pyramid the locked axes zero rows of the inverse mass and
+    inertia in the table."""
+    p = prepare_step(settled, CONFIG)
     for mode in (kc.VELOCITIES, kc.POSITIONS):
         got = kc.integrate_bodies(p.s.state, p.table, CONFIG.substep_dt, mode)
         want = kc.integrate_bodies_twin(p.s.state, p.table, CONFIG.substep_dt, mode)
@@ -93,11 +144,18 @@ def _bouncing(world):
     )
 
 
-@pytest.mark.parametrize("max_colors,bounce", [(12, False), (3, False), (12, True)])
-def test_solve_color_matches_twin_and_is_reproducible(cuda, pile, max_colors, bounce):
+@pytest.mark.parametrize(
+    "scene,max_colors,bounce",
+    [("pile", 12, False), ("pile", 3, False), ("pile", 12, True), ("pyramid", 12, False),
+     ("fresh_pyramid", 12, False)],
+)
+def test_solve_color_matches_twin_and_is_reproducible(cuda, request, scene, max_colors, bounce):
+    world = request.getfixturevalue(scene)
     config = PhysicsConfig(substeps=4, shape_pairs=((2, 2), (2, 3)), max_colors=max_colors)
-    p = prepare_step(_bouncing(pile) if bounce else pile, config)
+    p = prepare_step(_bouncing(world) if bounce else world, config)
     con, params = p.con, sol_m.solve_params(config)
+    if scene == "fresh_pyramid":  # most rows are in the overflow color
+        assert int(con.bucket_valid[-1].sum()) > int(con.bucket_valid[:-1].sum())
     modes = (kd.WARM, kd.BIAS, kd.RELAX, kd.RESTITUTION)
 
     def run(fn, twin):
@@ -121,6 +179,103 @@ def test_solve_color_matches_twin_and_is_reproducible(cuda, pile, max_colors, bo
         assert not torch.equal(runs[0][1][..., :4], runs[0][2][..., :4])
 
 
+def _same(got, want, tol=0.0):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.is_floating_point:
+        assert float((got - want).abs().max()) <= tol
+    else:
+        assert torch.equal(got, want)
+
+
+def test_collider_aabbs_and_cell_keys_match_twin(cuda, settled):
+    b, col = settled.bodies, settled.colliders
+    args = (b, col, CONFIG.dt, float("inf"), 0.005)
+    for x, y in zip(ke.collider_aabbs(*args), ke.collider_aabbs_twin(*args)):
+        _same(x, y, 1e-6)
+    col2 = bp_m.update_aabbs(settled, CONFIG).colliders
+    cell, in_sweep, _ = bp_m.sweep_cell(col2)
+    got = ke.cell_keys(b, col2, cell, in_sweep)
+    for x, y in zip(got, ke.cell_keys_twin(b, col2, cell, in_sweep)):
+        _same(x, y, 1e-6)
+    assert int((got[0] != kb.SENTINEL).sum()) >= col.capacity - 1
+
+
+def test_contact_rows_match_twin(cuda, settled):
+    w2, pos, quat = bp_m.update_aabbs_and_poses(settled, CONFIG)
+    bp = bp_m.broad_phase(w2, CONFIG)
+    col, old = w2.colliders, w2.contacts
+    man, _ = compute_manifolds(col.shape_type, col.params, pos, quat, bp.collider_a.long(),
+                               bp.collider_b.long(), bp.valid, CONFIG.shape_pairs)
+    ks, s = torch.sort(torch.cat([old.pair_key, bp.pair_key]), stable=True)
+    hit, survives = kf.contact_join(ks, s, old.capacity)
+    for x, y in zip((hit, survives), kf.contact_join_twin(ks, s, old.capacity)):
+        _same(x, y)
+    assert int((hit > 0).sum()) > 0
+    minted = torch.cumsum((bp.valid & (hit == 0)).to(torch.int32), 0, dtype=torch.int32)
+    args = (w2.bodies, col, old, bp.valid, bp.collider_a, bp.collider_b, man, hit, survives,
+            minted - 1, np_m.row_params(CONFIG))
+    got, want = kf.contact_rows(*args), kf.contact_rows_twin(*args)
+    for name in kf.ROW_COLUMNS:
+        _same(got[name], want[name], 1e-6)
+    assert float(got["normal_impulse"].max()) > 0.0  # impulses were carried
+
+
+def _flags(world):
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, CONFIG)
+    contacts, _ = np_m.narrow_phase(w2, bp_m.broad_phase(w2, CONFIG), CONFIG, poses=(pos, quat))
+    s = sb_m.prepare(w2.bodies)
+    return w2, contacts, s, kh.constraint_flags(contacts, s.solve_mask)
+
+
+def test_color_edges_and_buckets_equal_twin(cuda, settled):
+    w2, contacts, s, (dyn_a, dyn_b, solve, _) = _flags(settled)
+    n = w2.bodies.capacity
+    for prev in (contacts.color, None):
+        args = (contacts.body_a, contacts.body_b, dyn_a, dyn_b, solve, n, 12, prev)
+        got, want = kg.color_edges(*args), kg.color_edges_twin(*args)
+        _same(got[0], want[0])
+        _same(got[1], want[1])
+    assert int(solve.sum()) > 0
+    color = got[0]
+    for cap in (2 * contacts.capacity // 12, 64):  # roomy, and too small
+        got_b = kg.bucket_edges(color, solve, 12, cap)
+        want_b = kg.bucket_edges_twin(color, solve, 12, cap)
+        for x, y in zip(got_b, want_b):
+            _same(x.reshape(-1), y.reshape(-1))
+    assert int(want_b[2]) > 0  # the small buckets dropped rows
+
+
+def test_run_rank_equals_twin(cuda):
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 5000, size=200_000)).astype(np.int32))
+    keys = keys.to(cuda)
+    _same(run_rank(keys), run_rank_twin(keys))
+
+
+def test_run_rank_equals_twin_on_the_island_table_s_keys(cuda, settled):
+    _, contacts, _, _ = _flags(settled)
+    keys = sleep_m.island_incidences(settled.bodies, contacts, settled.joints)[1]
+    rank = run_rank(keys)
+    _same(rank, run_rank_twin(keys))
+    assert int(rank.max()) > 0
+
+
+def test_pack_constraints_match_twin(cuda, settled):
+    w2, contacts, s, flags = _flags(settled)
+    for x, y in zip(flags, kh.constraint_flags_twin(contacts, s.solve_mask)):
+        _same(x, y)
+    dyn_a, dyn_b, solve, base_imp = flags
+    color, _ = kg.color_edges(contacts.body_a, contacts.body_b, dyn_a, dyn_b, solve,
+                              w2.bodies.capacity, 12, contacts.color)
+    buckets, valid, _, _ = kg.bucket_edges(color, solve, 12, 2 * contacts.capacity // 12)
+    soft = sol_m.contact_softness(CONFIG)
+    args = (w2.bodies, contacts, s, dyn_a, dyn_b, solve, base_imp, buckets, valid, *soft)
+    got, want = kh.pack_constraints(*args), kh.pack_constraints_twin(*args)
+    for x, y in zip(got, want):
+        _same(x, y, 1e-6)
+    assert int(valid.sum()) == int(solve.sum())
+
+
 def test_pile_step_launches_every_kernel(cuda):
     world, _ = scenes.cube_pile(216, max_contacts=16 * 216, device=cuda)
     kernels.reset_launches()
@@ -131,3 +286,23 @@ def test_pile_step_launches_every_kernel(cuda):
     assert counts["solve_color"] == 3 * (4 * 3 * 12 + 12)
     assert counts["box_manifold"] >= 3
     assert bool(torch.isfinite(world.bodies.pos).all())
+
+
+def test_pyramid_step_launches_all_eight_kernels(cuda):
+    world, _ = scenes.box_pyramid(20, max_contacts=24 * 211, device=cuda)
+    kernels.reset_launches()
+    for _ in range(3):
+        world = physics_step(world, CONFIG)
+    counts = kernels.launches()
+    assert counts["grid_sweep"] == 3 and counts["integrate_bodies"] == 3 * 2 * 4
+    assert counts["solve_color"] == 3 * (4 * 3 * 12 + 12)
+    assert counts["box_manifold"] == 3 * 2  # box/box and box/plane every step
+    assert counts["collider_aabbs"] == 3 * 2 and counts["contact_rows"] == 3 * 2
+    assert counts["color_edges"] == 3 * 15 and counts["pack_constraints"] == 3 * 3
+    assert bool(torch.isfinite(world.bodies.pos).all())
+    assert float(world.bodies.pos[:, 2].abs().max()) == 0.0  # the Z lock holds
+
+
+def test_default_device_is_the_card(cuda):
+    world, _ = scenes.cube_pile(8)
+    assert world.device.type == "cuda"

@@ -1,7 +1,7 @@
-"""Constraint preparation, coloring, the solver passes (Kernel D's twin on
-CPU), restitution, impulse storage and sleeping islands against the JAX
-reference, on a settled pile with the reference's own contacts as input.
-Colors, buckets and island labels exactly; the rest within 1e-5 abs after
+"""Constraint preparation, the solver passes (Kernel D's twin on CPU),
+restitution, impulse storage and sleeping islands against the JAX reference
+(the coloring's own cases are in ``cases_coloring.py``), on a settled pile
+with the reference's own contacts as input. Colors, buckets and island labels exactly; the rest within 1e-5 abs after
 one substep.
 
 Every case runs at ``max_colors=3``: the pile's 64 cubes then fill two
@@ -23,13 +23,13 @@ from avian_tpu.pipeline import solver as jsol
 from avian_tpu.pipeline import solver_body as jsb
 from avian_tpu_torch.core.state import Contacts as TContacts
 from avian_tpu_torch.kernels import solve_color as kd
-from avian_tpu_torch.pipeline import coloring as tcol
 from avian_tpu_torch.pipeline import integrator as tint
 from avian_tpu_torch.pipeline import sleeping as tsleep
 from avian_tpu_torch.pipeline import solver as tsol
 from avian_tpu_torch.pipeline import solver_body as tsb
 
-from port_common import pile_configs, settled_pile, to_jax, to_torch
+from port_common import (assert_packed_rows_close, pile_configs, settled_pile, to_jax,
+                         to_torch)
 
 TOL = 1e-5
 MAX_COLORS = 3
@@ -70,23 +70,6 @@ def _close(port, ref, name):
     np.testing.assert_allclose(_np(port), _np(ref), atol=TOL, rtol=0, err_msg=name)
 
 
-def _close_data(port, ref, valid):
-    """Packed constraint rows: per-row columns on valid rows, per-point
-    columns on the points that are solved (point mask > 0). Anchors of
-    points past ``num_points`` are leftovers of the manifold and carry no
-    meaning; their products may differ in rounding."""
-    port, ref, valid = _np(port), _np(ref), _np(valid)
-    on = ref[..., kd.PM:kd.PM + 4] > 0
-    for lo, hi in ((0, kd.AA), (kd.SV, kd.D)):
-        _close(port[valid][:, lo:hi], ref[valid][:, lo:hi], f"data {lo}:{hi}")
-    for base, width in ((kd.AA, 3), (kd.AB, 3), (kd.SEP, 1), (kd.NM, 1),
-                        (kd.TK, 3), (kd.NS, 1), (kd.PM, 1)):
-        for i in range(4):
-            cols = slice(base + width * i, base + width * (i + 1))
-            _close(port[..., cols][on[..., i]], ref[..., cols][on[..., i]],
-                   f"data {base} point {i}")
-
-
 def _velocities(ts, js, tag):
     _close(ts.lin_vel, js.lin_vel, f"{tag} lin_vel")
     _close(ts.ang_vel, js.ang_vel, f"{tag} ang_vel")
@@ -103,7 +86,8 @@ def test_prepare_and_one_substep_match(pile):
     ref = _ref_step_parts(to_jax(tw, template), jcfg)
     w2 = to_torch(ref["w2"])
     contacts = TContacts.from_numpy(
-        jax.tree.map(np.asarray, ref["contacts"]), n_colliders=w2.colliders.capacity
+        jax.tree.map(np.asarray, ref["contacts"]), n_colliders=w2.colliders.capacity,
+        device="cpu",
     )
     s = tsb.prepare(w2.bodies)
     h = tcfg.substep_dt
@@ -121,7 +105,7 @@ def test_prepare_and_one_substep_match(pile):
     assert int(con.overflow_dropped) == int(rc.overflow_dropped)
     assert int(con.num_overflow) == int(rc.num_overflow)
     _close(con.relax, rc.relax, "relax")
-    _close_data(con.data, rc.data, rc.bucket_valid)
+    assert_packed_rows_close(con.data, rc.data, rc.bucket_valid, TOL)
     _close(con.imp, rc.imp, "imp")
     assert int(rc.num_overflow) > 0 and float(_np(rc.relax).min()) < 1.0
     assert int(rc.bucket_valid[:-1].sum()) > 0  # proper colors are used too
@@ -161,7 +145,8 @@ def test_restitution_pass_bounces(pile):
     ref = _ref_step_parts(to_jax(tw, template), jcfg)
     w2 = to_torch(ref["w2"])
     contacts = TContacts.from_numpy(
-        jax.tree.map(np.asarray, ref["contacts"]), n_colliders=w2.colliders.capacity
+        jax.tree.map(np.asarray, ref["contacts"]), n_colliders=w2.colliders.capacity,
+        device="cpu",
     )
     s = tsb.prepare(w2.bodies)
     con = tsol.prepare_constraints(w2, contacts, s, tcfg)
@@ -176,42 +161,16 @@ def test_restitution_pass_bounces(pile):
     assert not np.allclose(_np(ref["imp_rest"]), _np(ref["imp_relax"]))
 
 
-def test_coloring_is_proper_and_matches_on_random_graph():
-    rng = np.random.default_rng(3)
-    e, n = 300, 60
-    a = rng.integers(0, n, size=e).astype(np.int32)
-    b = (a + rng.integers(1, n, size=e)).astype(np.int32) % n
-    dyn_a = rng.uniform(size=e) < 0.9
-    dyn_b = rng.uniform(size=e) < 0.9
-    mask = rng.uniform(size=e) < 0.95
-    prev = rng.integers(-1, 8, size=e).astype(np.int32)
-    from avian_tpu.pipeline.coloring import color_constraints as jcolor
-
-    ref, ref_ovf = jax.jit(jcolor, static_argnums=(5, 6))(a, b, dyn_a, dyn_b, mask, n, 8,
-                                                         prev_color=prev)
-    t = lambda x: torch.from_numpy(np.asarray(x))  # noqa: E731
-    col, ovf = tcol.color_constraints(t(a), t(b), t(dyn_a), t(dyn_b), t(mask), n, 8,
-                                      prev_color=t(prev))
-    np.testing.assert_array_equal(col.numpy(), np.asarray(ref))
-    np.testing.assert_array_equal(ovf.numpy(), np.asarray(ref_ovf))
-    # Proper: within a non-overflow color no dynamic body appears twice.
-    col = col.numpy()
-    for c in range(7):
-        sel = mask & (col == c)
-        ends = np.concatenate([a[sel & dyn_a], b[sel & dyn_b]])
-        assert len(ends) == len(set(ends.tolist()))
-
-
 def test_islands_and_sleeping_match(pile):
     tw, template = pile
     jcfg, tcfg = pile_configs(max_colors=MAX_COLORS)
     ref = _ref_step_parts(to_jax(tw, template), jcfg)
     jb, jc, jj = ref["w2"].bodies, ref["stored"], ref["w2"].joints
     tb = to_torch(ref["w2"]).bodies
-    tc = TContacts.from_numpy(jax.tree.map(np.asarray, jc), n_colliders=65)
+    tc = TContacts.from_numpy(jax.tree.map(np.asarray, jc), n_colliders=65, device="cpu")
     from avian_tpu_torch.core.state import Joints
 
-    tj = Joints.from_numpy(jax.tree.map(np.asarray, jj))
+    tj = Joints.from_numpy(jax.tree.map(np.asarray, jj), device="cpu")
     label, ovf = jax.jit(jsleep.compute_islands)(jb, jc, jj)
     tlabel, tovf = tsleep.compute_islands(tb, tc, tj)
     np.testing.assert_array_equal(tlabel.numpy(), np.asarray(label))

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import golden_common
+from port_common import assert_worlds_equal
 from avian_tpu import scenes as jscenes
 from avian_tpu.core import config as jconfig
 from avian_tpu.core import types as jtypes
@@ -51,40 +52,25 @@ def test_config_defaults_match(cls):
 def _scenes():
     ref_stack3, _ = golden_common.scenes()["stack3"]
     return {
-        "cube_pile_27": (jscenes.cube_pile(27)[0], tscenes.cube_pile(27)[0]),
+        "cube_pile_27": (jscenes.cube_pile(27)[0], tscenes.cube_pile(27, device="cpu")[0]),
         "cube_pile_27_16N": (
             jscenes.cube_pile(27, seed=3, max_contacts=16 * 27)[0],
-            tscenes.cube_pile(27, seed=3, max_contacts=16 * 27)[0],
+            tscenes.cube_pile(27, seed=3, max_contacts=16 * 27, device="cpu")[0],
         ),
-        "stack3": (ref_stack3, tscenes.stack3()[0]),
+        "stack3": (ref_stack3, tscenes.stack3(device="cpu")[0]),
     }
 
 
 @pytest.mark.parametrize("name", ["cube_pile_27", "cube_pile_27_16N", "stack3"])
 def test_scene_matches_reference_leaf_for_leaf(name):
     ref, port = _scenes()[name]
-    ref_np = jax.tree.map(np.asarray, ref)
-    port_np = port.to_numpy()
-    for group in ("bodies", "colliders", "contacts", "joints"):
-        ref_group = getattr(ref_np, group)
-        fields = [f.name for f in dataclasses.fields(ref_group)]
-        assert sorted(port_np[group]) == sorted(fields), group
-        for field in fields:
-            r = getattr(ref_group, field)
-            p = port_np[group][field]
-            assert p.dtype == r.dtype and p.shape == r.shape, (group, field)
-            np.testing.assert_array_equal(p, r, err_msg=f"{group}.{field}")
-    for leaf in ("gravity", "time", "diverged", "convex_verts"):
-        r = getattr(ref_np, leaf)
-        assert port_np[leaf].dtype == r.dtype and port_np[leaf].shape == r.shape
-        np.testing.assert_array_equal(port_np[leaf], r)
-    assert port.shape_pairs == tuple(tuple(int(x) for x in p) for p in ref.shape_pairs)
+    assert_worlds_equal(ref, port)
 
 
 def test_from_numpy_round_trip_and_port_dtypes():
     ref, _ = jscenes.cube_pile(8, max_contacts=64)
     tree = jax.tree.map(np.asarray, ref)
-    world = World.from_numpy(tree)
+    world = World.from_numpy(tree, device="cpu")
     assert world.colliders.layer_members.dtype == torch.int32
     assert int(world.colliders.layer_members[0]) == -1  # 0xFFFFFFFF
     assert world.contacts.pair_key.dtype == torch.int64
@@ -99,7 +85,7 @@ def test_from_numpy_round_trip_and_port_dtypes():
 
 
 def test_pair_key_rebuilt_as_int64_from_the_pair():
-    world, _ = tscenes.cube_pile(8, max_contacts=64)
+    world, _ = tscenes.cube_pile(8, max_contacts=64, device="cpu")
     c = world.contacts
     c = c.replace(
         active=torch.tensor([True] + [False] * 63),
@@ -119,9 +105,22 @@ def test_pair_key_rebuilt_as_int64_from_the_pair():
             setattr(obj, k, sub)
         else:
             setattr(obj, k, v)
-    rebuilt = World.from_numpy(obj)
+    rebuilt = World.from_numpy(obj, device="cpu")
     assert int(rebuilt.contacts.pair_key[0]) == 2 * 9 + 5
     assert int(rebuilt.contacts.pair_key[1]) == -1
+
+
+def test_entry_points_default_to_the_card_and_say_so_without_one():
+    """``device=None`` means CUDA; without a card that raises and names the
+    missing card, instead of quietly building a CPU world."""
+    assert not torch.cuda.is_available()  # these cases run on the CPU
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tscenes.cube_pile(8)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        World.zeros(4)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        World.from_numpy(jax.tree.map(np.asarray, jscenes.cube_pile(8, max_contacts=64)[0]))
+    assert tscenes.cube_pile(8, device="cpu")[0].device.type == "cpu"
 
 
 def test_builder_refuses_unported_shapes():

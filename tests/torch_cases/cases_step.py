@@ -54,7 +54,7 @@ def test_one_step_of_settled_pile_matches_reference():
 
 def test_stack3_first_200_steps_follow_the_golden():
     golden = np.load(GOLDEN)["pos"]
-    world, _ = scenes.stack3()
+    world, _ = scenes.stack3(device="cpu")
     config = PhysicsConfig(dt=1.0 / 64.0, max_colors=8)
     frames = []
     for i in range(200):
@@ -67,7 +67,7 @@ def test_stack3_first_200_steps_follow_the_golden():
 
 
 def _asleep_stack():
-    world, _ = scenes.stack3()
+    world, _ = scenes.stack3(device="cpu")
     b = world.bodies
     dyn = b.body_type == 1
     return world.replace(bodies=b.replace(
@@ -104,7 +104,7 @@ def test_velocity_written_to_a_sleeping_body_wakes_the_step():
 
 
 def test_nan_quarantine_freezes_and_flags():
-    world, _ = scenes.stack3()
+    world, _ = scenes.stack3(device="cpu")
     b = world.bodies
     lin = b.lin_vel.clone()
     lin[2, 1] = float("nan")
@@ -117,7 +117,7 @@ def test_nan_quarantine_freezes_and_flags():
 
 def test_rollout_and_determinism():
     config = pile_configs()[1]
-    world, _ = scenes.cube_pile(27, max_contacts=16 * 27)
+    world, _ = scenes.cube_pile(27, max_contacts=16 * 27, device="cpu")
     a = rollout(world, config, 6)
     b = world
     for _ in range(6):
@@ -128,13 +128,13 @@ def test_rollout_and_determinism():
 
 @pytest.mark.parametrize("case", ["swept_ccd", "hooks", "custom_joints", "custom_shapes", "joint"])
 def test_unported_features_raise(case):
-    world, _ = scenes.stack3()
+    world, _ = scenes.stack3(device="cpu")
     config = PhysicsConfig()
     kw = {}
     if case == "swept_ccd":
         config = PhysicsConfig(swept_ccd=True)
     elif case == "joint":
-        j = Joints.zeros(1)
+        j = Joints.zeros(1, device="cpu")
         world = world.replace(joints=j.replace(active=torch.ones(1, dtype=torch.bool)))
     else:
         kw[case] = (object(),) if case == "custom_shapes" else object()
@@ -150,7 +150,7 @@ def test_unported_shape_pair_raises():
     s = b.add_body(pos=(0.0, 0.4, 0.0))
     b.sphere(s, 0.5)
     jw = b.finalize(max_bodies=2, max_colliders=2, max_contacts=16)
-    world = World.from_numpy(jax.tree.map(np.asarray, jw))
+    world = World.from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
     with pytest.raises(NotImplementedError):
         physics_step(world, PhysicsConfig())
     assert to_torch(jw).colliders.shape_type.tolist() == [3, 0]

@@ -34,7 +34,7 @@ def pile_configs(**kw):
 
 
 def to_torch(jax_world) -> TWorld:
-    return TWorld.from_numpy(jax.tree.map(np.asarray, jax_world))
+    return TWorld.from_numpy(jax.tree.map(np.asarray, jax_world), device="cpu")
 
 
 def to_jax(port_world: TWorld, template):
@@ -57,7 +57,7 @@ def to_jax(port_world: TWorld, template):
     )
 
 
-def _resting_pile(builder, side, layers, seed):
+def _resting_pile(builder, side, layers, seed, **finalize_kw):
     """Unit cubes stacked in columns, resting face on face on the ground
     and on each other, with a seeded sideways jitter that makes the columns
     touch."""
@@ -74,7 +74,7 @@ def _resting_pile(builder, side, layers, seed):
                 builder.box(body, 0.5, 0.5, 0.5, friction=0.5)
     n = side * side * layers
     return builder.finalize(
-        max_bodies=n + 1, max_colliders=n + 1, max_contacts=16 * n
+        max_bodies=n + 1, max_colliders=n + 1, max_contacts=16 * n, **finalize_kw
     )
 
 
@@ -86,7 +86,21 @@ def settled_pile(side=4, layers=4, steps=6, seed=0):
     from avian_tpu_torch.core.builder import SceneBuilder as TBuilder
 
     template = _resting_pile(JBuilder(), side, layers, seed)
-    world = _resting_pile(TBuilder(), side, layers, seed)
+    world = _resting_pile(TBuilder(), side, layers, seed, device="cpu")
+    _, tcfg = pile_configs()
+    for _ in range(steps):
+        world = t_step(world, tcfg)
+    return world, template
+
+
+def settled_pyramid(base=6, steps=6, dim3_depth=False):
+    """A ``box_pyramid(base)`` stepped ``steps`` times by the port on CPU;
+    returns (port world, JAX template of the same scene)."""
+    from avian_tpu import scenes as jscenes
+    from avian_tpu_torch import scenes as tscenes
+
+    template, _ = jscenes.box_pyramid(base, dim3_depth=dim3_depth)
+    world, _ = tscenes.box_pyramid(base, dim3_depth=dim3_depth, device="cpu")
     _, tcfg = pile_configs()
     for _ in range(steps):
         world = t_step(world, tcfg)
@@ -115,3 +129,47 @@ def assert_columns(ref, port, atol=0.0, skip=(), only=None):
             np.testing.assert_allclose(p, r, rtol=0, atol=atol, err_msg=name)
         else:
             np.testing.assert_array_equal(p, r.astype(p.dtype), err_msg=name)
+
+
+def assert_worlds_equal(ref, port):
+    """A JAX world against the port's, leaf for leaf: names, dtypes, shapes
+    and values of every column, the world's own leaves and ``shape_pairs``."""
+    ref_np = jax.tree.map(np.asarray, ref)
+    port_np = port.to_numpy()
+    for group in ("bodies", "colliders", "contacts", "joints"):
+        ref_group = getattr(ref_np, group)
+        fields = [f.name for f in dataclasses.fields(ref_group)]
+        assert sorted(port_np[group]) == sorted(fields), group
+        for field in fields:
+            r = getattr(ref_group, field)
+            p = port_np[group][field]
+            assert p.dtype == r.dtype and p.shape == r.shape, (group, field)
+            np.testing.assert_array_equal(p, r, err_msg=f"{group}.{field}")
+    for leaf in ("gravity", "time", "diverged", "convex_verts"):
+        r = getattr(ref_np, leaf)
+        assert port_np[leaf].dtype == r.dtype and port_np[leaf].shape == r.shape
+        np.testing.assert_array_equal(port_np[leaf], r)
+    assert port.shape_pairs == tuple(tuple(int(x) for x in p) for p in ref.shape_pairs)
+
+
+def assert_packed_rows_close(port, ref, valid, tol):
+    """Packed constraint rows ``data[colors, cap, 88]``: per-row columns on
+    valid rows, per-point columns on the points that are solved (point mask
+    > 0). Anchors of points past ``num_points`` are leftovers of the manifold
+    and carry no meaning; their products may differ in rounding."""
+    from avian_tpu_torch.kernels import solve_color as kd
+
+    port, ref, valid = as_numpy(port), as_numpy(ref), as_numpy(valid)
+
+    def close(x, y, name):
+        np.testing.assert_allclose(x, y, atol=tol, rtol=0, err_msg=name)
+
+    on = ref[..., kd.PM:kd.PM + 4] > 0
+    for lo, hi in ((0, kd.AA), (kd.SV, kd.D)):
+        close(port[valid][:, lo:hi], ref[valid][:, lo:hi], f"data {lo}:{hi}")
+    for base, width in ((kd.AA, 3), (kd.AB, 3), (kd.SEP, 1), (kd.NM, 1),
+                        (kd.TK, 3), (kd.NS, 1), (kd.PM, 1)):
+        for i in range(4):
+            cols = slice(base + width * i, base + width * (i + 1))
+            close(port[..., cols][on[..., i]], ref[..., cols][on[..., i]],
+                  f"data {base} point {i}")
