@@ -1,7 +1,7 @@
 """Host-side scene construction (port of ``avian_tpu/core/builder.py``).
 
 The subset the ported scenes need: ``add_body``, ``add_body_2d``, ``box``,
-``half_space`` and ``finalize``. Everything is numpy until ``finalize``,
+``half_space``, ``add_joint``, ``revolute_joint`` and ``finalize``. Everything is numpy until ``finalize``,
 with the reference's mass properties and padding, so a scene built here
 equals the reference's leaf for leaf.
 """
@@ -14,7 +14,7 @@ import torch
 from avian_tpu_torch.core import types
 from avian_tpu_torch.core.device import resolve
 from avian_tpu_torch.core.state import World
-from avian_tpu_torch.core.types import BodyType, ShapeType
+from avian_tpu_torch.core.types import BodyType, JointType, ShapeType
 
 _INF = float("inf")
 _SUPPORTED = (ShapeType.BOX, ShapeType.PLANE)
@@ -97,6 +97,7 @@ class SceneBuilder:
     def __init__(self):
         self._bodies = []
         self._colliders = []
+        self._joints = []
         self.gravity = (0.0, -9.81, 0.0)
 
     def add_body(
@@ -202,6 +203,53 @@ class SceneBuilder:
         n = n / max(float(np.linalg.norm(n)), 1e-12)
         return self.add_collider(body, ShapeType.PLANE, tuple(n), **kw)
 
+    def add_joint(
+        self,
+        jtype: JointType,
+        body_a: int,
+        body_b: int,
+        anchor_a=(0.0, 0.0, 0.0),
+        anchor_b=(0.0, 0.0, 0.0),
+        basis_a=(0.0, 0.0, 0.0, 1.0),
+        basis_b=(0.0, 0.0, 0.0, 1.0),
+        compliance=(0.0, 0.0, 0.0, 0.0),
+        limit_min: float = 0.0,
+        limit_max: float = 0.0,
+        limit_enabled: bool = False,
+        twist_min: float = 0.0,
+        twist_max: float = 0.0,
+        twist_enabled: bool = False,
+        lin_damping: float = 0.0,
+        ang_damping: float = 0.0,
+        collision_disabled: bool = True,
+    ) -> int:
+        """Returns the joint index. The joint's frame on each body is
+        ``anchor_*`` (local position) and ``basis_*`` (local rotation, whose
+        Z is the primary axis and X the secondary)."""
+        self._joints.append(
+            dict(
+                jtype=int(jtype), body_a=body_a, body_b=body_b,
+                anchor_a=np.asarray(anchor_a, np.float32),
+                anchor_b=np.asarray(anchor_b, np.float32),
+                basis_a=_quat_np(basis_a), basis_b=_quat_np(basis_b),
+                compliance=np.asarray(compliance, np.float32),
+                limit_min=limit_min, limit_max=limit_max,
+                limit_enabled=limit_enabled, twist_min=twist_min,
+                twist_max=twist_max, twist_enabled=twist_enabled,
+                lin_damping=lin_damping, ang_damping=ang_damping,
+                collision_disabled=collision_disabled,
+            )
+        )
+        return len(self._joints) - 1
+
+    def revolute_joint(self, body_a, body_b, axis=(0.0, 0.0, 1.0), **kw):
+        """Hinge about ``axis``: unless bases are given, both are the
+        rotation taking local Z onto ``axis``."""
+        basis = _quat_from_z_to(np.asarray(axis, np.float32))
+        kw.setdefault("basis_a", basis)
+        kw.setdefault("basis_b", basis)
+        return self.add_joint(JointType.REVOLUTE, body_a, body_b, **kw)
+
     def shape_pairs(self):
         """Canonical (type_a, type_b) combinations this scene can produce."""
         present = sorted({cd["shape"] for cd in self._colliders})
@@ -219,12 +267,13 @@ class SceneBuilder:
     ) -> World:
         nb = len(self._bodies)
         nc = len(self._colliders)
+        nj = len(self._joints)
         n = max_bodies or max(nb, 1)
         m = max_colliders or max(nc, 1)
         c = max_contacts or max(8 * m, 64)
-        j = max_joints if max_joints is not None else 0
-        if nb > n or nc > m:
-            raise ValueError("capacity below the number of bodies/colliders")
+        j = max_joints if max_joints is not None else nj
+        if nb > n or nc > m or nj > j:
+            raise ValueError("capacity below the number of bodies/colliders/joints")
         device = resolve(device)
 
         # Assembled from numpy on the host, then moved to ``device`` once.
@@ -331,10 +380,55 @@ class SceneBuilder:
         else:
             bodies = world.bodies
 
+        joints = world.joints
+        if nj:
+            def jcol(key, dtype, fill=0.0):
+                return t(_pad(np.asarray([jd[key] for jd in self._joints], dtype), j, fill))
+
+            quat_a, quat_b = jcol("basis_a", np.float32), jcol("basis_b", np.float32)
+            quat_a[nj:, 3] = 1.0
+            quat_b[nj:, 3] = 1.0
+            joints = joints.replace(
+                jtype=jcol("jtype", np.int32),
+                body_a=jcol("body_a", np.int32),
+                body_b=jcol("body_b", np.int32),
+                active=t(np.arange(j) < nj),
+                frame_pos_a=jcol("anchor_a", np.float32),
+                frame_pos_b=jcol("anchor_b", np.float32),
+                frame_quat_a=quat_a,
+                frame_quat_b=quat_b,
+                compliance=jcol("compliance", np.float32),
+                limit_min=jcol("limit_min", np.float32),
+                limit_max=jcol("limit_max", np.float32),
+                limit_enabled=jcol("limit_enabled", bool, False),
+                twist_min=jcol("twist_min", np.float32),
+                twist_max=jcol("twist_max", np.float32),
+                twist_enabled=jcol("twist_enabled", bool, False),
+                lin_damping=jcol("lin_damping", np.float32),
+                ang_damping=jcol("ang_damping", np.float32),
+                collision_disabled=jcol("collision_disabled", bool, False),
+            )
+
         world = world.replace(
             bodies=bodies,
             colliders=colliders,
+            joints=joints,
             gravity=torch.tensor(self.gravity, dtype=torch.float32),
             shape_pairs=self.shape_pairs(),
         )
         return world.to(device)
+
+
+def _quat_from_z_to(axis):
+    """Quaternion rotating local +Z onto ``axis`` (reference
+    ``_quat_from_z_to``)."""
+    axis = axis / max(float(np.linalg.norm(axis)), 1e-12)
+    z = np.array([0.0, 0.0, 1.0], np.float32)
+    c = float(np.dot(z, axis))
+    if c > 1.0 - 1e-8:
+        return np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+    if c < -1.0 + 1e-8:
+        return np.array([1.0, 0.0, 0.0, 0.0], np.float32)  # 180 degrees about X
+    v = np.cross(z, axis)
+    s = math.sqrt((1.0 + c) * 2.0)
+    return np.array([v[0] / s, v[1] / s, v[2] / s, s / 2.0], np.float32)

@@ -315,8 +315,7 @@ class Contacts(_Columns):
 @dataclass(frozen=True)
 class Joints(_Columns):
     """Joint SoA columns; see ``avian_tpu/core/state.py::Joints``. The
-    port's step does not solve joints yet and refuses a world with an
-    active one."""
+    step solves all five joint types (``pipeline/xpbd.py``)."""
 
     jtype: torch.Tensor
     body_a: torch.Tensor

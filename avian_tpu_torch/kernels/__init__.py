@@ -7,7 +7,13 @@
 - ``collider_aabbs`` (Kernel E, CUDA): collider poses, AABBs and cell keys;
 - ``contact_rows`` (Kernel F, CUDA): contact persistence and warm-start carry;
 - ``color_edges`` (Kernel G, CUDA): edge coloring, bucketing and the run rank;
-- ``pack_constraints`` (Kernel H, CUDA): the packed constraint rows.
+- ``pack_constraints`` (Kernel H, CUDA): the packed constraint rows;
+- ``solve_joints`` (Kernel I, CUDA): the joint rows of a step and the XPBD
+  joint solver of a substep;
+- ``islands`` (Kernel J, CUDA): island labels and the sleep update;
+- ``body_pass`` (Kernel K, CUDA): solver-body prepare and writeback;
+- ``compact_pairs`` (Kernel L, CUDA): broadphase compaction, global pass,
+  joint probe and pair keys.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -24,6 +30,10 @@ from avian_tpu_torch.kernels import contact_rows as _f
 from avian_tpu_torch.kernels import color_edges as _g
 from avian_tpu_torch.kernels import pack_constraints as _h
 from avian_tpu_torch.kernels import run_rank as _r
+from avian_tpu_torch.kernels import solve_joints as _i
+from avian_tpu_torch.kernels import islands as _j
+from avian_tpu_torch.kernels import body_pass as _k
+from avian_tpu_torch.kernels import compact_pairs as _l
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -34,6 +44,10 @@ WRAPPERS = {
     "contact_rows": (_f.contact_join, _f.contact_rows),
     "color_edges": (_g.color_edges, _g.bucket_edges, _r.run_rank),
     "pack_constraints": (_h.constraint_flags, _h.pack_constraints),
+    "solve_joints": (_i.joint_rows, _i.joint_color, _i.joint_velocities),
+    "islands": (_j.island_table, _j.island_labels, _j.sleep_update),
+    "body_pass": (_k.prepare_bodies, _k.writeback_bodies),
+    "compact_pairs": (_l.compact_pairs,),
 }
 
 

@@ -55,6 +55,21 @@ _SIGNATURES = {
     "avian_pack_flags": [_I] + [_P] * 12 + [_P],
     "avian_pack_count": [_I] + [_P] * 7 + [_P],
     "avian_pack_rows": [_I] * 2 + [_P] * 30 + [_F] * 6 + [_P],
+    # Kernel I
+    "avian_joint_color": [_I] * 4 + [_P] * 11 + [_F] + [_P],
+    "avian_joint_velocities": [_I] * 2 + [_P] * 9 + [_F] + [_P],
+    "avian_joint_rows": [_I] + [_P] * 26 + [_P],
+    # Kernel J
+    "avian_island_table": [_I] * 2 + [_P] * 6 + [_P],
+    "avian_island_labels": [_I] * 2 + [_P] * 3 + [_P],
+    "avian_sleep_update": [_I] + [_P] * 20 + [_F] * 4 + [_P],
+    # Kernel K
+    "avian_prepare_bodies": [_I] + [_P] * 31 + [_F] + [_P],
+    "avian_writeback_bodies": [_I] + [_P] * 15 + [_P],
+    # Kernel L
+    "avian_pair_counts": [_I] * 4 + [_P] * 16 + [_P],
+    "avian_pair_slots": [_I] * 4 + [_P] * 9 + [_P],
+    "avian_pair_finish": [_I] * 6 + [_P] * 14 + [_P],
 }
 
 

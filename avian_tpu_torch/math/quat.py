@@ -57,6 +57,12 @@ def from_scaled_axis(v):
     return torch.cat([v * s[..., None], w[..., None]], dim=-1)
 
 
+def from_axis_angle(axis, angle):
+    """Quaternion rotating by ``angle`` about the unit ``axis``."""
+    half = 0.5 * angle
+    return torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
 def to_mat3(q):
     """Rotation matrix ``[..., 3, 3]`` from quaternion."""
     x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

@@ -6,22 +6,24 @@ in-grid AABB extent, up to 8 cell entries per collider, a stable sort of
 the packed cell keys, a same-cell window sweep with canonical-cell
 deduplication (Kernel B, ``kernels/grid_sweep.py``), compaction in
 (entry, window position) order, then a dense pass against at most 16
-"global" colliders (half-spaces and colliders > 4x the median extent).
+"global" colliders (half-spaces and colliders > 4x the median extent), and
+the pairs of two bodies joined by a ``collision_disabled`` joint dropped.
 Slots, pair keys and ``dropped`` match the reference exactly. Poses, AABBs
-and key emission are Kernel E (``kernels/collider_aabbs.py``); the sort is
-``torch.sort`` (the reference calls ``lax.sort`` there); the extent
-reductions, the compaction and the global pass are plain PyTorch.
+and key emission are Kernel E (``kernels/collider_aabbs.py``); the sorts are
+``torch.sort`` (the reference calls ``lax.sort`` there); compaction, the
+global pass, the joint probe and the keys are Kernel L
+(``kernels/compact_pairs.py``), with no read to the host.
 """
 
 from dataclasses import dataclass
 
 import torch
 
-from avian_tpu_torch.core import types
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.state import World
 from avian_tpu_torch.geometry import shapes
 from avian_tpu_torch.kernels import collider_aabbs as ke
+from avian_tpu_torch.kernels import compact_pairs as kl
 from avian_tpu_torch.kernels import grid_sweep as kb
 
 MAX_GLOBALS = 16
@@ -122,79 +124,27 @@ def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
     )
 
 
+def compaction_args(world: World, g: GridEntries, bits, rank) -> tuple:
+    """Kernel L's arguments after Kernel B's sweep: the global colliders of
+    the dense pass (at most MAX_GLOBALS, lowest index first), the colliders'
+    filter columns and the joint-disabled body pairs."""
+    col = world.colliders
+    score = (g.is_global & col.active).to(torch.int32)
+    g_idx = torch.argsort(-score, stable=True)[:min(MAX_GLOBALS, col.capacity)].contiguous()
+    g_valid = (score[g_idx] > 0).contiguous()
+    global_overflow = torch.clamp(score.sum() - g_idx.shape[0], min=0).to(torch.int64)
+    n_bodies = world.bodies.capacity
+    return (
+        bits, rank, g.skey, g.scol.contiguous(), g.window,
+        kl.Colliders(col.aabb_min, col.aabb_max, col.active, g.is_global, g.dyn,
+                     col.body_idx, col.layer_members, col.layer_filter),
+        g_idx, g_valid, global_overflow, kl.joint_keys(world.joints, n_bodies), n_bodies,
+        world.contacts.capacity,
+    )
+
+
 def broad_phase(world: World, config: PhysicsConfig) -> BroadPhaseResult:
     """Grid cell-list broadphase (reference ``broad_phase`` :179)."""
-    col = world.colliders
-    m = col.capacity
-    c_cap = world.contacts.capacity
-    dev = col.aabb_min.device
     g = grid_entries(world, config)
-    w = g.window
-    n_e = g.skey.shape[0]
-
-    bits, rank = kb.grid_sweep(g.skey, g.sf, g.si, w)
-    window_overflow = ((rank > w) & (g.skey != kb.SENTINEL)).sum()
-
-    # Compaction in (entry, k) order: row-major nonzero of the bit matrix.
-    shifts = torch.arange(w, dtype=torch.int32, device=dev)
-    cand = ((bits[:, None] >> shifts[None, :]) & 1) != 0
-    e_idx, k_idx = torch.nonzero(cand, as_tuple=True)
-    total_grid = e_idx.shape[0]
-    n_grid = min(total_grid, c_cap)
-    ga = g.scol[e_idx[:n_grid]]
-    gb = g.scol[torch.clamp(e_idx[:n_grid] + k_idx[:n_grid] + 1, max=n_e - 1)]
-
-    # Dense pass of the global colliders against every collider.
-    g_cap = min(MAX_GLOBALS, m)
-    g_score = (g.is_global & col.active).to(torch.int32)
-    g_idx = torch.argsort(-g_score, stable=True)[:g_cap]
-    g_valid = g_score[g_idx] > 0
-    global_overflow = torch.clamp(g_score.sum() - g_cap, min=0)
-    all_i = torch.arange(m, device=dev)
-    body = col.body_idx
-    mem, fil = col.layer_members, col.layer_filter
-    g_overlap = (
-        (col.aabb_min[g_idx][:, None, :] <= col.aabb_max[None, :, :])
-        & (col.aabb_min[None, :, :] <= col.aabb_max[g_idx][:, None, :])
-    ).all(dim=-1)
-    glob_ok = (
-        g_valid[:, None]
-        & col.active[None, :]
-        & (g_idx[:, None] != all_i[None, :])
-        & (~g.is_global[None, :] | (all_i[None, :] < g_idx[:, None]))
-        & g_overlap
-        & (body[g_idx][:, None] != body[None, :])
-        & ((mem[g_idx][:, None] & fil[None, :]) != 0)
-        & ((mem[None, :] & fil[g_idx][:, None]) != 0)
-        & (g.dyn[g_idx][:, None] | g.dyn[None, :])
-    )
-    gl_id = torch.nonzero(glob_ok.reshape(-1), as_tuple=True)[0]
-    total_glob = gl_id.shape[0]
-    n_glob = max(0, min(total_glob, c_cap - total_grid))
-    gl_id = gl_id[:n_glob]
-
-    ca = torch.zeros((c_cap,), dtype=torch.int64, device=dev)
-    cb = torch.zeros((c_cap,), dtype=torch.int64, device=dev)
-    got = torch.zeros((c_cap,), dtype=torch.bool, device=dev)
-    ca[:n_grid] = ga
-    cb[:n_grid] = gb
-    got[:n_grid] = True
-    if n_glob:
-        ca[total_grid:total_grid + n_glob] = gl_id % m
-        cb[total_grid:total_grid + n_glob] = g_idx[gl_id // m]
-        got[total_grid:total_grid + n_glob] = True
-
-    lo = torch.minimum(ca, cb)
-    hi = torch.maximum(ca, cb)
-    key = torch.where(got, lo * m + hi, -1)
-    dropped = (
-        max(total_grid + total_glob - c_cap, 0) + window_overflow + global_overflow
-    )
-    return BroadPhaseResult(
-        collider_a=ca.to(torch.int32),
-        collider_b=cb.to(torch.int32),
-        pair_key=key,
-        valid=got,
-        num_pairs=got.sum().to(torch.int32),
-        dropped=dropped.to(torch.int32),
-    )
+    bits, rank = kb.grid_sweep(g.skey, g.sf, g.si, g.window)
+    return BroadPhaseResult(*kl.compact_pairs(*compaction_args(world, g, bits, rank)))

@@ -2,12 +2,13 @@
 
 Staged like the reference: update_aabbs -> broadphase -> narrowphase ->
 prepare (solver bodies, velocity increments, contact constraints with
-coloring) -> substeps [integrate velocities -> warm start -> biased solve
--> integrate positions -> relax solve] -> restitution -> store impulses
--> writeback -> force clear -> sleeping -> NaN quarantine.
+coloring, joints) -> substeps [integrate velocities -> warm start -> biased
+solve -> integrate positions -> relax solve -> XPBD joints -> joint
+damping] -> restitution -> store impulses and joint forces -> writeback and
+force clear -> sleeping -> NaN quarantine.
 
-The slice covers box/box and box/plane worlds without joints. The step
-raises ``NotImplementedError`` for an active joint, ``config.swept_ccd``,
+The slice covers box/box and box/plane worlds with joints of all five
+types. The step raises ``NotImplementedError`` for ``config.swept_ccd``,
 ``hooks``, ``custom_joints`` or ``custom_shapes``, and the narrowphase
 raises for any other shape pair; nothing is skipped silently.
 """
@@ -25,6 +26,7 @@ from avian_tpu_torch.pipeline import integrator as int_m
 from avian_tpu_torch.pipeline import sleeping as sleep_m
 from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
+from avian_tpu_torch.pipeline import xpbd as xpbd_m
 
 
 @dataclass(frozen=True)
@@ -36,6 +38,7 @@ class Prepared:
     s: sb_m.SolverState
     table: torch.Tensor                # Kernel C's per-body constants
     con: sol_m.ContactConstraints
+    jcon: xpbd_m.JointConstraints | None  # None for a world without joint slots
     num_pairs: torch.Tensor
     dropped: torch.Tensor
     manifold_pairs: dict               # Kernel A kind -> pairs launched on
@@ -50,8 +53,6 @@ def _check_supported(world, config, hooks, custom_joints, custom_shapes):
         raise NotImplementedError("custom shapes are not ported yet")
     if config.swept_ccd:
         raise NotImplementedError("swept CCD is not ported yet")
-    if world.joints.capacity > 0 and bool(world.joints.active.any()):
-        raise NotImplementedError("joints are not ported yet")
 
 
 def prepare_step(world: World, config: PhysicsConfig) -> Prepared:
@@ -60,11 +61,11 @@ def prepare_step(world: World, config: PhysicsConfig) -> Prepared:
     world2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
     bp = bp_m.broad_phase(world2, config)
     contacts, sizes = np_m.narrow_phase(world2, bp, config, poses=(pos, quat))
-    s = sb_m.prepare(world2.bodies)
-    inc = int_m.pre_process_velocity_increments(world2.bodies, world2.gravity, h)
-    table = int_m.integration_table(world2.bodies, inc)
+    s, table = sb_m.prepare_with_table(world2.bodies, world2.gravity, h)
     con = sol_m.prepare_constraints(world2, contacts, s, config)
-    return Prepared(world2, contacts, s, table, con, bp.num_pairs, bp.dropped, sizes)
+    jcon = (xpbd_m.prepare_joints(world2, s, config)
+            if world2.joints.capacity > 0 else None)
+    return Prepared(world2, contacts, s, table, con, jcon, bp.num_pairs, bp.dropped, sizes)
 
 
 def _core(world: World, config: PhysicsConfig):
@@ -77,14 +78,17 @@ def _core(world: World, config: PhysicsConfig):
         s, con = sol_m.solve_pass(s, con, True, config)
         s = int_m.integrate_positions(s, p.table, h)
         s, con = sol_m.solve_pass(s, con, False, config)
+        if p.jcon is not None:
+            s = xpbd_m.solve_position_constraints(s, p.jcon, h, config)
     s, con = sol_m.solve_restitution(s, con, config)
     contacts = sol_m.store_impulses(p.contacts, con)
-    bodies = sb_m.writeback(p.world.bodies, s)
-    z3 = torch.zeros_like(bodies.force)
-    bodies = bodies.replace(force=z3, torque=z3)
-    bodies = sleep_m.update_sleeping(bodies, contacts, p.world.joints, config)
+    joints = p.world.joints
+    if p.jcon is not None:
+        joints = xpbd_m.store_joint_forces(joints, p.jcon, config)
+    bodies = sb_m.writeback(p.world.bodies, s)  # also clears force and torque
+    bodies = sleep_m.update_sleeping(bodies, contacts, joints, config)
     new_world = p.world.replace(
-        bodies=bodies, contacts=contacts, time=p.world.time + config.dt
+        bodies=bodies, contacts=contacts, joints=joints, time=p.world.time + config.dt
     )
     num_points = torch.where(contacts.touching, contacts.num_points, 0).sum()
     stats = {

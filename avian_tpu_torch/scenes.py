@@ -1,5 +1,5 @@
 """Scenes of the ported slices (port of ``avian_tpu/scenes.py::cube_pile``,
-``box_pyramid`` and ``many_pyramids``, and the ``stack3`` golden scene of
+``box_pyramid``, ``many_pyramids`` and ``falling_hinges``, and the ``stack3`` golden scene of
 ``tests/golden_common.py``). ``device=None`` builds the world on the card
 (``core.device.default_device``); pass ``device="cpu"`` for the CPU."""
 
@@ -8,7 +8,7 @@ import math
 import numpy as np
 
 from avian_tpu_torch.core.builder import SceneBuilder
-from avian_tpu_torch.core.types import BodyType
+from avian_tpu_torch.core.types import BodyType, JointType
 
 
 def cube_pile(
@@ -137,3 +137,66 @@ def many_pyramids(grid: int = 10, base: int = 10, half: float = 0.5,
             z_off = (gy - grid / 2) * 4.0 if dim3 else 0.0
             ids += _pyramid_rows(b, base, half, x_off, y_off, z_off, planar=not dim3)
     return _finalize_boxes(b, ids, max_contacts, device)
+
+
+def _hinge_rows(b, rows, cols, half, x0=0.0):
+    """``rows x cols`` boxes with locked axes, each hinged to its neighbour
+    in the row, left edge at ``x0 - cols * half``; returns the body ids."""
+    size = 2.0 * half
+    ids = []
+    for r in range(rows):
+        prev = None
+        for c in range(cols):
+            body = b.add_body_2d(
+                pos=(x0 + c * size * 1.05 - 0.5 * cols * size, 2.0 + r * size * 1.2)
+            )
+            b.box(body, half, half, half, friction=0.6)
+            ids.append(body)
+            if prev is not None:
+                b.add_joint(
+                    JointType.REVOLUTE, prev, body,
+                    anchor_a=(half, half, 0.0), anchor_b=(-half, half, 0.0),
+                    basis_a=(0.0, 0.0, 0.0, 1.0), basis_b=(0.0, 0.0, 0.0, 1.0),
+                )
+            prev = body
+    return ids
+
+
+def _finalize_hinges(b, ids, n_joints, max_contacts, device):
+    n = len(ids) + 1
+    world = b.finalize(
+        max_bodies=n, max_colliders=n, max_contacts=max_contacts or max(8 * n, 64),
+        max_joints=max(n_joints, 1), device=device,
+    )
+    return world, ids
+
+
+def falling_hinges(rows: int = 30, cols: int = 4, half: float = 0.25,
+                   max_contacts: int | None = None, device=None):
+    """Box2D's FallingHinges, the reference's cross-platform determinism
+    scene (``src/tests/determinism_2d.rs:28-60``): ``rows x cols`` falling
+    boxes with locked axes (the 2D profile) over a ground plane, each box
+    hinged to its neighbour in the row by a revolute joint about Z. Returns
+    (world, ids)."""
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    ids = _hinge_rows(b, rows, cols, half)
+    return _finalize_hinges(b, ids, rows * (cols - 1), max_contacts, device)
+
+
+def hinge_blocks(blocks: int, rows: int = 30, cols: int = 4, half: float = 0.25,
+                 max_contacts: int | None = None, device=None):
+    """``blocks`` copies of ``falling_hinges(rows, cols)`` side by side over
+    one ground plane, a box width apart: the reference's determinism scene at
+    the scale of many bodies. ``hinge_blocks(1, ...)`` is
+    ``falling_hinges(...)``. Returns (world, ids)."""
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    size = 2.0 * half
+    pitch = cols * size * 1.05 + size
+    ids = []
+    for k in range(blocks):
+        ids += _hinge_rows(b, rows, cols, half, x0=(k - (blocks - 1) / 2) * pitch)
+    return _finalize_hinges(b, ids, blocks * rows * (cols - 1), max_contacts, device)

@@ -3,20 +3,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the eight kernels against its plain PyTorch twin at the main paths' shapes
+the twelve kernels against its plain PyTorch twin at the main paths' shapes
 (the 10,000-cube pile after 60 steps; the base-100 box pyramid after 2 steps,
-when most of its constraints sit in the overflow colour, and after 30),
-steps the ``stack3`` golden scene against ``tests/golden/stack3.npz``, drives
-the two main paths through ``physics_step`` (the pile with 160,000 contact
-slots for 180 steps; the 5,050-box pyramid for 120 steps, then 30 steps each
-of its free 3D variant and of 10 x 10 pyramids of base 10) and checks that
-every kernel carried them, steps the pyramid once more with every kernel
-replaced by its plain version and holds the kernels' trajectory to that one,
-and checks that two runs are bitwise equal. Each phase prints one line; the
-line before the last is a JSON object with each kernel's launches, error,
-times and bound, and the last line is ``{"ok": true, "device": {...}}``. Any
-failure raises, and the script exits non-zero without that line. It takes no
-arguments, needs a CUDA card and imports nothing of JAX.
+when most of its constraints sit in the overflow colour, and after 30; the
+30 x 334 hinged boxes after 30 steps), steps the ``stack3`` and
+``falling_hinges`` golden scenes against ``tests/golden/``, drives the three
+main paths through ``physics_step`` (the pile with 160,000 contact slots for
+180 steps; the 5,050-box pyramid for 120 steps, then 30 steps each of its
+free 3D variant and of 10 x 10 pyramids of base 10; the 10,020 hinged boxes
+with 9,990 revolute joints for 120 steps) and checks that every kernel
+carried them, steps the pyramid and the hinged boxes once more with every
+kernel replaced by its plain version and holds the kernels' trajectories to
+those, and checks that two runs are bitwise equal. Each phase prints one
+line; the line before the last is a JSON object with each kernel's launches,
+error, times and bound, and the last line is ``{"ok": true, "device":
+{...}}``. Any failure raises, and the script exits non-zero without that
+line. It takes no arguments, needs a CUDA card and imports nothing of JAX.
 """
 
 import contextlib
@@ -33,23 +35,29 @@ import torch
 from avian_tpu_torch import kernels, scenes
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.types import BodyType, ShapeType
+from avian_tpu_torch.kernels import body_pass as kk
 from avian_tpu_torch.kernels import box_manifold as ka
 from avian_tpu_torch.kernels import build
+from avian_tpu_torch.kernels import compact_pairs as kl
 from avian_tpu_torch.kernels import grid_sweep as kb
 from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.kernels import color_edges as kg
 from avian_tpu_torch.kernels import contact_rows as kf
 from avian_tpu_torch.kernels import integrate_bodies as kc
+from avian_tpu_torch.kernels import islands as kj
 from avian_tpu_torch.kernels import pack_constraints as kh
 from avian_tpu_torch.kernels import run_rank as kr
 from avian_tpu_torch.kernels import solve_color as kd
+from avian_tpu_torch.kernels import solve_joints as ki
 from avian_tpu_torch.pipeline import broadphase as bp_m
 from avian_tpu_torch.pipeline import contacts as np_m
 from avian_tpu_torch.pipeline import sleeping as sleep_m
 from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
+from avian_tpu_torch.pipeline import xpbd as xpbd_m
 from avian_tpu_torch.pipeline.step import physics_step, prepare_step
 from avian_tpu_torch.geometry.narrowphase import compute_manifolds, manifold_buckets
+from avian_tpu_torch.math import quat as quat_m
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_CUBES = 10_000
@@ -62,6 +70,11 @@ PILE_CONFIG = PhysicsConfig(
 )
 GOLDEN_CONFIG = PhysicsConfig(dt=1.0 / 64.0, max_colors=8)
 GOLDEN_STEPS, GOLDEN_STRIDE, GOLDEN_TOL = 500, 10, 1e-3
+# The hinged golden parts from the reference's trajectory after step 40 on
+# the CPU too: the boxes land at step 37 and the impacts amplify last-bit
+# differences about twofold a step, as they amplify a 1-ulp nudge of the
+# reference's own start (ROADMAP 3a). Its frames up to step 40 are held.
+HINGE_GOLDEN_HELD_STEPS = 40
 TOL_A, TOL_C_REL, TOL_D = 1e-5, 1e-6, 1e-5
 # E, F, H: every integer and boolean output equal to the twin's, floats within
 # 1e-6 (they come out bit-equal: the kernels spell the twins' operation order
@@ -82,11 +95,14 @@ PYRAMID_OVERFLOW_STEPS, PYRAMID_KERNEL_STEPS = 2, 30
 PYRAMID_STEPS = 120
 # The pyramid on the kernels against the pyramid on their plain versions: the
 # same rows in the overflow colour for the first 8 steps, every box within
-# 2 mm for the first 10, and the apex within 5 cm for all 40. The falling
+# 2 mm for the first 10, and the apex within 5 cm for all 20. The falling
 # pyramid amplifies Kernel D's last-bit differences (1e-6 m at step 5, 6e-4 m
 # at step 10 and 0.1 m for the worst box at step 40 in the run these limits
-# were set from, where the apexes parted by at most 0.018 m).
-PLAIN_STEPS, PLAIN_EXACT_STEPS, PLAIN_TIGHT_STEPS = 40, 8, 10
+# were set from). Past step 25 the apexes part by what the plain versions'
+# unordered index_add_ sums happen to give (0.009, 0.018 and 0.069 m at step
+# 40 in three runs), so the path stops at step 20, which also makes room for
+# the hinged boxes' plain path.
+PLAIN_STEPS, PLAIN_EXACT_STEPS, PLAIN_TIGHT_STEPS = 20, 8, 10
 PLAIN_TOL, PLAIN_APEX_TOL = 2e-3, 0.05
 VARIANT_STEPS = 30
 MANY_GRID, MANY_BASE = 10, 10
@@ -113,6 +129,26 @@ PYRAMID3D_MAX_DX, PYRAMID3D_MAX_APEX_DY = 0.15, 1.25
 MANY_MAX_DX, MANY_MAX_APEX_DY = 0.1, 0.15
 MANY_MAX_DROP = 1.3
 
+# The hinged-box path: 84 copies side by side of the reference's FallingHinges
+# (30 rows of 4 boxes, its spacing and its neighbourhood per box): 10,080
+# boxes, 7,560 revolute joints, 16 contact slots a box. One scene of 30 rows
+# 334 boxes wide flies apart in the reference itself: every hinge starts 2.5
+# cm stretched, and a row of 40 already throws its boxes 1.2 m apart by step
+# 3 on the CPU (ROADMAP 3b); phase ``hinges`` prints what that layout does
+# on the card.
+HINGE_BLOCKS, HINGE_ROWS, HINGE_COLS, HINGE_SLOTS_PER_BOX = 84, 30, 4, 16
+WIDE_ROW_COLS, WIDE_ROW_STEPS = 334, 10
+HINGE_KERNEL_STEPS, HINGE_STEPS = 30, 120
+# Every joint's two world anchors within this of each other (m), the
+# tolerance tests/test_e2e.py holds a hinge to.
+HINGE_ANCHOR_TOL = 0.02
+# The hinged boxes on the kernels against their plain versions: the rows in
+# the overflow colour (contacts and joints) equal for 8 steps, every box
+# within 2 mm for 10 steps (the pyramid's gates, set before the first run).
+HINGE_PLAIN_STEPS = 20
+DETERMINISM_HINGE_ROWS, DETERMINISM_HINGE_COLS = 30, 4
+TOL_I_REL = 1e-6  # the overflow colour's and the damping's sums reordered
+
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, taken for the
 # integer work as well.
@@ -135,19 +171,34 @@ REPLACES = {
                     "avian_tpu/pipeline/coloring.py:41"),
     "pack_constraints": ("cuda", "avian_tpu_torch/csrc/pack_constraints.cu",
                          "avian_tpu/pipeline/solver.py:158"),
+    "solve_joints": ("cuda", "avian_tpu_torch/csrc/solve_joints.cu",
+                     "avian_tpu/pipeline/xpbd.py:283"),
+    "islands": ("cuda", "avian_tpu_torch/csrc/islands.cu",
+                "avian_tpu/pipeline/sleeping.py:33"),
+    "body_pass": ("cuda", "avian_tpu_torch/csrc/body_pass.cu",
+                  "avian_tpu/pipeline/solver_body.py:85"),
+    "compact_pairs": ("cuda", "avian_tpu_torch/csrc/compact_pairs.cu",
+                      "avian_tpu/pipeline/broadphase.py:347"),
 }
-# Launches of each kernel in one full step (Kernel A: one per shape pair
-# present, counted from the step's diagnostics). G: 13 of the coloring, 1 of
-# the bucketing, 1 run rank of the island table.
+# Launches of each kernel in one full step of a world with (``j``) or
+# without joint slots (Kernel A: one per shape pair present, counted from the
+# step's diagnostics). G: 13 of the contacts' coloring (and 13 more of the
+# joints'), 1 of the bucketing, 1 run rank of the island table. I: the
+# joint rows, then one per joint colour and one for the velocities, every
+# substep.
 STEP_LAUNCHES = {
-    "grid_sweep": lambda cfg: 1,
-    "integrate_bodies": lambda cfg: 2 * cfg.substeps,
-    "solve_color": lambda cfg: (cfg.substeps * 3 + cfg.solver.restitution_iterations)
+    "grid_sweep": lambda cfg, j: 1,
+    "integrate_bodies": lambda cfg, j: 2 * cfg.substeps,
+    "solve_color": lambda cfg, j: (cfg.substeps * 3 + cfg.solver.restitution_iterations)
     * cfg.max_colors,
-    "collider_aabbs": lambda cfg: 2,
-    "contact_rows": lambda cfg: 2,
-    "color_edges": lambda cfg: 5 + 2 * kg.ASSIGN_ROUNDS + 1 + 1,
-    "pack_constraints": lambda cfg: 3,
+    "collider_aabbs": lambda cfg, j: 2,
+    "contact_rows": lambda cfg, j: 2,
+    "color_edges": lambda cfg, j: (5 + 2 * kg.ASSIGN_ROUNDS) * (2 if j else 1) + 1 + 1,
+    "pack_constraints": lambda cfg, j: 3,
+    "solve_joints": lambda cfg, j: 1 + cfg.substeps * (cfg.max_colors + 1) if j else 0,
+    "islands": lambda cfg, j: 3,
+    "body_pass": lambda cfg, j: 2,
+    "compact_pairs": lambda cfg, j: 3,
 }
 
 
@@ -477,16 +528,17 @@ def kernels_efgh(world, config):
         f_join(ks, s, c_cap)
         f_rows(*f_in)
 
+    # hit, survives and the minted ids pass between F's own two launches.
     out["contact_rows"] = measured(
         err_f, lambda: run_f(kf.contact_join, kf.contact_rows),
         lambda: run_f(kf.contact_join_twin, kf.contact_rows_twin),
-        nbytes(ks, s, hit)
+        nbytes(ks, s)
         + nbytes(bp.valid, bp.collider_a, bp.collider_b, man.point_a, man.point_b,
                  man.separation, man.feature_id, man.count, col.body_idx,
                  col.speculative_margin, col.collision_margin, col.friction,
                  col.static_friction, col.restitution, col.friction_combine,
                  col.restitution_combine, col.is_sensor, b.pos, b.quat, b.com, b.lin_vel,
-                 minted, old.active, old.touching, old.color, old.contact_id,
+                 old.active, old.touching, old.color, old.contact_id,
                  old.feature_id, old.anchor_a, old.normal_impulse, old.tangent_impulse,
                  old.num_points, old.body_a, old.body_b, *rows.values()),
         500 * c_cap,
@@ -550,13 +602,14 @@ def kernels_efgh(world, config):
         f_flags(contacts, sbody.solve_mask)
         f_pack(*h_in)
 
+    # The flags pass between H's own launches; body_a/b are read once.
     wb = w2.bodies
     out["pack_constraints"] = measured(
         err_h, lambda: run_h(kh.constraint_flags, kh.pack_constraints),
         lambda: run_h(kh.constraint_flags_twin, kh.pack_constraints_twin),
         nbytes(contacts.body_a, contacts.body_b, contacts.active, contacts.touching,
                contacts.is_sensor, sbody.solve_mask, contacts.normal_impulse,
-               contacts.tangent_impulse, *flags)
+               contacts.tangent_impulse)
         + nbytes(buckets, bucket_valid, contacts.normal, contacts.anchor_a, contacts.anchor_b, contacts.penetration,
                  contacts.num_points, contacts.friction, contacts.restitution,
                  contacts.static_friction, contacts.surface_velocity,
@@ -567,6 +620,196 @@ def kernels_efgh(world, config):
     note = (f"{int(bp.num_pairs)} pairs, {matched} continued, {int(solve.sum())} solved, "
             f"{carried} colours kept, {int(ovf.sum())} in the overflow colour")
     return out, note
+
+
+def island_rounds_to_converge(neighbors, label):
+    """How many more Jacobi rounds the labels need to stop changing, and how
+    many bodies' labels the 10 rounds left short of that."""
+    n = neighbors.shape[0]
+    pad = torch.full((1,), n, dtype=torch.int32, device=neighbors.device)
+    nb = neighbors.long()
+    lab, rounds = label.clone(), 0
+    while rounds < 10_000:
+        step = torch.minimum(lab, torch.cat([lab, pad])[nb].amin(dim=1))
+        step = torch.minimum(step, step[step.long()])
+        if torch.equal(step, lab):
+            break
+        lab, rounds = step, rounds + 1
+    return rounds, int((lab != label).sum())
+
+
+def joint_substep(jc, colors, h, twin, state, lam, upto=None, velocities=True):
+    """Kernel I (or its twin) through the joint colours ``0 .. upto - 1`` and
+    the velocities of one substep, on ``state`` and ``lam`` in place."""
+    pre = state[:, 6:13].clone()
+    for c in range(colors if upto is None else upto):
+        if twin:
+            ki.joint_color_twin(c, state, jc.data, lam, jc.jtype, jc.body_a, jc.body_b, jc.color,
+                                jc.mask, h * h)
+        else:
+            ki.joint_color(c, c == colors - 1, state, jc.data, lam, jc.jtype, jc.body_a,
+                           jc.body_b, jc.color, jc.mask, jc.ovf_order, jc.ovf_key, h * h)
+    if velocities and twin:
+        ki.joint_velocities_twin(state, pre, jc.data, jc.body_a, jc.body_b, jc.mask, h)
+    elif velocities:
+        ki.joint_velocities(state, pre, jc.data, jc.body_a, jc.body_b, jc.mask, jc.damp_order,
+                            jc.damp_key, h)
+    return state, lam
+
+
+def kernels_ijkl(world, config):
+    """Kernels I (with joints), J, K and L against their twins on ``world``'s
+    next step; ({name: measurements}, note)."""
+    out, notes = {}, []
+    b = world.bodies
+    n = b.capacity
+    h = config.substep_dt
+
+    # --- K: solver-body prepare and writeback ------------------------------
+    k_in = (b, world.gravity, h)
+    got = kk.prepare_bodies(*k_in)
+    err_k = 0.0
+    for name, x, y in zip(("state", "inv_mass", "inv_inertia", "solve_mask", "table"), got,
+                          kk.prepare_bodies_twin(*k_in)):
+        err_k = max(err_k, compare(f"prepare_bodies {name}", x, y))
+    moved_state = kc.integrate_bodies(
+        kc.integrate_bodies(got[0], got[4], h, kc.VELOCITIES), got[4], h, kc.POSITIONS)
+    wb_out = kk.writeback_bodies(b, moved_state)
+    for name, x, y in zip(("pos", "quat", "lin_vel", "ang_vel", "force", "torque"), wb_out,
+                          kk.writeback_bodies_twin(b, moved_state)):
+        err_k = max(err_k, compare(f"writeback_bodies {name}", x, y))
+
+    def run_k(f_prep, f_wb):
+        f_prep(*k_in)
+        f_wb(b, moved_state)
+
+    out["body_pass"] = measured(
+        err_k, lambda: run_k(kk.prepare_bodies, kk.writeback_bodies),
+        lambda: run_k(kk.prepare_bodies_twin, kk.writeback_bodies_twin),
+        nbytes(b.body_type, b.locked_axes, b.active, b.sleeping, b.gyroscopic, b.quat,
+               b.inv_inertia, b.lin_vel, b.ang_vel, b.force, b.torque, b.const_force,
+               b.const_local_force, b.const_torque, b.const_local_torque, b.const_lin_acc,
+               b.const_local_lin_acc, b.const_ang_acc, b.const_local_ang_acc, b.inv_mass,
+               b.gravity_scale, b.lin_damping, b.ang_damping, b.max_lin_speed, b.max_ang_speed,
+               world.gravity, *got)
+        + nbytes(moved_state, b.pos, b.quat, b.com, b.lin_vel, b.ang_vel, b.active, b.sleeping,
+                 b.body_type, *wb_out),
+        330 * n,
+    )
+
+    # --- L: compaction, global pass, joint probe, keys ---------------------
+    w2 = bp_m.update_aabbs(world, config)
+    g = bp_m.grid_entries(w2, config)
+    bits, rank = kb.grid_sweep(g.skey, g.sf, g.si, g.window)
+    l_in = bp_m.compaction_args(w2, g, bits, rank)
+    pairs = kl.compact_pairs(*l_in)
+    for name, x, y in zip(kl.Pairs._fields, pairs, kl.compact_pairs_twin(*l_in)):
+        compare(f"compact_pairs {name}", x, y)
+    c_cap, m = w2.contacts.capacity, w2.colliders.capacity
+    g_cap, j_keys = l_in[6].shape[0], l_in[9]
+    shifts = torch.arange(g.window, dtype=torch.int32, device=bits.device)
+    cand = ((bits[:, None] >> shifts[None, :]) & 1) != 0
+    out["compact_pairs"] = measured(
+        0.0, lambda: kl.compact_pairs(*l_in), lambda: kl.compact_pairs_twin(*l_in),
+        nbytes(bits, rank, g.skey, l_in[3], *l_in[5], l_in[6], l_in[7], l_in[8], j_keys, *pairs),
+        bits.numel() + 20 * g_cap * m
+        + c_cap * (4 + 2 * math.ceil(math.log2(j_keys.numel() + 1))),
+    )
+    # The call the kernel replaces: the nonzero of the candidate bit matrix.
+    out["compact_pairs"]["nonzero_ms"] = cuda_ms(lambda: torch.nonzero(cand))
+    notes.append(f"{int(pairs.num_pairs)} pairs, {int(cand.sum())} grid candidates, "
+                 f"{int((j_keys != kl.NO_JOINT_KEY).sum())} disabled joint keys")
+
+    # --- J: island table, labels, sleep update -----------------------------
+    src, skey, order = sleep_m.island_incidences(b, world.contacts, world.joints)
+    rank_i = kr.run_rank(skey)
+    j_in = (src, skey, order, rank_i, n)
+    table, overflow = kj.island_table(*j_in)
+    table_t, overflow_t = kj.island_table_twin(*j_in)
+    compare("island_table neighbors", table, table_t)
+    compare("island_table overflow", overflow, overflow_t)
+    label = kj.island_labels(table)
+    compare("island_labels", label, kj.island_labels_twin(table))
+    lin_t = config.sleep_linear_threshold * config.length_unit
+    params = kj.SleepParams(lin_t * lin_t, config.sleep_angular_threshold ** 2, config.dt,
+                            config.time_to_sleep)
+    s_in = (b, label, overflow, params)
+    slept = kj.sleep_update(*s_in)
+    for name, x, y in zip(("sleeping", "sleep_timer", "lin_vel", "ang_vel"), slept,
+                          kj.sleep_update_twin(*s_in)):
+        compare(f"sleep_update {name}", x, y)
+    more, short = island_rounds_to_converge(table, label)
+
+    def run_j(f_table, f_labels, f_sleep):
+        tab, ovf = f_table(*j_in)
+        f_sleep(b, f_labels(tab), ovf, params)
+
+    out["islands"] = measured(
+        0.0, lambda: run_j(kj.island_table, kj.island_labels, kj.sleep_update),
+        lambda: run_j(kj.island_table_twin, kj.island_labels_twin, kj.sleep_update_twin),
+        nbytes(src, skey, order, rank_i, label, overflow, b.island, b.sleeping, b.active,
+               b.body_type, b.sleep_disabled, b.pos, b.sleep_pos, b.quat, b.sleep_quat,
+               b.lin_vel, b.ang_vel, b.sleep_timer, *slept),
+        2 * src.numel() + kj.LABEL_ROUNDS * n * (kj.MAX_DEGREE + 2) + 40 * n,
+    )
+    notes.append(f"{len(torch.unique(label))} island labels, {int(overflow.sum())} table "
+                 f"overflows; converged labels need {more} more rounds, {short} bodies short")
+
+    # --- I: joint colours and velocities of one substep --------------------
+    if world.joints.capacity > 0:
+        p = prepare_step(world, config)
+        jc, colors = p.jcon, config.max_colors
+        r_in = (p.world.joints, p.world.bodies, p.s.inv_mass, p.s.inv_inertia, p.s.solve_mask)
+        for name, x, y in zip(("data", "mask", "dyn_a", "dyn_b"), ki.joint_rows(*r_in),
+                              ki.joint_rows_twin(*r_in)):
+            compare(f"joint_rows {name}", x, y)
+        state0 = kc.integrate_bodies(
+            kc.integrate_bodies(p.s.state, p.table, h, kc.VELOCITIES), p.table, h, kc.POSITIONS)
+
+        def substep(twin, upto=None, velocities=True, state=None, lam=None):
+            return joint_substep(jc, colors, h, twin, state0.clone() if state is None else state,
+                                 jc.lam.clone() if lam is None else lam, upto, velocities)
+
+        proper_k = substep(False, upto=colors - 1, velocities=False)
+        proper_t = substep(True, upto=colors - 1, velocities=False)
+        compare("joint_color proper colours state", proper_k[0], proper_t[0])
+        compare("joint_color proper colours lam", proper_k[1], proper_t[1])
+        full_k, full_t = substep(False), substep(False)
+        if not (torch.equal(full_k[0], full_t[0]) and torch.equal(full_k[1], full_t[1])):
+            raise AssertionError("solve_joints: two runs of a substep differ")
+        full_t = substep(True)
+        err_i = 0.0
+        for what, x, y in (("state", full_k[0], full_t[0]), ("lam", full_k[1], full_t[1])):
+            err_i = max(err_i, compare(f"solve_joints {what}", x, y,
+                                       TOL_I_REL * max(1.0, float(y.abs().max()))))
+        scratch_k, scratch_t = state0.clone(), state0.clone()
+        lam_k, lam_t = jc.lam.clone(), jc.lam.clone()
+        active = int((jc.mask > 0).sum())
+        j_n = jc.mask.shape[0]
+        out["solve_joints"] = measured(
+            err_i, lambda: substep(False, state=scratch_k, lam=lam_k),
+            lambda: substep(True, state=scratch_t, lam=lam_t),
+            # The state and the totals in and out, the rows, the orders and
+            # the delta pose before the first colour (7 floats a body).
+            2 * nbytes(state0, jc.lam) + nbytes(jc.data, jc.jtype, jc.body_a, jc.body_b,
+                                                jc.color, jc.mask, jc.ovf_order, jc.ovf_key,
+                                                jc.damp_order, jc.damp_key) + 4 * 7 * n,
+            1500 * active + 60 * j_n + 40 * n,
+        )
+        notes.append(f"{active} joints solved, {int((jc.color_j == colors - 1).sum())} in the "
+                     f"overflow colour")
+        # Two colours: half of every chain's joints share bodies in the
+        # overflow colour. Error only; the times are the path's.
+        jc2 = xpbd_m.prepare_joints(p.world, p.s, config.replace(max_colors=2))
+        got2, want2 = (joint_substep(jc2, 2, h, twin, state0.clone(), jc2.lam.clone())
+                       for twin in (False, True))
+        for what, x, y in zip(("state", "lam"), got2, want2):
+            out["solve_joints"]["max_abs_err"] = max(
+                out["solve_joints"]["max_abs_err"],
+                compare(f"solve_joints 2 colours {what}", x, y,
+                        TOL_I_REL * max(1.0, float(y.abs().max()))))
+        notes.append(f"at 2 colours {int((jc2.color_j == 1).sum())} in the overflow colour")
+    return out, "; ".join(notes)
 
 
 def show(tag, out):
@@ -580,6 +823,23 @@ def pyramid(device, dim3_depth=False, per_box=PYRAMID_CONTACTS_PER_BOX):
     return scenes.box_pyramid(
         PYRAMID_BASE, dim3_depth=dim3_depth, max_contacts=per_box * n, device=device,
     )
+
+
+def hinges(device):
+    n = HINGE_BLOCKS * HINGE_ROWS * HINGE_COLS + 1
+    return scenes.hinge_blocks(HINGE_BLOCKS, HINGE_ROWS, HINGE_COLS,
+                               max_contacts=HINGE_SLOTS_PER_BOX * n, device=device)
+
+
+def anchor_gap(world):
+    """The largest distance between the two world anchors of an active
+    joint, in metres."""
+    b, j = world.bodies, world.joints
+    a, c = j.body_a.long(), j.body_b.long()
+    pa = b.pos[a] + quat_m.rotate(b.quat[a], j.frame_pos_a)
+    pb = b.pos[c] + quat_m.rotate(b.quat[c], j.frame_pos_b)
+    gap = torch.where(j.active, (pa - pb).norm(dim=-1), 0.0)
+    return float(gap.max())
 
 
 def probe_capacity(device):
@@ -604,9 +864,11 @@ def phase_kernels(device):
     the main paths: the pile after ``SETTLE_STEPS`` steps, the base-100
     pyramid (bodies with locked axes) after ``PYRAMID_OVERFLOW_STEPS`` steps,
     when its overflow colour is full, and after ``PYRAMID_KERNEL_STEPS``.
-    Returns {name: measurements}; the error is the largest of the three, the
-    times and the bound are the pile's, and the pyramid's after
-    ``PYRAMID_KERNEL_STEPS`` stand beside them as ``pyramid_*``."""
+    J, K and L at the pile's state, and I, J, K and L at the hinged boxes'
+    after ``HINGE_KERNEL_STEPS``. Returns {name: measurements}; the error is
+    the largest of all states; the times and the bound of A-H are the
+    pile's, with the pyramid's beside them as ``pyramid_*``; those of I-L
+    are the hinged boxes', with the pile's beside them as ``pile_*``."""
     config = PILE_CONFIG
     world = pile(N_CUBES, device)
     for _ in range(SETTLE_STEPS):
@@ -615,9 +877,11 @@ def phase_kernels(device):
     out, note = kernels_abcd(world, config, bounce=True)
     efgh, note2 = kernels_efgh(world, config)
     out.update(efgh)
+    jkl, note3 = kernels_ijkl(world, config)
+    out.update(jkl)
     torch.cuda.synchronize()
     say("kernels", show(f"pile {N_CUBES} after {SETTLE_STEPS} steps", out)
-        + f" ({note}; {note2})")
+        + f" ({note}; {note2}; {note3})")
 
     world, _ = pyramid(device)
     steps = 0
@@ -636,24 +900,57 @@ def phase_kernels(device):
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], v["max_abs_err"])
             for key in ("ms", "plain_ms", "bound_ms"):
                 out[name]["pyramid_" + key] = v[key]
+
+    # The hinged boxes: I, J, K, L at this path's shapes, which the line's
+    # times are for; the pile's stand beside them as pile_*.
+    world, _ = hinges(device)
+    for _ in range(HINGE_KERNEL_STEPS):
+        world = physics_step(world, config)
+    torch.cuda.synchronize()
+    ijkl, note = kernels_ijkl(world, config)
+    torch.cuda.synchronize()
+    say("kernels", show(f"hinges {HINGE_BLOCKS} x {HINGE_ROWS} x {HINGE_COLS} after {HINGE_KERNEL_STEPS} steps",
+                        ijkl) + f" ({note})")
+    for name, v in ijkl.items():
+        if name in out:
+            v["max_abs_err"] = max(v["max_abs_err"], out[name]["max_abs_err"])
+            for key in ("ms", "plain_ms", "bound_ms", "nonzero_ms"):
+                if key in out[name]:
+                    v["pile_" + key] = out[name][key]
+        out[name] = v
     return out
 
 
-def phase_golden(device):
-    golden = np.load(os.path.join(ROOT, "tests", "golden", "stack3.npz"))
-    world, _ = scenes.stack3(device=device)
-    frames = []
+def golden_drift(name, world):
+    """Drift f64[frames] of ``world``'s positions from ``tests/golden/name``
+    over ``GOLDEN_STEPS`` steps, one value every ``GOLDEN_STRIDE``."""
+    golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))["pos"]
+    drift = []
     for i in range(GOLDEN_STEPS):
         world = physics_step(world, GOLDEN_CONFIG)
         if (i + 1) % GOLDEN_STRIDE == 0:
-            frames.append(world.bodies.pos.cpu().numpy())
-    got = np.stack(frames)
-    ref = golden["pos"][: got.shape[0]]
-    drift = float(np.abs(got - ref).max())
-    if not drift <= GOLDEN_TOL:
-        raise AssertionError(f"stack3: drift {drift} > {GOLDEN_TOL} from the golden")
-    say("golden", f"stack3 {GOLDEN_STEPS} steps, {got.shape[0]} frames, max drift {drift:.3g} "
-        f"(limit {GOLDEN_TOL})")
+            frame = golden[len(drift)]
+            drift.append(float(np.abs(world.bodies.pos.cpu().numpy() - frame).max()))
+    return np.asarray(drift)
+
+
+def phase_golden(device):
+    drift = golden_drift("stack3", scenes.stack3(device=device)[0])
+    if not drift.max() <= GOLDEN_TOL:
+        raise AssertionError(f"stack3: drift {drift.max()} > {GOLDEN_TOL} from the golden")
+    say("golden", f"stack3 {GOLDEN_STEPS} steps, {drift.shape[0]} frames, max drift "
+        f"{drift.max():.3g} (limit {GOLDEN_TOL})")
+    drift = golden_drift("falling_hinges", scenes.falling_hinges(10, 4, device=device)[0])
+    held = drift[:HINGE_GOLDEN_HELD_STEPS // GOLDEN_STRIDE]
+    parted = np.nonzero(drift > GOLDEN_TOL)[0]
+    say("golden", f"falling_hinges 10 x 4, {GOLDEN_STEPS} steps: max drift {held.max():.3g} "
+        f"over the frames to step {HINGE_GOLDEN_HELD_STEPS} (limit {GOLDEN_TOL}); first "
+        f"frame beyond the limit: step "
+        f"{(parted[0] + 1) * GOLDEN_STRIDE if parted.size else None}; drift every 50 steps: "
+        + ", ".join(f"{d:.3g}" for d in drift[4::5]))
+    if not held.max() <= GOLDEN_TOL:
+        raise AssertionError(f"falling_hinges: drift {held.max()} > {GOLDEN_TOL} from the "
+                             f"golden within {HINGE_GOLDEN_HELD_STEPS} steps")
 
 
 def moved(start, world, ids):
@@ -666,12 +963,13 @@ def moved(start, world, ids):
             float((p1[apex, 1] - p0[apex, 1]).abs()))
 
 
-def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None):
+def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, every10=None):
     """``steps`` steps of ``world`` through ``physics_step`` with diagnostics.
     Fails on a dropped pair, an overflow drop, a non-finite state or launch
     counts other than what the full steps imply; prints the rates, and with
     ``watch=(start, ids, max sideways, max apex)`` how far the boxes have moved
-    every 10 steps, held to those limits.
+    every 10 steps, held to those limits. ``every10(world)`` is called every
+    10 steps, outside the timed steps.
     Returns ``(world, launches)``."""
     series = []
     torch.cuda.synchronize()
@@ -695,11 +993,13 @@ def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None):
         max_num_overflow = max(max_num_overflow, int(diag["num_overflow"]))
         if watch is not None and (i + 1) % 10 == 0:
             series.append((i + 1,) + moved(watch[0], world, watch[1]))
+        if every10 is not None and (i + 1) % 10 == 0:
+            every10(world)
         if diag["stepped"]:
             full_s.append(dt)
             expect["box_manifold"] += sum(1 for n in diag["manifold_pairs"].values() if n)
             for name, per_step in STEP_LAUNCHES.items():
-                expect[name] += per_step(config)
+                expect[name] += per_step(config, world.joints.capacity > 0)
     got = kernels.launches()
     peak = torch.cuda.max_memory_allocated()
 
@@ -718,8 +1018,8 @@ def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None):
         raise AssertionError(f"{what}: sim time {sim} != {steps} * dt")
     if got != expect:
         raise AssertionError(f"{what}: launches {got} != expected {expect}")
-    if min(got.values()) == 0:
-        raise AssertionError(f"{what}: a kernel never launched: {got}")
+    if any(got[name] == 0 for name in expect if expect[name] > 0):
+        raise AssertionError(f"{what}: a kernel of the path never launched: {got}")
     # A full step runs the whole pipeline; once the scene sleeps the
     # early-out skips the rest, so both rates are reported.
     full_ms = 1e3 * sum(full_s) / len(full_s)
@@ -751,6 +1051,14 @@ def plain_versions():
         return kd.solve_color_twin(mode, color, state, data, imp, bucket_a, bucket_b,
                                    bucket_valid, relax, params)
 
+    def joint_color_plain(color, last, state, data, lam, jtype, body_a, body_b, jcolor, mask,
+                          ovf_order, ovf_key, hh):
+        return ki.joint_color_twin(color, state, data, lam, jtype, body_a, body_b, jcolor,
+                                   mask, hh)
+
+    def joint_velocities_plain(state, pre, data, body_a, body_b, mask, damp_order, damp_key, h):
+        return ki.joint_velocities_twin(state, pre, data, body_a, body_b, mask, h)
+
     swaps = [
         (ka, "box_manifold", ka.box_manifold_twin), (kb, "grid_sweep", kb.grid_sweep_twin),
         (kc, "integrate_bodies", kc.integrate_bodies_twin),
@@ -761,6 +1069,13 @@ def plain_versions():
         (kh, "constraint_flags", kh.constraint_flags_twin),
         (kh, "pack_constraints", kh.pack_constraints_twin),
         (sleep_m, "run_rank", kr.run_rank_twin),
+        (ki, "joint_rows", ki.joint_rows_twin), (ki, "joint_color", joint_color_plain),
+        (ki, "joint_velocities", joint_velocities_plain),
+        (kj, "island_table", kj.island_table_twin), (kj, "island_labels", kj.island_labels_twin),
+        (kj, "sleep_update", kj.sleep_update_twin),
+        (kk, "prepare_bodies", kk.prepare_bodies_twin),
+        (kk, "writeback_bodies", kk.writeback_bodies_twin),
+        (kl, "compact_pairs", kl.compact_pairs_twin),
     ]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -774,14 +1089,31 @@ def plain_versions():
 
 def trajectory(world, config, steps, ids):
     """Positions f32[steps, len(ids), 3] of the bodies ``ids`` after each of
-    ``steps`` steps, and the rows in the overflow colour at each step."""
+    ``steps`` steps, and the rows in the overflow colour at each step:
+    contacts, and joints when the world has joint slots."""
     idx = torch.tensor(ids, device=world.bodies.pos.device)
     frames, overflow = [], []
     for _ in range(steps):
         world, diag = physics_step(world, config, return_diagnostics=True)
         frames.append(world.bodies.pos[idx].clone())
-        overflow.append(int(diag["num_overflow"]))
+        rows = (int(diag["num_overflow"]),)
+        if world.joints.capacity > 0:
+            rows += (int((world.joints.color == config.max_colors - 1).sum()),)
+        overflow.append(rows)
     return torch.stack(frames), overflow
+
+
+def on_plain_versions(world, config, steps, ids):
+    """``trajectory`` with every kernel replaced by its plain version; fails
+    if a kernel was launched. Returns (positions, overflow rows, seconds)."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_versions():
+        frames, overflow = trajectory(world, config, steps, ids)
+    seconds = time.perf_counter() - t0
+    if any(kernels.launches().values()):
+        raise AssertionError(f"plain path: kernels were launched: {kernels.launches()}")
+    return frames, overflow, seconds
 
 
 def phase_plain_path(device):
@@ -791,20 +1123,16 @@ def phase_plain_path(device):
     in the first ``PLAIN_EXACT_STEPS`` steps, every box's position within
     ``PLAIN_TOL`` over the first ``PLAIN_TIGHT_STEPS``, the apex's height
     within ``PLAIN_APEX_TOL`` throughout. What the pyramid does in these
-    steps (it sags while the overflow colour empties, then springs back) is
-    thus the pipeline's arithmetic and not a kernel's."""
+    steps (it sags while the overflow colour empties) is thus the pipeline's
+    arithmetic and not a kernel's."""
     config = PILE_CONFIG
     world, ids = pyramid(device)
     start = world.bodies.pos[torch.tensor(ids, device=device)]
     apex = int(torch.argmax(start[:, 1]))
     on_kernels, overflow = trajectory(world, config, PLAIN_STEPS, ids)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    with plain_versions():
-        on_plain, overflow_plain = trajectory(world, config, PLAIN_STEPS, ids)
-    seconds = time.perf_counter() - t0
-    if any(kernels.launches().values()):
-        raise AssertionError(f"plain path: kernels were launched: {kernels.launches()}")
+    on_plain, overflow_plain, seconds = on_plain_versions(world, config, PLAIN_STEPS, ids)
+    overflow = [r[0] for r in overflow]
+    overflow_plain = [r[0] for r in overflow_plain]
     diff = (on_kernels - on_plain).abs().amax(dim=(1, 2))
     sag_k = on_kernels[:, apex, 1] - start[apex, 1]
     sag_p = on_plain[:, apex, 1] - start[apex, 1]
@@ -828,6 +1156,66 @@ def phase_plain_path(device):
     if not float(apart.max()) <= PLAIN_APEX_TOL:
         raise AssertionError(f"plain path: the apexes part by {float(apart.max())} m "
                              f"(limit {PLAIN_APEX_TOL})")
+
+
+def phase_hinges_plain_path(device):
+    """The full-width hinged boxes from their start through
+    ``HINGE_PLAIN_STEPS`` steps on the kernels and on their plain versions
+    alone: the rows in the overflow colour (contacts and joints) equal for
+    ``PLAIN_EXACT_STEPS`` steps, every box within ``PLAIN_TOL`` for
+    ``PLAIN_TIGHT_STEPS``."""
+    config = PILE_CONFIG
+    world, ids = hinges(device)
+    on_kernels, overflow = trajectory(world, config, HINGE_PLAIN_STEPS, ids)
+    on_plain, overflow_plain, seconds = on_plain_versions(world, config, HINGE_PLAIN_STEPS, ids)
+    diff = (on_kernels - on_plain).abs().amax(dim=(1, 2))
+    say("plain path", f"hinges {HINGE_BLOCKS} x {HINGE_ROWS} x {HINGE_COLS}, {HINGE_PLAIN_STEPS} steps on the "
+        f"kernels and on their plain versions ({seconds:.1f} s): largest difference of any "
+        f"box's position in the first {PLAIN_TIGHT_STEPS} steps "
+        f"{float(diff[:PLAIN_TIGHT_STEPS].max()):.3g} m (limit {PLAIN_TOL}), in all "
+        f"{float(diff.max()):.3g} m; step: largest difference (m), overflow rows (contacts, "
+        f"joints) on kernels, on plain versions: " + "; ".join(
+            f"{i + 1}: {float(diff[i]):.2g}, {overflow[i]}, {overflow_plain[i]}"
+            for i in range(1, HINGE_PLAIN_STEPS, 2)))
+    if overflow[:PLAIN_EXACT_STEPS] != overflow_plain[:PLAIN_EXACT_STEPS]:
+        raise AssertionError(f"plain path: hinges' overflow rows differ in the first "
+                             f"{PLAIN_EXACT_STEPS} steps: {overflow} against {overflow_plain}")
+    if not float(diff[:PLAIN_TIGHT_STEPS].max()) <= PLAIN_TOL:
+        raise AssertionError(f"plain path: a hinged box is "
+                             f"{float(diff[:PLAIN_TIGHT_STEPS].max())} m from its place on the "
+                             f"plain versions within {PLAIN_TIGHT_STEPS} steps (limit {PLAIN_TOL})")
+
+
+def phase_hinges(device, smi):
+    """The hinged-box path at full width through ``physics_step``; fails
+    unless every joint's anchors stay within ``HINGE_ANCHOR_TOL``. Returns
+    the launch counts."""
+    world, ids = hinges(device)
+    gaps = []
+
+    def check(w):
+        gaps.append(anchor_gap(w))
+        if not gaps[-1] <= HINGE_ANCHOR_TOL:
+            raise AssertionError(f"hinges: joint anchors {gaps[-1]} m apart "
+                                 f"(limit {HINGE_ANCHOR_TOL})")
+
+    world, got = drive("hinges", world, PILE_CONFIG, HINGE_STEPS, smi, len(ids), every10=check)
+    say("hinges", f"{int(world.joints.active.sum())} revolute joints; largest anchor separation "
+        f"{max(gaps):.3g} m (limit {HINGE_ANCHOR_TOL}); every 10 steps: "
+        + ", ".join(f"{g:.2g}" for g in gaps) + f"; lowest box y "
+        f"{float(world.bodies.pos[1:, 1].min()):.3f} m")
+    # Not a gate: one block of 334-box rows, as the reference behaves.
+    n = HINGE_ROWS * WIDE_ROW_COLS + 1
+    wide, _ = scenes.falling_hinges(HINGE_ROWS, WIDE_ROW_COLS,
+                                    max_contacts=HINGE_SLOTS_PER_BOX * n, device=device)
+    wide_gaps = []
+    for _ in range(WIDE_ROW_STEPS):
+        wide = physics_step(wide, PILE_CONFIG)
+        wide_gaps.append(anchor_gap(wide))
+    say("hinges", f"rows {WIDE_ROW_COLS} wide ({HINGE_ROWS} x {WIDE_ROW_COLS}), largest anchor "
+        f"separation in each of the first {WIDE_ROW_STEPS} steps: "
+        + ", ".join(f"{g:.3g}" for g in wide_gaps) + " m")
+    return got
 
 
 def phase_main_path(device, smi):
@@ -881,20 +1269,30 @@ def phase_pyramid(device, smi):
     return got
 
 
-def phase_determinism(device):
-    n_cubes, steps = DETERMINISM_CUBES, DETERMINISM_STEPS
+def twice_equal(what, make, config, steps):
+    """Run ``make()`` for ``steps`` steps twice; fail unless the final poses
+    and velocities are bitwise equal."""
     finals = []
     for _ in range(2):
-        world = pile(n_cubes, device)
+        world = make()
         for _ in range(steps):
-            world = physics_step(world, PILE_CONFIG)
+            world = physics_step(world, config)
         b = world.bodies
         finals.append([getattr(b, k).cpu() for k in ("pos", "quat", "lin_vel", "ang_vel")])
     for x, y in zip(*finals):
         if not torch.equal(x, y):
-            raise AssertionError("determinism: two runs differ")
-    say("determinism", f"pile {n_cubes} x {steps} steps twice: pos, quat, lin_vel, "
-        "ang_vel bitwise equal")
+            raise AssertionError(f"determinism: two runs of {what} differ")
+    say("determinism", f"{what} x {steps} steps twice: pos, quat, lin_vel, ang_vel bitwise equal")
+
+
+def phase_determinism(device):
+    twice_equal(f"pile {DETERMINISM_CUBES}", lambda: pile(DETERMINISM_CUBES, device),
+                PILE_CONFIG, DETERMINISM_STEPS)
+    rows, cols = DETERMINISM_HINGE_ROWS, DETERMINISM_HINGE_COLS
+    # The reference's determinism scene and protocol: 500 steps at 64 Hz.
+    twice_equal(f"falling_hinges {rows} x {cols}",
+                lambda: scenes.falling_hinges(rows, cols, device=device)[0],
+                GOLDEN_CONFIG, GOLDEN_STEPS)
 
 
 def main():
@@ -906,12 +1304,14 @@ def main():
     phase_golden(device)
     main_launches = phase_main_path(device, smi)
     pyramid_launches = phase_pyramid(device, smi)
+    hinge_launches = phase_hinges(device, smi)
     phase_plain_path(device)
+    phase_hinges_plain_path(device)
     phase_determinism(device)
     rows = []
     for name, (route, source, replaces) in REPLACES.items():
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
-                         launches=main_launches[name],
+                         launches=hinge_launches[name], pile_launches=main_launches[name],
                          pyramid_launches=pyramid_launches[name],
                          **measured_by_kernel[name]))
     print(smi)

@@ -1,11 +1,13 @@
 """Where one full step of the port spends its time on a CUDA card.
 
-    python3 profile_step.py [--scene pile|pyramid] [--out profile.json]
+    python3 profile_step.py [--scene pile|pyramid|hinges] [--out profile.json]
 
 Settles the scene with the smoke's config for 30 steps, so that it is awake
 and its contacts are warm: ``pile`` is ``cube_pile(10_000)`` with 160,000
 contact slots, ``pyramid`` is ``box_pyramid(base=100)`` (5,050 boxes, the 2D
-profile) with 24 slots per body, 121,224. Then it measures from that state:
+profile) with 24 slots per body, 121,224, ``hinges`` is
+``falling_hinges(30, 334)`` (10,020 boxes, 9,990 revolute joints) with 16
+slots per body, 160,336. Then it measures from that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
   synchronized after every stage, mean of 3 steps (solver and integration
@@ -36,8 +38,10 @@ from avian_tpu_torch.pipeline import integrator as int_m
 from avian_tpu_torch.pipeline import sleeping as sleep_m
 from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
+from avian_tpu_torch.pipeline import xpbd as xpbd_m
 
 N_CUBES, PYRAMID_BASE, SETTLE_STEPS = 10_000, 100, 30
+HINGE_ROWS, HINGE_COLS = 30, 334
 PYRAMID_SLOTS = 24 * (PYRAMID_BASE * (PYRAMID_BASE + 1) // 2 + 1)
 CONFIG = PhysicsConfig(
     substeps=4, shape_pairs=((ShapeType.BOX, ShapeType.BOX), (ShapeType.BOX, ShapeType.PLANE))
@@ -61,12 +65,13 @@ def stage_ms(world, config):
     mark("broadphase")
     contacts, _ = np_m.narrow_phase(w2, bp, config, poses=(pos, quat))
     mark("narrowphase")
-    s = sb_m.prepare(w2.bodies)
-    table = int_m.integration_table(
-        w2.bodies, int_m.pre_process_velocity_increments(w2.bodies, w2.gravity, h)
-    )
+    s, table = sb_m.prepare_with_table(w2.bodies, w2.gravity, h)
+    mark("solver bodies")
     con = sol_m.prepare_constraints(w2, contacts, s, config)
     mark("prepare")
+    jcon = xpbd_m.prepare_joints(w2, s, config) if w2.joints.capacity > 0 else None
+    if jcon is not None:
+        mark("prepare joints")
     for _ in range(config.substeps):
         s = int_m.integrate_velocities(s, table, h)
         mark("integrate")
@@ -78,18 +83,23 @@ def stage_ms(world, config):
         mark("integrate")
         s, con = sol_m.solve_pass(s, con, False, config)
         mark("relax")
+        if jcon is not None:
+            s = xpbd_m.solve_position_constraints(s, jcon, h, config)
+            mark("joints")
     s, con = sol_m.solve_restitution(s, con, config)
     mark("restitution")
     stored = sol_m.store_impulses(contacts, con)
+    joints = xpbd_m.store_joint_forces(w2.joints, jcon, config) if jcon is not None else w2.joints
     bodies = sb_m.writeback(w2.bodies, s)
-    sleep_m.update_sleeping(bodies, stored, w2.joints, config)
-    mark("store+writeback+sleeping")
+    mark("store+writeback")
+    sleep_m.update_sleeping(bodies, stored, joints, config)
+    mark("sleeping")
     return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("pile", "pyramid"), default="pile")
+    ap.add_argument("--scene", choices=("pile", "pyramid", "hinges"), default="pile")
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -101,8 +111,11 @@ def main():
     device = torch.device("cuda", 0)
     if args.scene == "pile":
         world, ids = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
-    else:
+    elif args.scene == "pyramid":
         world, ids = scenes.box_pyramid(PYRAMID_BASE, max_contacts=PYRAMID_SLOTS, device=device)
+    else:
+        world, ids = scenes.falling_hinges(
+            HINGE_ROWS, HINGE_COLS, max_contacts=16 * (HINGE_ROWS * HINGE_COLS + 1), device=device)
     for _ in range(SETTLE_STEPS):
         world = physics_step(world, CONFIG)
     torch.cuda.synchronize()

@@ -102,9 +102,7 @@ def test_substep_integration_matches(seed):
                     delta_pos=jnp.asarray(rng.uniform(-0.01, 0.01, (n, 3)).astype(np.float32)))
     ts = _port_state(js, tw.bodies)
     ji = jint.pre_process_velocity_increments(jw.bodies, jw.gravity, H)
-    table = tint.integration_table(
-        tw.bodies, tint.pre_process_velocity_increments(tw.bodies, tw.gravity, H)
-    )
+    table = tsb.prepare_with_table(tw.bodies, tw.gravity, H)[1]
     js = jint.clamp_velocities(jint.integrate_velocities(js, ji, jw.bodies, H), jw.bodies)
     ts = tint.integrate_velocities(ts, table, H)
     _assert_state(js, ts)

@@ -89,11 +89,8 @@ def test_prepare_and_one_substep_match(pile):
         jax.tree.map(np.asarray, ref["contacts"]), n_colliders=w2.colliders.capacity,
         device="cpu",
     )
-    s = tsb.prepare(w2.bodies)
     h = tcfg.substep_dt
-    table = tint.integration_table(
-        w2.bodies, tint.pre_process_velocity_increments(w2.bodies, w2.gravity, h)
-    )
+    s, table = tsb.prepare_with_table(w2.bodies, w2.gravity, h)
     con = tsol.prepare_constraints(w2, contacts, s, tcfg)
 
     rc = ref["con"]

@@ -126,20 +126,35 @@ def test_rollout_and_determinism():
         assert torch.equal(getattr(a.bodies, name), getattr(b.bodies, name)), name
 
 
-@pytest.mark.parametrize("case", ["swept_ccd", "hooks", "custom_joints", "custom_shapes", "joint"])
+@pytest.mark.parametrize("case", ["swept_ccd", "hooks", "custom_joints", "custom_shapes"])
 def test_unported_features_raise(case):
     world, _ = scenes.stack3(device="cpu")
     config = PhysicsConfig()
     kw = {}
     if case == "swept_ccd":
         config = PhysicsConfig(swept_ccd=True)
-    elif case == "joint":
-        j = Joints.zeros(1, device="cpu")
-        world = world.replace(joints=j.replace(active=torch.ones(1, dtype=torch.bool)))
     else:
         kw[case] = (object(),) if case == "custom_shapes" else object()
     with pytest.raises(NotImplementedError):
         physics_step(world, config, **kw)
+
+
+def test_an_active_joint_is_solved():
+    """A fixed joint between the first two cubes of ``stack3`` (joints are
+    ported): the step keeps their anchors together and stores its force."""
+    world, ids = scenes.stack3(device="cpu")
+    j = Joints.zeros(1, device="cpu")
+    a, b = ids[0], ids[1]
+    offset = world.bodies.pos[b] - world.bodies.pos[a]
+    world = world.replace(joints=j.replace(
+        active=torch.ones(1, dtype=torch.bool), body_a=torch.tensor([a], dtype=torch.int32),
+        body_b=torch.tensor([b], dtype=torch.int32), frame_pos_a=offset[None, :].clone()))
+    for _ in range(30):
+        world = physics_step(world, PhysicsConfig())
+    gap = world.bodies.pos[b] - world.bodies.pos[a]
+    assert float((gap - offset).abs().max()) < 0.01
+    assert float(world.joints.total_lambda.abs().max()) > 0.0
+    assert int(world.joints.color[0]) >= 0
 
 
 def test_unported_shape_pair_raises():
