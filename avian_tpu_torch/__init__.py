@@ -2,9 +2,10 @@
 
 The module layout mirrors ``avian_tpu/``. The world is frozen dataclasses of
 tensors on an explicit device; ``physics_step(world, config)`` advances it.
-This slice covers the cube pile: box/box and box/plane worlds without
-joints. Four hand-written Hopper kernels carry the hot path (see
-``avian_tpu_torch.kernels``); on CPU tensors their plain PyTorch twins run.
+The ported paths step worlds of spheres, capsules, boxes, cylinders and
+cones on half-spaces, with joints of all five types. Fifteen hand-written
+Hopper kernels carry the hot path (see ``avian_tpu_torch.kernels``); on CPU
+tensors their plain PyTorch twins run.
 """
 
 from avian_tpu_torch.core.config import NarrowPhaseConfig, PhysicsConfig, SolverConfig

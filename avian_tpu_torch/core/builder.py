@@ -1,7 +1,8 @@
 """Host-side scene construction (port of ``avian_tpu/core/builder.py``).
 
-The subset the ported scenes need: ``add_body``, ``add_body_2d``, ``box``,
-``half_space``, ``add_joint``, ``revolute_joint`` and ``finalize``. Everything is numpy until ``finalize``,
+The subset the ported scenes need: ``add_body``, ``add_body_2d``, ``sphere``,
+``capsule``, ``box``, ``cylinder``, ``cone``, ``half_space``, ``add_joint``,
+``revolute_joint`` and ``finalize``. Everything is numpy until ``finalize``,
 with the reference's mass properties and padding, so a scene built here
 equals the reference's leaf for leaf.
 """
@@ -17,7 +18,9 @@ from avian_tpu_torch.core.state import World
 from avian_tpu_torch.core.types import BodyType, JointType, ShapeType
 
 _INF = float("inf")
-_SUPPORTED = (ShapeType.BOX, ShapeType.PLANE)
+_SUPPORTED = (ShapeType.SPHERE, ShapeType.CAPSULE, ShapeType.BOX, ShapeType.PLANE,
+              ShapeType.CYLINDER, ShapeType.CONE)
+_PI = float(np.pi)
 
 
 def _quat_np(q):
@@ -26,20 +29,54 @@ def _quat_np(q):
 
 
 def _mass_properties_np(st, pr, dens):
-    """(mass, sym6 inertia, com) per collider; boxes carry mass, planes none
-    (reference ``_mass_properties_np``, box branch)."""
+    """(mass, sym6 inertia about the shape's COM, local COM) per collider;
+    half-spaces carry none (reference ``_mass_properties_np``, the branches
+    of the shapes the port supports, in its order and arithmetic)."""
+    r = pr[:, 0]
     hx, hy, hz = pr[:, 0], pr[:, 1], pr[:, 2]
-    mass = np.zeros_like(hx)
-    i3 = np.zeros((hx.shape[0], 3), np.float32)
+    ch, cr = pr[:, 0], pr[:, 1]
+    H = 2.0 * ch
+
+    mass = np.zeros_like(r)
+    i3 = np.zeros((r.shape[0], 3), np.float32)
+
+    sph = st == ShapeType.SPHERE
+    m = dens * (4.0 / 3.0) * _PI * r**3
+    mass = np.where(sph, m, mass)
+    i3 = np.where(sph[:, None], (0.4 * m * r * r)[:, None] * np.ones(3, np.float32), i3)
+
     box = st == ShapeType.BOX
     m = dens * 8.0 * hx * hy * hz
-    ib = np.stack(
-        [hy * hy + hz * hz, hx * hx + hz * hz, hx * hx + hy * hy], -1
-    ) * (m / 3.0)[:, None]
+    ib = np.stack([hy * hy + hz * hz, hx * hx + hz * hz, hx * hx + hy * hy], -1) * (m / 3.0)[:, None]
     mass = np.where(box, m, mass)
     i3 = np.where(box[:, None], ib, i3)
+
+    cap = st == ShapeType.CAPSULE
+    m_cyl = dens * _PI * cr * cr * H
+    m_hem = dens * (4.0 / 3.0) * _PI * cr**3
+    m = m_cyl + m_hem
+    iy = m_cyl * cr * cr * 0.5 + m_hem * 0.4 * cr * cr
+    ix = m_cyl * (H * H / 12.0 + cr * cr / 4.0) + m_hem * (0.4 * cr * cr + H * H / 4.0 + 0.375 * H * cr)
+    mass = np.where(cap, m, mass)
+    i3 = np.where(cap[:, None], np.stack([ix, iy, ix], -1), i3)
+
+    cyl = st == ShapeType.CYLINDER
+    m = dens * _PI * cr * cr * H
+    iy = 0.5 * m * cr * cr
+    ix = m * (3.0 * cr * cr + H * H) / 12.0
+    mass = np.where(cyl, m, mass)
+    i3 = np.where(cyl[:, None], np.stack([ix, iy, ix], -1), i3)
+
+    cone = st == ShapeType.CONE
+    m = dens * _PI * cr * cr * H / 3.0
+    iy = 0.3 * m * cr * cr
+    ix = m * (3.0 / 20.0 * cr * cr + 3.0 / 80.0 * H * H)
+    mass = np.where(cone, m, mass)
+    i3 = np.where(cone[:, None], np.stack([ix, iy, ix], -1), i3)
+
     i6 = np.concatenate([i3, np.zeros_like(i3)], -1).astype(np.float32)
-    com = np.zeros((hx.shape[0], 3), np.float32)
+    com = np.zeros((r.shape[0], 3), np.float32)
+    com[:, 1] = np.where(cone, -0.5 * pr[:, 0], 0.0)
     return mass.astype(np.float32), i6, com
 
 
@@ -195,8 +232,24 @@ class SceneBuilder:
         )
         return len(self._colliders) - 1
 
+    def sphere(self, body, radius, **kw):
+        return self.add_collider(body, ShapeType.SPHERE, (radius,), **kw)
+
     def box(self, body, hx, hy, hz, **kw):
         return self.add_collider(body, ShapeType.BOX, (hx, hy, hz), **kw)
+
+    def capsule(self, body, radius, length, **kw):
+        """Capsule along local Y; stores ``(length / 2, radius)``."""
+        return self.add_collider(body, ShapeType.CAPSULE, (length / 2, radius), **kw)
+
+    def cylinder(self, body, radius, height, **kw):
+        """Cylinder along local Y; stores ``(height / 2, radius)``."""
+        return self.add_collider(body, ShapeType.CYLINDER, (height / 2, radius), **kw)
+
+    def cone(self, body, radius, height, **kw):
+        """Cone with its base disc at local y = -height/2 and its apex at
+        +height/2; stores ``(height / 2, radius)``."""
+        return self.add_collider(body, ShapeType.CONE, (height / 2, radius), **kw)
 
     def half_space(self, body, normal=(0.0, 1.0, 0.0), **kw):
         n = np.asarray(normal, np.float32)

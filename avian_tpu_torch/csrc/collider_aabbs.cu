@@ -15,7 +15,7 @@
 namespace {
 
 constexpr int kSentinel = 0x7fffffff;
-constexpr int kSphere = 0, kBox = 2, kPlane = 3;
+constexpr int kSphere = 0, kCapsule = 1, kBox = 2, kPlane = 3, kCylinder = 4, kCone = 5;
 constexpr int kDynamic = 1;
 constexpr float kBig = 1.0e9f;
 
@@ -38,7 +38,10 @@ __global__ void collider_aabbs_kernel(
   const float* pr = params + 8 * i;
   float r = pr[0];
   V3 h = v3(r, r, r);
+  // Capsule, cylinder, cone: pr = (half height along local y, radius).
+  if (st == kCapsule) h = v3(pr[1], pr[0] + pr[1], pr[1]);
   if (st == kBox) h = v3(pr[0], pr[1], pr[2]);
+  if (st == kCylinder || st == kCone) h = v3(pr[1], pr[0], pr[1]);
   if (st == kPlane) h = v3(kBig, kBig, kBig);
 
   float x2 = q.x + q.x, y2 = q.y + q.y, z2 = q.z + q.z;

@@ -1,6 +1,6 @@
 """Collider AABBs (port of ``avian_tpu/geometry/shapes.py:24-83``) for the
-shapes the port supports: boxes and half-spaces, plus the zero-size sphere
-that padded collider slots carry."""
+shapes the port supports: spheres, capsules, boxes, half-spaces, cylinders
+and cones, plus the zero-size sphere that padded collider slots carry."""
 
 import torch
 
@@ -17,10 +17,16 @@ def local_aabb_half_extents(shape_type, params):
     """Local-frame AABB half extents ``f32[..., 3]``."""
     r = params[..., 0]
     half = torch.stack([r, r, r], dim=-1)  # sphere (and padding) default
+    # Capsule, cylinder, cone: params = (half height along local Y, radius).
+    ch, cr = params[..., 0], params[..., 1]
+    capsule = torch.stack([cr, ch + cr, cr], dim=-1)
+    cyl = torch.stack([cr, ch, cr], dim=-1)
     box = params[..., :3]
     plane = torch.full_like(box, BIG)
     st = shape_type[..., None]
-    out = torch.where(st == ShapeType.BOX, box, half)
+    out = torch.where(st == ShapeType.CAPSULE, capsule, half)
+    out = torch.where(st == ShapeType.BOX, box, out)
+    out = torch.where((st == ShapeType.CYLINDER) | (st == ShapeType.CONE), cyl, out)
     return torch.where(st == ShapeType.PLANE, plane, out)
 
 

@@ -13,7 +13,11 @@
 - ``islands`` (Kernel J, CUDA): island labels and the sleep update;
 - ``body_pass`` (Kernel K, CUDA): solver-body prepare and writeback;
 - ``compact_pairs`` (Kernel L, CUDA): broadphase compaction, global pass,
-  joint probe and pair keys.
+  joint probe and pair keys;
+- ``convex_manifold`` (Kernel M, CUDA): manifolds of the support-mapped
+  pairs (cylinders, cones, capsule/box);
+- ``round_manifold`` (Kernel N, CUDA): the analytic sphere and capsule pairs;
+- ``plane_patch_manifold`` (Kernel O, CUDA): cylinder or cone on a half-space.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -34,6 +38,8 @@ from avian_tpu_torch.kernels import solve_joints as _i
 from avian_tpu_torch.kernels import islands as _j
 from avian_tpu_torch.kernels import body_pass as _k
 from avian_tpu_torch.kernels import compact_pairs as _l
+from avian_tpu_torch.kernels import convex_manifold as _mo
+from avian_tpu_torch.kernels import round_manifold as _n
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -48,6 +54,9 @@ WRAPPERS = {
     "islands": (_j.island_table, _j.island_labels, _j.sleep_update),
     "body_pass": (_k.prepare_bodies, _k.writeback_bodies),
     "compact_pairs": (_l.compact_pairs,),
+    "convex_manifold": (_mo.convex_manifold,),
+    "round_manifold": (_n.round_manifold,),
+    "plane_patch_manifold": (_mo.plane_patch_manifold,),
 }
 
 

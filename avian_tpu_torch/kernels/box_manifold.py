@@ -23,9 +23,6 @@ The plain PyTorch version, ``box_manifold_twin``, runs on CPU tensors; on a
 CUDA tensor the wrapper launches the kernel or raises.
 """
 
-import ctypes
-
-import torch
 
 BOX_BOX = 0
 BOX_PLANE = 1
@@ -56,40 +53,12 @@ def box_manifold(kind, pa, qa, ha, pb, qb, hb):
         raise RuntimeError(f"box_manifold: unsupported device {pa.device}")
     if kind not in (BOX_BOX, BOX_PLANE):
         raise ValueError(f"unknown box_manifold kind {kind}")
-    k_n = pa.shape[0]
-    for name, x, width in (("pa", pa, 3), ("qa", qa, 4), ("ha", ha, 3),
-                           ("pb", pb, 3), ("qb", qb, 4), ("hb", hb, 3)):
-        if x.device != pa.device or x.dtype != torch.float32:
-            raise TypeError(f"box_manifold: {name} must be f32 on {pa.device}")
-        if x.shape != (k_n, width) or not x.is_contiguous():
-            raise ValueError(
-                f"box_manifold: {name} must be contiguous [{k_n}, {width}], "
-                f"got {tuple(x.shape)}"
-            )
     from avian_tpu_torch.kernels import build
 
-    dev = pa.device
-    normal = torch.empty((k_n, 3), dtype=torch.float32, device=dev)
-    point_a = torch.empty((k_n, 4, 3), dtype=torch.float32, device=dev)
-    point_b = torch.empty((k_n, 4, 3), dtype=torch.float32, device=dev)
-    sep = torch.empty((k_n, 4), dtype=torch.float32, device=dev)
-    fid = torch.empty((k_n, 4), dtype=torch.int32, device=dev)
-    count = torch.empty((k_n,), dtype=torch.int32, device=dev)
-    if k_n == 0:
-        return normal, point_a, point_b, sep, fid, count
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.avian_box_manifold(
-            ctypes.c_int(kind), ctypes.c_int(k_n),
-            pa.data_ptr(), qa.data_ptr(), ha.data_ptr(),
-            pb.data_ptr(), qb.data_ptr(), hb.data_ptr(),
-            normal.data_ptr(), point_a.data_ptr(), point_b.data_ptr(),
-            sep.data_ptr(), fid.data_ptr(), count.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "box_manifold")
-    box_manifold.launches += 1
-    return normal, point_a, point_b, sep, fid, count
+    out = build.launch_manifold("avian_box_manifold", kind, (pa, qa, ha, pb, qb, hb))
+    if pa.shape[0]:
+        box_manifold.launches += 1
+    return out
 
 
 box_manifold.launches = 0

@@ -7,7 +7,9 @@ and ``update_aabbs`` (:96) with ``avian_tpu/geometry/shapes.py::world_aabb``
 thread per collider each:
 
 - ``collider_aabbs``: world pose = body pose o local offset, the rotated
-  AABB of a box, a half-space or a padded slot, and the symmetric expansion
+  AABB of the shape's local box (sphere, capsule ``(r, h + r, r)``, box,
+  cylinder and cone ``(r, h, r)``, half-space, padded slot; a sphere's is
+  not rotated), and the symmetric expansion
   ``min(|v| dt, speculative margin) + collision margin + tolerance``. It
   also returns the world pose, which the narrowphase reuses.
 - ``cell_keys``: ``floor(aabb / cell)``, the up to 8 cell keys packed

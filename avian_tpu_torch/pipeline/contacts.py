@@ -1,7 +1,7 @@
 """Narrowphase stage: manifolds, persistent pair matching and warm-start
 carry (port of ``avian_tpu/pipeline/contacts.py::narrow_phase``).
 
-Manifolds come from Kernel A through ``geometry.narrowphase``. Everything
+Manifolds come from Kernels A, M, N and O through ``geometry.narrowphase``. Everything
 after them is Kernel F (``kernels/contact_rows.py``): the join of old and new
 pair keys, the speculative keep predicate, in-row point compaction, anchors,
 contact ids, feature-id / anchor-distance warm-start matching, material
@@ -34,8 +34,8 @@ def narrow_phase(world: World, bp: BroadPhaseResult, config: PhysicsConfig, pose
 
     ``poses`` is the colliders' world ``(pos, quat)`` from
     ``update_aabbs_and_poses``. Returns
-    ``(contacts, bucket_sizes)``; ``bucket_sizes`` maps each Kernel A kind to
-    the number of pairs it was launched on."""
+    ``(contacts, bucket_sizes)``; ``bucket_sizes`` maps each canonical shape
+    pair launched to its number of pairs."""
     old = world.contacts
     col = world.colliders
     c_cap = old.capacity

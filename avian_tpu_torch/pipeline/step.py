@@ -7,8 +7,9 @@ solve -> integrate positions -> relax solve -> XPBD joints -> joint
 damping] -> restitution -> store impulses and joint forces -> writeback and
 force clear -> sleeping -> NaN quarantine.
 
-The slice covers box/box and box/plane worlds with joints of all five
-types. The step raises ``NotImplementedError`` for ``config.swept_ccd``,
+The slices cover worlds of spheres, capsules, boxes, cylinders, cones and
+half-spaces, with joints of all five types. The step raises
+``NotImplementedError`` for ``config.swept_ccd``,
 ``hooks``, ``custom_joints`` or ``custom_shapes``, and the narrowphase
 raises for any other shape pair; nothing is skipped silently.
 """
@@ -41,7 +42,7 @@ class Prepared:
     jcon: xpbd_m.JointConstraints | None  # None for a world without joint slots
     num_pairs: torch.Tensor
     dropped: torch.Tensor
-    manifold_pairs: dict               # Kernel A kind -> pairs launched on
+    manifold_pairs: dict               # canonical shape pair -> pairs launched on
 
 
 def _check_supported(world, config, hooks, custom_joints, custom_shapes):
@@ -179,7 +180,8 @@ def physics_step(world: World, config: PhysicsConfig, return_diagnostics=False,
             c.touching[:, None] & (lanes < c.num_points[:, None]), c.penetration, 0.0
         ).max(),
         # Port-only: whether the full step ran (False = all-asleep
-        # early-out) and the pairs each Kernel A launch covered.
+        # early-out) and the pairs each narrowphase launch covered, by
+        # canonical shape pair.
         "stepped": stepped,
         "manifold_pairs": stats["manifold_pairs"],
     }

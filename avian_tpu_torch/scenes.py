@@ -1,6 +1,7 @@
 """Scenes of the ported slices (port of ``avian_tpu/scenes.py::cube_pile``,
-``box_pyramid``, ``many_pyramids`` and ``falling_hinges``, and the ``stack3`` golden scene of
-``tests/golden_common.py``). ``device=None`` builds the world on the card
+``box_pyramid``, ``many_pyramids`` and ``falling_hinges``, the ``stack3`` golden scene of
+``tests/golden_common.py``, the mixed shapes of ``examples/many_shapes.py`` and
+the cylinder stack of ``tests/test_shapes_convex.py``). ``device=None`` builds the world on the card
 (``core.device.default_device``); pass ``device="cpu"`` for the CPU."""
 
 import math
@@ -200,3 +201,60 @@ def hinge_blocks(blocks: int, rows: int = 30, cols: int = 4, half: float = 0.25,
     for k in range(blocks):
         ids += _hinge_rows(b, rows, cols, half, x0=(k - (blocks - 1) / 2) * pitch)
     return _finalize_hinges(b, ids, blocks * rows * (cols - 1), max_contacts, device)
+
+
+def many_shapes(n: int = 150, per_row: int = 12, seed: int = 7,
+                max_contacts: int | None = None, device=None):
+    """Spheres, boxes, capsules, cylinders and cones (kinds in turn, body
+    ``k`` of kind ``k % 5``) in layers of ``per_row x per_row`` 1.1 m apart,
+    1.5 m between layers, the first 1 m above a ground plane: the layout of
+    ``examples/many_shapes.py`` (its world leaf for leaf at ``n=150,
+    per_row=12``, seed 7), centred the same way for a wider ``per_row``.
+    Returns (world, ids)."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    x0 = -6.5 - (per_row - 12) * 0.55
+    ids = []
+    for k in range(n):
+        x = (k % per_row) * 1.1 + x0 + rng.uniform(-0.05, 0.05)
+        z = ((k // per_row) % per_row) * 1.1 + x0 + rng.uniform(-0.05, 0.05)
+        y = 1.0 + (k // (per_row * per_row)) * 1.5
+        body = b.add_body(pos=(x, y, z))
+        kind = k % 5
+        if kind == 0:
+            b.sphere(body, 0.4)
+        elif kind == 1:
+            b.box(body, 0.35, 0.35, 0.35)
+        elif kind == 2:
+            b.capsule(body, 0.25, 0.5)
+        elif kind == 3:
+            b.cylinder(body, 0.3, 0.7)
+        else:
+            b.cone(body, 0.35, 0.7)
+        ids.append(body)
+    world = b.finalize(
+        max_bodies=n + 1, max_colliders=n + 1,
+        max_contacts=max_contacts or 8 * (n + 1), device=device,
+    )
+    return world, ids
+
+
+def cylinder_stack(device=None):
+    """Three upright cylinders (r 0.5, h 1) stacked on a ground plane,
+    alternately 2 cm off axis, and a cone (r 0.5, h 1) resting on its base
+    beside them: the world of ``tests/test_shapes_convex.py``. Returns
+    (world, stack ids, cone id)."""
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    stack = []
+    for k in range(3):
+        body = b.add_body(pos=(0.02 * (k % 2), 0.5 + 1.0 * k, 0))
+        b.cylinder(body, 0.5, 1.0)
+        stack.append(body)
+    cone = b.add_body(pos=(3.0, 0.55, 0))
+    b.cone(cone, 0.5, 1.0)
+    world = b.finalize(max_bodies=8, max_colliders=8, max_contacts=64, device=device)
+    return world, stack, cone

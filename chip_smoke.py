@@ -3,18 +3,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the twelve kernels against its plain PyTorch twin at the main paths' shapes
+the fifteen kernels against its plain PyTorch twin at the main paths' shapes
 (the 10,000-cube pile after 60 steps; the base-100 box pyramid after 2 steps,
 when most of its constraints sit in the overflow colour, and after 30; the
-30 x 334 hinged boxes after 30 steps), steps the ``stack3`` and
+30 x 334 hinged boxes after 30 steps; every shape-pair bucket of 10,000 mixed
+shapes after 40 steps), steps the ``stack3`` and
 ``falling_hinges`` golden scenes against ``tests/golden/``, drives the three
 main paths through ``physics_step`` (the pile with 160,000 contact slots for
 180 steps; the 5,050-box pyramid for 120 steps, then 30 steps each of its
 free 3D variant and of 10 x 10 pyramids of base 10; the 10,020 hinged boxes
-with 9,990 revolute joints for 120 steps) and checks that every kernel
-carried them, steps the pyramid and the hinged boxes once more with every
-kernel replaced by its plain version and holds the kernels' trajectories to
-those, and checks that two runs are bitwise equal. Each phase prints one
+with 9,990 revolute joints for 120 steps; 10,000 spheres, capsules, boxes,
+cylinders and cones for 120 steps, and the cylinder stack for 240) and checks
+that every kernel carried them, steps the pyramid, the hinged boxes and 2,000
+mixed shapes once more with every kernel replaced by its plain version and
+holds the kernels' trajectories to those, and checks that two runs are
+bitwise equal. Each phase prints one
 line; the line before the last is a JSON object with each kernel's launches,
 error, times and bound, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises, and the script exits non-zero without that
@@ -43,9 +46,11 @@ from avian_tpu_torch.kernels import grid_sweep as kb
 from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.kernels import color_edges as kg
 from avian_tpu_torch.kernels import contact_rows as kf
+from avian_tpu_torch.kernels import convex_manifold as km
 from avian_tpu_torch.kernels import integrate_bodies as kc
 from avian_tpu_torch.kernels import islands as kj
 from avian_tpu_torch.kernels import pack_constraints as kh
+from avian_tpu_torch.kernels import round_manifold as kn
 from avian_tpu_torch.kernels import run_rank as kr
 from avian_tpu_torch.kernels import solve_color as kd
 from avian_tpu_torch.kernels import solve_joints as ki
@@ -56,7 +61,8 @@ from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
 from avian_tpu_torch.pipeline import xpbd as xpbd_m
 from avian_tpu_torch.pipeline.step import physics_step, prepare_step
-from avian_tpu_torch.geometry.narrowphase import compute_manifolds, manifold_buckets
+from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, compute_manifolds,
+                                                  manifold_buckets)
 from avian_tpu_torch.math import quat as quat_m
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -149,6 +155,34 @@ HINGE_PLAIN_STEPS = 20
 DETERMINISM_HINGE_ROWS, DETERMINISM_HINGE_COLS = 30, 4
 TOL_I_REL = 1e-6  # the overflow colour's and the damping's sums reordered
 
+# The mixed-shape path: examples/many_shapes.py's layout 48 x 48 wide, five
+# layers (10,000 spheres, boxes, capsules, cylinders and cones in turn), 16
+# contact slots a body, the pile's config with the scene's 20 shape pairs.
+# Kernels M, N and O are held against their plain versions on every bucket
+# after SHAPES_KERNEL_STEPS, when the layers have landed on each other.
+SHAPES_N, SHAPES_PER_ROW, SHAPES_SLOTS_PER_BODY = 10_000, 48, 16
+SHAPE_PAIRS = tuple((a, b) for a in range(6) for b in range(a, 6) if (a, b) != (3, 3))
+SHAPES_CONFIG = PhysicsConfig(substeps=4, shape_pairs=SHAPE_PAIRS)
+SHAPES_KERNEL_STEPS, SHAPES_STEPS = 40, 120
+SHAPES_PLAIN_N, SHAPES_PLAIN_PER_ROW = 2_000, 24
+# One step of the landed pile on the kernels against one on the plain
+# versions, from the same state: they differ only by Kernel D's last bits.
+SHAPES_ONE_STEPS, SHAPES_ONE_STEP_TOL = 6, 1e-4
+# Kernels M, N, O against their plain versions. They are compiled without
+# fused multiply-adds and spell the plain versions' operations out, so the
+# aim is bit-equality; this is the most any float may differ.
+TOL_MNO = 1e-5
+# Operations a pair: M runs 24 Frank-Wolfe and 20 subgradient steps (two
+# support functions under two rotations each), two rounds of patches, up to
+# 8 clips of 16 points and a lift of 16; O one patch and a reduction of 8; N
+# a closed form.
+OPS_PER_PAIR = {"convex_manifold": 15_000, "plane_patch_manifold": 700, "round_manifold": 150}
+# tests/test_shapes_convex.py's cylinder stack: config, steps and bounds.
+CYLINDER_CONFIG = PhysicsConfig(max_colors=4, shape_pairs=((3, 4), (4, 4), (3, 5)))
+CYLINDER_STEPS, CYLINDER_HEIGHT_TOL, CYLINDER_TILT_TOL, CONE_TOL = 240, 0.08, 0.05, 0.05
+# examples/many_shapes.py: its scene and config, 300 steps (5 x 60) twice.
+EXAMPLE_SHAPES_STEPS = 300
+
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, taken for the
 # integer work as well.
@@ -179,10 +213,16 @@ REPLACES = {
                   "avian_tpu/pipeline/solver_body.py:85"),
     "compact_pairs": ("cuda", "avian_tpu_torch/csrc/compact_pairs.cu",
                       "avian_tpu/pipeline/broadphase.py:347"),
+    "convex_manifold": ("cuda", "avian_tpu_torch/csrc/convex_manifold.cu",
+                        "avian_tpu/geometry/convex.py:468"),
+    "round_manifold": ("cuda", "avian_tpu_torch/csrc/round_manifold.cu",
+                       "avian_tpu/geometry/narrowphase.py:88"),
+    "plane_patch_manifold": ("cuda", "avian_tpu_torch/csrc/convex_manifold.cu",
+                             "avian_tpu/geometry/convex.py:702"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
-# without joint slots (Kernel A: one per shape pair present, counted from the
-# step's diagnostics). G: 13 of the contacts' coloring (and 13 more of the
+# without joint slots (Kernels A, M, N, O: one per shape pair present,
+# counted from the step's diagnostics). G: 13 of the contacts' coloring (and 13 more of the
 # joints'), 1 of the bucketing, 1 run rank of the island table. I: the
 # joint rows, then one per joint colour and one for the velocities, every
 # substep.
@@ -358,9 +398,10 @@ def kernels_abcd(world, config, bounce):
     # --- A: box manifolds -------------------------------------------------
     bp = bp_m.broad_phase(w2, config)
     col = w2.colliders
-    buckets = manifold_buckets(col.shape_type, col.params, pos, quat,
-                               bp.collider_a, bp.collider_b, bp.valid,
-                               config.shape_pairs)
+    buckets = [b for b in manifold_buckets(col.shape_type, col.params, pos, quat,
+                                           bp.collider_a, bp.collider_b, bp.valid,
+                                           config.shape_pairs)
+               if b.name == "box_manifold"]
     err_a, bytes_a, ops_a = 0.0, 0, 0
     for bkt in buckets:
         rk_ = ka.box_manifold(bkt.kind, *bkt.inputs)
@@ -812,6 +853,42 @@ def kernels_ijkl(world, config):
     return out, "; ".join(notes)
 
 
+def kernels_mno(world, config):
+    """Kernels M, N and O against their plain versions on every shape-pair
+    bucket of ``world``'s next step; {name: measurements}, and the bucket
+    sizes."""
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
+    bp = bp_m.broad_phase(w2, config)
+    col = w2.colliders
+    buckets = [b for b in manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a,
+                                           bp.collider_b, bp.valid, config.shape_pairs)
+               if b.name in OPS_PER_PAIR]
+    out = {}
+    for name in OPS_PER_PAIR:
+        mine = [b for b in buckets if b.name == name]
+        if not mine:
+            raise AssertionError(f"{name}: no bucket of the mixed shapes runs it")
+        err, io_bytes, pairs = 0.0, 0, 0
+        for b in mine:
+            got, want = b.run(), b.run(twin=True)
+            tag = f"{name} {b.pair}"
+            compare(f"{tag} feature ids", got[4], want[4])
+            compare(f"{tag} counts", got[5], want[5])
+            for x, y in zip(got[:4], want[:4]):
+                err = max(err, compare(tag, x, y, TOL_MNO))
+            io_bytes += nbytes(*b.inputs, *got)
+            pairs += b.slots.shape[0]
+
+        def run_all(twin, mine=mine):
+            for b in mine:
+                b.run(twin=twin)
+
+        out[name] = measured(err, lambda r=run_all: r(False), lambda r=run_all: r(True),
+                             io_bytes, OPS_PER_PAIR[name] * pairs)
+    sizes = {b.pair: b.slots.shape[0] for b in buckets}
+    return out, sizes
+
+
 def show(tag, out):
     return f"[{tag}] " + "; ".join(
         f"{k} err {v['max_abs_err']:.3g} kernel {v['ms']:.4f} ms twin {v['plain_ms']:.4f} ms "
@@ -864,8 +941,9 @@ def phase_kernels(device):
     the main paths: the pile after ``SETTLE_STEPS`` steps, the base-100
     pyramid (bodies with locked axes) after ``PYRAMID_OVERFLOW_STEPS`` steps,
     when its overflow colour is full, and after ``PYRAMID_KERNEL_STEPS``.
-    J, K and L at the pile's state, and I, J, K and L at the hinged boxes'
-    after ``HINGE_KERNEL_STEPS``. Returns {name: measurements}; the error is
+    J, K and L at the pile's state, I, J, K and L at the hinged boxes'
+    after ``HINGE_KERNEL_STEPS``, and M, N and O on the mixed shapes' after
+    ``SHAPES_KERNEL_STEPS``. Returns {name: measurements}; the error is
     the largest of all states; the times and the bound of A-H are the
     pile's, with the pyramid's beside them as ``pyramid_*``; those of I-L
     are the hinged boxes', with the pile's beside them as ``pile_*``."""
@@ -918,6 +996,31 @@ def phase_kernels(device):
                 if key in out[name]:
                     v["pile_" + key] = out[name][key]
         out[name] = v
+
+    # The mixed shapes: M, N, O on every bucket of their pairs.
+    world, _ = mixed_shapes(device)
+    for _ in range(SHAPES_KERNEL_STEPS):
+        world = physics_step(world, SHAPES_CONFIG)
+    torch.cuda.synchronize()
+    mno, sizes = kernels_mno(world, SHAPES_CONFIG)
+    torch.cuda.synchronize()
+    say("kernels", show(f"mixed shapes {SHAPES_N} after {SHAPES_KERNEL_STEPS} steps", mno)
+        + f" (pairs per bucket: {sizes})")
+    # A-L on the same state: the first with a centre of mass off the body's
+    # origin (the cones) and unequal principal inertia. Errors only; their
+    # times are the other paths'.
+    al, note = kernels_abcd(world, SHAPES_CONFIG, bounce=False)
+    efgh, note2 = kernels_efgh(world, SHAPES_CONFIG)
+    al.update(efgh)
+    jkl, _ = kernels_ijkl(world, SHAPES_CONFIG)
+    al.update(jkl)
+    torch.cuda.synchronize()
+    say("kernels", f"[mixed shapes {SHAPES_N} after {SHAPES_KERNEL_STEPS} steps] A-L against "
+        "their twins: " + ", ".join(f"{k} err {v['max_abs_err']:.3g}" for k, v in al.items())
+        + f" ({note}; {note2})")
+    for name, v in al.items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], v["max_abs_err"])
+    out.update(mno)
     return out
 
 
@@ -963,13 +1066,15 @@ def moved(start, world, ids):
             float((p1[apex, 1] - p0[apex, 1]).abs()))
 
 
-def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, every10=None):
+def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, every10=None,
+          buckets=None):
     """``steps`` steps of ``world`` through ``physics_step`` with diagnostics.
     Fails on a dropped pair, an overflow drop, a non-finite state or launch
     counts other than what the full steps imply; prints the rates, and with
     ``watch=(start, ids, max sideways, max apex)`` how far the boxes have moved
     every 10 steps, held to those limits. ``every10(world)`` is called every
-    10 steps, outside the timed steps.
+    10 steps, outside the timed steps. ``buckets``, a dict, gathers each
+    shape pair's bucket sizes, one per full step.
     Returns ``(world, launches)``."""
     series = []
     torch.cuda.synchronize()
@@ -997,7 +1102,10 @@ def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, ev
             every10(world)
         if diag["stepped"]:
             full_s.append(dt)
-            expect["box_manifold"] += sum(1 for n in diag["manifold_pairs"].values() if n)
+            for pair, n in diag["manifold_pairs"].items():
+                expect[PAIR_KERNELS[pair][1]] += int(n > 0)
+                if buckets is not None:
+                    buckets.setdefault(pair, []).append(n)
             for name, per_step in STEP_LAUNCHES.items():
                 expect[name] += per_step(config, world.joints.capacity > 0)
     got = kernels.launches()
@@ -1024,7 +1132,7 @@ def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, ev
     # early-out skips the rest, so both rates are reported.
     full_ms = 1e3 * sum(full_s) / len(full_s)
     timed_ms = 1e3 * sum(timed_s) / len(timed_s)
-    say(what, f"{n_boxes} boxes, {world.contacts.capacity} contact slots, "
+    say(what, f"{n_boxes} bodies, {world.contacts.capacity} contact slots, "
         f"{steps} steps: {len(full_s)} full steps at {full_ms:.2f} ms/step "
         f"(median {1e3 * sorted(full_s)[len(full_s) // 2]:.2f}), "
         f"{1e3 * n_boxes / full_ms:.0f} body-steps/s per full step; last "
@@ -1076,6 +1184,9 @@ def plain_versions():
         (kk, "prepare_bodies", kk.prepare_bodies_twin),
         (kk, "writeback_bodies", kk.writeback_bodies_twin),
         (kl, "compact_pairs", kl.compact_pairs_twin),
+        (km, "convex_manifold", km.convex_manifold_twin),
+        (kn, "round_manifold", kn.round_manifold_twin),
+        (km, "plane_patch_manifold", km.plane_patch_manifold_twin),
     ]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1218,6 +1329,96 @@ def phase_hinges(device, smi):
     return got
 
 
+def mixed_shapes(device, n=SHAPES_N, per_row=SHAPES_PER_ROW):
+    return scenes.many_shapes(n, per_row=per_row,
+                              max_contacts=SHAPES_SLOTS_PER_BODY * (n + 1), device=device)
+
+
+def phase_shapes(device, smi):
+    """The mixed-shape path at full width through ``physics_step``: every
+    shape pair of the scene launched, nothing below the plane. Returns the
+    launch counts."""
+    world, ids = mixed_shapes(device)
+    buckets = {}
+    world, got = drive("shapes", world, SHAPES_CONFIG, SHAPES_STEPS, smi, len(ids),
+                       buckets=buckets)
+    low = float(world.bodies.pos[1:, 1].min())
+    if not low > 0.0:
+        raise AssertionError(f"shapes: a body fell through the plane (lowest y {low})")
+    seen = {pair: (len(v), max(v)) for pair, v in sorted(buckets.items())}
+    say("shapes", f"{len(seen)} shape pairs launched (steps, most pairs in a step): {seen}; "
+        f"lowest body y {low:.3f} m; {int(world.bodies.sleeping.sum())} asleep")
+    missing = sorted(set(SHAPE_PAIRS) - set(seen))
+    if missing:
+        raise AssertionError(f"shapes: shape pairs never launched: {missing}")
+    return got
+
+
+def phase_shapes_plain_path(device):
+    """``SHAPES_PLAIN_N`` mixed shapes from their start through
+    ``PLAIN_STEPS`` steps on the kernels and on their plain versions alone
+    (they fall and land on the plane): every body within ``PLAIN_TOL`` for
+    ``PLAIN_TIGHT_STEPS`` steps. Then, landed on each other after
+    ``SHAPES_KERNEL_STEPS`` steps, ``SHAPES_ONE_STEPS`` single steps, each
+    from the kernels' state on the kernels and on the plain versions: every
+    body within ``SHAPES_ONE_STEP_TOL`` after each. (Run on, the two
+    trajectories of the landing pile part by centimetres within a few steps:
+    the plain versions' unordered ``index_add_`` sums differ from run to run
+    in the last bits, and the impacts amplify them.)"""
+    world, ids = mixed_shapes(device, SHAPES_PLAIN_N, SHAPES_PLAIN_PER_ROW)
+    on_kernels, _ = trajectory(world, SHAPES_CONFIG, PLAIN_STEPS, ids)
+    on_plain, _, seconds = on_plain_versions(world, SHAPES_CONFIG, PLAIN_STEPS, ids)
+    diff = (on_kernels - on_plain).abs().amax(dim=(1, 2))
+    for _ in range(SHAPES_KERNEL_STEPS):
+        world = physics_step(world, SHAPES_CONFIG)
+    one = []
+    for _ in range(SHAPES_ONE_STEPS):
+        on_k = physics_step(world, SHAPES_CONFIG)
+        kernels.reset_launches()
+        with plain_versions():
+            on_p = physics_step(world, SHAPES_CONFIG)
+        if any(kernels.launches().values()):
+            raise AssertionError(f"plain path: kernels were launched: {kernels.launches()}")
+        one.append(float((on_k.bodies.pos - on_p.bodies.pos).abs().max()))
+        world = on_k
+    say("plain path", f"mixed shapes {SHAPES_PLAIN_N}, {PLAIN_STEPS} steps from the start on the "
+        f"kernels and on their plain versions ({seconds:.1f} s): largest difference of any "
+        f"body's position {float(diff.max()):.3g} m (limit {PLAIN_TOL} over the first "
+        f"{PLAIN_TIGHT_STEPS}); after {SHAPES_KERNEL_STEPS} steps, one step from the same state "
+        f"each: " + ", ".join(f"{d:.2g}" for d in one) + f" m (limit {SHAPES_ONE_STEP_TOL})")
+    if not float(diff[:PLAIN_TIGHT_STEPS].max()) <= PLAIN_TOL:
+        raise AssertionError(f"plain path: a mixed shape is {float(diff.max())} m from its "
+                             f"place on the plain versions (limit {PLAIN_TOL})")
+    if not max(one) <= SHAPES_ONE_STEP_TOL:
+        raise AssertionError(f"plain path: one step of the landed mixed shapes parts by "
+                             f"{max(one)} m (limit {SHAPES_ONE_STEP_TOL})")
+
+
+def phase_cylinder_stack(device):
+    """``tests/test_shapes_convex.py``'s stack of three cylinders and a cone,
+    ``CYLINDER_STEPS`` steps on the kernels, held to that test's bounds."""
+    world, stack, cone = scenes.cylinder_stack(device=device)
+    kernels.reset_launches()
+    for _ in range(CYLINDER_STEPS):
+        world = physics_step(world, CYLINDER_CONFIG)
+    got = kernels.launches()
+    pos, quat = world.bodies.pos.cpu().numpy(), world.bodies.quat.cpu().numpy()
+    sleeping = world.bodies.sleeping.cpu().numpy()
+    heights = [abs(float(pos[b][1]) - (0.5 + k)) for k, b in enumerate(stack)]
+    tilt = max(max(abs(float(quat[b][0])), abs(float(quat[b][2]))) for b in stack + [cone])
+    say("cylinder_stack", f"{CYLINDER_STEPS} steps: cylinders off their heights by "
+        + ", ".join(f"{h:.4f}" for h in heights) + f" m (limit {CYLINDER_HEIGHT_TOL}), cone "
+        f"y {float(pos[cone][1]):.4f} m, largest tilt {tilt:.4f} (limit {CYLINDER_TILT_TOL}), "
+        f"asleep {bool(sleeping[stack].all() and sleeping[cone])}; launches M {got['convex_manifold']} "
+        f"O {got['plane_patch_manifold']}")
+    if not (np.isfinite(pos).all() and max(heights) < CYLINDER_HEIGHT_TOL
+            and tilt < CYLINDER_TILT_TOL and abs(float(pos[cone][1]) - 0.5) < CONE_TOL
+            and sleeping[stack].all() and sleeping[cone]):
+        raise AssertionError("cylinder_stack: the stack does not rest upright and asleep")
+    if got["convex_manifold"] == 0 or got["plane_patch_manifold"] == 0:
+        raise AssertionError(f"cylinder_stack: Kernels M and O did not carry it: {got}")
+
+
 def phase_main_path(device, smi):
     """The 10k pile through ``physics_step``; returns the launch counts."""
     _, got = drive("main", pile(N_CUBES, device), PILE_CONFIG, SETTLE_STEPS + TIMED_STEPS,
@@ -1288,6 +1489,18 @@ def twice_equal(what, make, config, steps):
 def phase_determinism(device):
     twice_equal(f"pile {DETERMINISM_CUBES}", lambda: pile(DETERMINISM_CUBES, device),
                 PILE_CONFIG, DETERMINISM_STEPS)
+    # examples/many_shapes.py: its scene, its config, its checks.
+    example = PhysicsConfig()
+    twice_equal("many_shapes 150", lambda: scenes.many_shapes(device=device)[0], example,
+                EXAMPLE_SHAPES_STEPS)
+    world, ids = scenes.many_shapes(device=device)
+    for _ in range(EXAMPLE_SHAPES_STEPS):
+        world = physics_step(world, example)
+    pos = world.bodies.pos[ids]
+    if not (bool(torch.isfinite(pos).all()) and float(pos[:, 1].min()) > 0.0):
+        raise AssertionError("many_shapes: diverged or fell through the plane")
+    say("determinism", f"many_shapes OK: 150 mixed shapes, min y {float(pos[:, 1].min()):.2f}, "
+        f"sleeping {int(world.bodies.sleeping[ids].sum())}/150")
     rows, cols = DETERMINISM_HINGE_ROWS, DETERMINISM_HINGE_COLS
     # The reference's determinism scene and protocol: 500 steps at 64 Hz.
     twice_equal(f"falling_hinges {rows} x {cols}",
@@ -1305,14 +1518,22 @@ def main():
     main_launches = phase_main_path(device, smi)
     pyramid_launches = phase_pyramid(device, smi)
     hinge_launches = phase_hinges(device, smi)
+    shapes_launches = phase_shapes(device, smi)
+    phase_cylinder_stack(device)
     phase_plain_path(device)
     phase_hinges_plain_path(device)
+    phase_shapes_plain_path(device)
     phase_determinism(device)
     rows = []
     for name, (route, source, replaces) in REPLACES.items():
+        # ``launches``: the path that exercises the kernel most (the mixed
+        # shapes for M, N, O; the hinged boxes for the others).
+        main = shapes_launches if name in OPS_PER_PAIR else hinge_launches
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
-                         launches=hinge_launches[name], pile_launches=main_launches[name],
+                         launches=main[name], pile_launches=main_launches[name],
                          pyramid_launches=pyramid_launches[name],
+                         hinge_launches=hinge_launches[name],
+                         shapes_launches=shapes_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,17 +1,24 @@
 """Where one full step of the port spends its time on a CUDA card.
 
-    python3 profile_step.py [--scene pile|pyramid|hinges] [--out profile.json]
+    python3 profile_step.py [--scene pile|pyramid|hinges|shapes] [--out profile.json]
 
-Settles the scene with the smoke's config for 30 steps, so that it is awake
-and its contacts are warm: ``pile`` is ``cube_pile(10_000)`` with 160,000
-contact slots, ``pyramid`` is ``box_pyramid(base=100)`` (5,050 boxes, the 2D
-profile) with 24 slots per body, 121,224, ``hinges`` is
-``falling_hinges(30, 334)`` (10,020 boxes, 9,990 revolute joints) with 16
-slots per body, 160,336. Then it measures from that state:
+Settles the scene with the smoke's config for 30 steps (40 for ``shapes``),
+so that it is awake and its contacts are warm: ``pile`` is
+``cube_pile(10_000)`` with 160,000 contact slots, ``pyramid`` is
+``box_pyramid(base=100)`` (5,050 boxes, the 2D profile) with 24 slots per
+body, 121,224, ``hinges`` is ``falling_hinges(30, 334)`` (10,020 boxes, 9,990
+revolute joints) with 16 slots per body, 160,336, ``shapes`` is
+``many_shapes(10_000, per_row=48)`` (spheres, boxes, capsules, cylinders and
+cones, five layers of 48 x 48) with 16 slots per body, 160,016, and its 20
+shape pairs. Then it measures from that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
   synchronized after every stage, mean of 3 steps (solver and integration
   stages summed over the substeps);
+- ``narrowphase_split_ms``: the narrowphase's manifold kernels (A, M, N, O)
+  on the same state, each the sum of its shape-pair buckets, and the
+  bucketing before them, mean of 3; the rest of the stage ``narrowphase``
+  is the persistence join and Kernel F;
 - ``step_wall_ms``: 5 whole steps, synchronized around each;
 - ``profile``: ``torch.profiler`` over 3 steps: the card's busy time (the
   sum of its kernels' times), the share of the profiled wall time it was
@@ -32,6 +39,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from avian_tpu_torch import PhysicsConfig, physics_step, scenes
 from avian_tpu_torch.core.types import ShapeType
+from avian_tpu_torch.geometry.narrowphase import manifold_buckets
 from avian_tpu_torch.pipeline import broadphase as bp_m
 from avian_tpu_torch.pipeline import contacts as np_m
 from avian_tpu_torch.pipeline import integrator as int_m
@@ -42,10 +50,15 @@ from avian_tpu_torch.pipeline import xpbd as xpbd_m
 
 N_CUBES, PYRAMID_BASE, SETTLE_STEPS = 10_000, 100, 30
 HINGE_ROWS, HINGE_COLS = 30, 334
+SHAPES_N, SHAPES_PER_ROW, SHAPES_SETTLE_STEPS = 10_000, 48, 40
 PYRAMID_SLOTS = 24 * (PYRAMID_BASE * (PYRAMID_BASE + 1) // 2 + 1)
 CONFIG = PhysicsConfig(
     substeps=4, shape_pairs=((ShapeType.BOX, ShapeType.BOX), (ShapeType.BOX, ShapeType.PLANE))
 )
+SHAPES_CONFIG = CONFIG.replace(
+    shape_pairs=tuple((a, b) for a in range(6) for b in range(a, 6) if (a, b) != (3, 3)))
+KERNEL_OF = {"box_manifold": "Kernel A", "convex_manifold": "Kernel M",
+             "round_manifold": "Kernel N", "plane_patch_manifold": "Kernel O"}
 
 
 def stage_ms(world, config):
@@ -97,9 +110,31 @@ def stage_ms(world, config):
     return out
 
 
+def narrowphase_split_ms(world, config):
+    """{kernel: ms} of the manifold launches of one step, each kernel's
+    buckets summed, and the bucketing that precedes them."""
+    out = {}
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
+    bp = bp_m.broad_phase(w2, config)
+    col = w2.colliders
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buckets = manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a.long(),
+                               bp.collider_b.long(), bp.valid, config.shape_pairs)
+    torch.cuda.synchronize()
+    out["bucketing"] = 1e3 * (time.perf_counter() - t0)
+    for b in buckets:
+        t0 = time.perf_counter()
+        b.run()
+        torch.cuda.synchronize()
+        key = KERNEL_OF[b.name]
+        out[key] = out.get(key, 0.0) + 1e3 * (time.perf_counter() - t0)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("pile", "pyramid", "hinges"), default="pile")
+    ap.add_argument("--scene", choices=("pile", "pyramid", "hinges", "shapes"), default="pile")
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -109,28 +144,36 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda", 0)
-    if args.scene == "pile":
+    config, settle = CONFIG, SETTLE_STEPS
+    if args.scene == "shapes":
+        config, settle = SHAPES_CONFIG, SHAPES_SETTLE_STEPS
+        world, ids = scenes.many_shapes(SHAPES_N, per_row=SHAPES_PER_ROW,
+                                        max_contacts=16 * (SHAPES_N + 1), device=device)
+    elif args.scene == "pile":
         world, ids = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
     elif args.scene == "pyramid":
         world, ids = scenes.box_pyramid(PYRAMID_BASE, max_contacts=PYRAMID_SLOTS, device=device)
     else:
         world, ids = scenes.falling_hinges(
             HINGE_ROWS, HINGE_COLS, max_contacts=16 * (HINGE_ROWS * HINGE_COLS + 1), device=device)
-    for _ in range(SETTLE_STEPS):
-        world = physics_step(world, CONFIG)
+    for _ in range(settle):
+        world = physics_step(world, config)
     torch.cuda.synchronize()
 
-    runs = [stage_ms(world, CONFIG) for _ in range(3)]
-    result = {"card": smi, "scene": args.scene, "boxes": len(ids),
-              "contact_slots": world.contacts.capacity, "after_steps": SETTLE_STEPS,
+    runs = [stage_ms(world, config) for _ in range(3)]
+    result = {"card": smi, "scene": args.scene, "bodies": len(ids),
+              "contact_slots": world.contacts.capacity, "after_steps": settle,
               "stage_ms": {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}}
+    splits = [narrowphase_split_ms(world, config) for _ in range(3)]
+    result["narrowphase_split_ms"] = {k: sum(r[k] for r in splits) / len(splits)
+                                      for k in splits[0]}
 
     walls = []
     w = world
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        w = physics_step(w, CONFIG)
+        w = physics_step(w, config)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     result["step_wall_ms"] = walls
@@ -140,7 +183,7 @@ def main():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            w = physics_step(w, CONFIG)
+            w = physics_step(w, config)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     kernels = []

@@ -1,5 +1,5 @@
 """Kernel E's plain version (collider poses, speculative AABBs, grid cell
-keys) against the JAX reference: ``update_collider_poses``/``update_aabbs``
+keys) against the JAX reference, on boxes and on all five shapes: ``update_collider_poses``/``update_aabbs``
 within 1e-6, and the key emission of ``broad_phase`` (broadphase.py:217-279,
 repeated here in ``jnp`` since the reference does not return its keys):
 keys and integer rows exactly."""
@@ -21,7 +21,7 @@ from avian_tpu_torch.kernels import build
 from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.pipeline import broadphase as tbp
 
-from port_common import assert_columns, pile_configs, to_torch
+from port_common import assert_columns, example_many_shapes, pile_configs, to_torch
 
 TOL = 1e-6
 
@@ -48,6 +48,8 @@ def _worlds():
         "pile": _jumbled(jscenes.cube_pile(64, spacing=0.97, seed=7, max_contacts=1024)[0], 7),
         "pyramid": _jumbled(jscenes.box_pyramid(base=6)[0], 8),
         "pyramid_at_rest": jscenes.box_pyramid(base=6)[0],
+        # Spheres, boxes, capsules, cylinders and cones.
+        "shapes": _jumbled(example_many_shapes(), 9),
     }
 
 
@@ -79,7 +81,7 @@ def _ref_keys(world):
     return ckey.reshape(-1), jnp.concatenate([col.aabb_min, col.aabb_max], axis=-1), ipack, cell
 
 
-@pytest.mark.parametrize("name", ["pile", "pyramid", "pyramid_at_rest"])
+@pytest.mark.parametrize("name", ["pile", "pyramid", "pyramid_at_rest", "shapes"])
 def test_poses_aabbs_and_keys_match_reference(name):
     jw = _worlds()[name]
     jcfg, tcfg = pile_configs()
@@ -100,7 +102,7 @@ def test_poses_aabbs_and_keys_match_reference(name):
     np.testing.assert_array_equal(fpack.numpy(), np.asarray(ref_f))
     np.testing.assert_array_equal(ipack.numpy(), np.asarray(ref_i))
     live = ckey.numpy() != ke.SENTINEL
-    assert live.sum() >= tw2.colliders.capacity - 1    # every box is in the grid
+    assert live.sum() >= tw2.colliders.capacity - 1    # every shape is in the grid
     assert live.reshape(-1, 8).sum(1).max() > 1        # some span several cells
     assert bool(is_global[0]) and not bool(in_sweep[0])  # the ground plane
 
@@ -139,7 +141,7 @@ def test_entry_points_match_their_declared_signatures():
     assert set(declared) == set(build._SIGNATURES)
     for name, argtypes in build._SIGNATURES.items():
         assert "".join(code[t] for t in argtypes) == declared[name], name
-    assert len(build.sources()) == 11
+    assert len(build.sources()) == 13
 
 
 @pytest.mark.parametrize("fn", ["collider_aabbs", "cell_keys"])

@@ -179,4 +179,4 @@ def test_dispatch_swaps_plane_first_pairs():
     assert torch.equal(man.point_a[0], direct.point_b[0])
     assert torch.equal(man.feature_id[0], direct.feature_id[0])
     assert int(man.count[2]) == 0 and float(man.separation[2, 0]) == 1e9
-    assert sizes == {ka.BOX_PLANE: 2}
+    assert sizes == {(2, 3): 2}  # box/plane, keyed by canonical shape pair

@@ -74,7 +74,7 @@ _J_NARROW = jax.jit(jcontacts.narrow_phase, static_argnums=2)
 
 
 def _both_narrow_phases(tw, template):
-    """(reference contacts, port contacts, Kernel A bucket sizes, the JAX
+    """(reference contacts, port contacts, bucket sizes by shape pair, the JAX
     world with this step's AABBs) for the next step of ``tw``."""
     jcfg, tcfg = pile_configs()
     jw2 = _J_AABBS(to_jax(tw, template), jcfg)
@@ -112,7 +112,7 @@ def test_narrow_phase_matches_reference_over_two_steps(scene):
     assert int(np.asarray(ref.touching).sum()) > n_boxes
     assert np.asarray(ref.was_touching).sum() > 0  # the join carried pairs
     assert not np.asarray(ref.evicted).any()
-    assert sizes[ka.BOX_BOX] > 0 and sizes[ka.BOX_PLANE] > 0
+    assert sizes[(2, 2)] > 0 and sizes[(2, 3)] > 0  # box/box and box/plane (Kernel A)
 
     # The next step, with one box moved between the two.
     tw = _move_last_box_beside_the_bottom_row(t_step(tw, tcfg))

@@ -11,14 +11,17 @@ import torch
 
 from avian_tpu_torch import PhysicsConfig, kernels, physics_step, scenes
 from avian_tpu_torch.core.types import BodyType
-from avian_tpu_torch.geometry.narrowphase import compute_manifolds, manifold_buckets
+from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, compute_manifolds,
+                                                  manifold_buckets)
 from avian_tpu_torch.kernels import box_manifold as ka
 from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.kernels import color_edges as kg
 from avian_tpu_torch.kernels import contact_rows as kf
+from avian_tpu_torch.kernels import convex_manifold as km
 from avian_tpu_torch.kernels import grid_sweep as kb
 from avian_tpu_torch.kernels import integrate_bodies as kc
 from avian_tpu_torch.kernels import pack_constraints as kh
+from avian_tpu_torch.kernels import round_manifold as kn
 from avian_tpu_torch.kernels import solve_color as kd
 from avian_tpu_torch.kernels.run_rank import run_rank, run_rank_twin
 from avian_tpu_torch.pipeline import broadphase as bp_m
@@ -555,3 +558,98 @@ def test_hinges_step_launches_every_kernel(cuda):
     assert counts["islands"] == 3 * 3
     assert counts["color_edges"] == 3 * (15 + 13)
     assert bool(torch.isfinite(world.bodies.pos).all())
+
+
+# ---- Kernels M, N, O (the mixed-shape path) and E on all five shapes -----
+
+SHAPE_PAIRS = tuple((a, b) for a in range(6) for b in range(a, 6) if (a, b) != (3, 3))
+SHAPES_CONFIG = PhysicsConfig(substeps=4, shape_pairs=SHAPE_PAIRS)
+
+
+@pytest.fixture(scope="module")
+def shapes(cuda):
+    """1,200 spheres, boxes, capsules, cylinders and cones (rows of 20,
+    three layers) after 50 steps: landed on the plane and on each other."""
+    world, _ = scenes.many_shapes(1200, per_row=20, max_contacts=16 * 1201, device=cuda)
+    for _ in range(50):
+        world = physics_step(world, SHAPES_CONFIG)
+    return world
+
+
+def _shape_inputs(cuda, pair, k=4096, seed=0):
+    rng = np.random.default_rng(seed + 10 * pair[0] + pair[1])
+
+    def prm(shape):
+        p = np.zeros((k, 3), np.float32)
+        if shape == 3:
+            p[:] = (0.0, 1.0, 0.0)
+        elif shape == 2:
+            p[:] = rng.uniform(0.2, 0.7, (k, 3))
+        else:
+            p[:, 0], p[:, 1] = rng.uniform(0.2, 0.7, k), rng.uniform(0.2, 0.6, k)
+        return p
+
+    pa = rng.uniform(-1, 1, (k, 3)).astype(np.float32)
+    pb = (pa + rng.normal(size=(k, 3)) * 0.6).astype(np.float32)
+    return [torch.from_numpy(x).to(cuda)
+            for x in (pa, _quats(rng, k), prm(pair[0]), pb, _quats(rng, k), prm(pair[1]))]
+
+
+def _bit_equal(got, want):
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), float((x.float() - y.float()).abs().max())
+
+
+@pytest.mark.parametrize("kind", range(len(kn.KINDS)), ids=kn.KINDS)
+def test_round_manifold_matches_twin(cuda, kind):
+    pair = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 3))[kind]
+    args = _shape_inputs(cuda, pair)
+    _bit_equal(kn.round_manifold(kind, *args), kn.round_manifold_twin(kind, *args))
+
+
+@pytest.mark.parametrize("kind", range(len(km.GENERIC_PAIRS)),
+                         ids=[f"{a}-{b}" for a, b in km.GENERIC_PAIRS])
+def test_convex_manifold_matches_twin(cuda, kind):
+    args = _shape_inputs(cuda, km.GENERIC_PAIRS[kind])
+    _bit_equal(km.convex_manifold(kind, *args), km.convex_manifold_twin(kind, *args))
+
+
+@pytest.mark.parametrize("kind", [km.PLANE_CYLINDER, km.PLANE_CONE], ids=["cylinder", "cone"])
+def test_plane_patch_manifold_matches_twin(cuda, kind):
+    args = _shape_inputs(cuda, (3, km.PLANE_SHAPES[kind]))
+    _bit_equal(km.plane_patch_manifold(kind, *args), km.plane_patch_manifold_twin(kind, *args))
+
+
+def test_shape_buckets_match_twins(cuda, shapes):
+    """Every shape-pair bucket of the landed mixed shapes, bit for bit."""
+    w2, pos, quat = bp_m.update_aabbs_and_poses(shapes, SHAPES_CONFIG)
+    bp = bp_m.broad_phase(w2, SHAPES_CONFIG)
+    col = w2.colliders
+    buckets = manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a,
+                               bp.collider_b, bp.valid, SHAPES_CONFIG.shape_pairs)
+    assert {b.name for b in buckets} == {"box_manifold", "convex_manifold", "round_manifold",
+                                         "plane_patch_manifold"}
+    for b in buckets:
+        _bit_equal(b.run(), b.run(twin=True))
+
+
+def test_collider_aabbs_match_twin_on_all_shapes(cuda, shapes):
+    b, col = shapes.bodies, shapes.colliders
+    args = (b, col, SHAPES_CONFIG.dt, float("inf"), 0.005)
+    for x, y in zip(ke.collider_aabbs(*args), ke.collider_aabbs_twin(*args)):
+        _same(x, y, 1e-6)
+    assert set(col.shape_type.tolist()) == {0, 1, 2, 3, 4, 5}
+
+
+def test_shapes_step_launches_m_n_o(cuda, shapes):
+    kernels.reset_launches()
+    world, diag = physics_step(shapes, SHAPES_CONFIG, return_diagnostics=True)
+    counts = kernels.launches()
+    by_kernel = {}
+    for pair in diag["manifold_pairs"]:
+        name = PAIR_KERNELS[pair][1]
+        by_kernel[name] = by_kernel.get(name, 0) + 1
+    for name in ("convex_manifold", "round_manifold", "plane_patch_manifold", "box_manifold"):
+        assert counts[name] == by_kernel[name] > 0, (name, counts, by_kernel)
+    assert bool(torch.isfinite(world.bodies.pos).all())
+    assert float(world.bodies.pos[1:, 1].min()) > 0.0

@@ -126,8 +126,9 @@ def test_entry_points_default_to_the_card_and_say_so_without_one():
 def test_builder_refuses_unported_shapes():
     b = SceneBuilder()
     body = b.add_body()
-    with pytest.raises(NotImplementedError):
-        b.add_collider(body, ttypes.ShapeType.SPHERE, (0.5,))
+    for shape in (ttypes.ShapeType.SEGMENT, ttypes.ShapeType.TRIANGLE, ttypes.ShapeType.CONVEX):
+        with pytest.raises(NotImplementedError):
+            b.add_collider(body, shape, (0.5,))
 
 
 def test_import_leaves_jax_out():

@@ -158,14 +158,14 @@ def test_an_active_joint_is_solved():
 
 
 def test_unported_shape_pair_raises():
-    """A sphere resting on the ground reaches the narrowphase: refused."""
+    """A segment resting on the ground reaches the narrowphase: refused."""
     b = JBuilder()
     g = b.add_body(body_type=JBodyType.STATIC)
     b.half_space(g)
-    s = b.add_body(pos=(0.0, 0.4, 0.0))
-    b.sphere(s, 0.5)
+    s = b.add_body(pos=(0.0, 0.1, 0.0))
+    b.segment(s, (-0.5, 0.0, 0.0), (0.5, 0.0, 0.0))
     jw = b.finalize(max_bodies=2, max_colliders=2, max_contacts=16)
     world = World.from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
     with pytest.raises(NotImplementedError):
         physics_step(world, PhysicsConfig())
-    assert to_torch(jw).colliders.shape_type.tolist() == [3, 0]
+    assert to_torch(jw).colliders.shape_type.tolist() == [3, 6]  # half-space, segment

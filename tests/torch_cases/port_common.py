@@ -19,6 +19,28 @@ from avian_tpu_torch.core.state import World as TWorld
 from avian_tpu_torch.pipeline.step import physics_step as t_step
 
 PAIRS = ((2, 2), (2, 3))  # box/box, box/plane
+# The canonical pairs of spheres (0), capsules (1), boxes (2), half-spaces
+# (3), cylinders (4) and cones (5), half-space pairs aside.
+SHAPE_PAIRS = tuple((a, b) for a in range(6) for b in range(a, 6) if (a, b) != (3, 3))
+
+
+def ieee_reference():
+    """Make XLA:CPU compile the reference one IEEE operation at a time.
+
+    Under an ISA with fused multiply-adds XLA:CPU contracts ``a*b - c*d``
+    into an FMA and computes ``1 / sqrt`` with an approximate reciprocal
+    square root, so the reference's results depend on what a program fuses
+    around an expression. The support-map pipeline (Frank-Wolfe on a
+    degenerate first triangle ``(x, s, s)``, where ``d1*d4 - d3*d2`` is
+    exactly 0 without contraction) amplifies those last bits to 1e-3.
+    Capping the ISA at SSE4.2 leaves every operation correctly rounded, as
+    the port's plain versions are. Call before the first JAX computation of
+    the process; the case files that call it run in a child of their own."""
+    import os
+
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_cpu_max_isa" not in flags:
+        os.environ["XLA_FLAGS"] = (flags + " --xla_cpu_max_isa=SSE4_2").strip()
 
 # The port's CPU tensors here are tiny: one intra-op thread is fastest, and
 # leaves the cores to the other test workers.
@@ -107,10 +129,84 @@ def settled_pyramid(base=6, steps=6, dim3_depth=False):
     return world, template
 
 
+def example_many_shapes():
+    """The JAX world of ``examples/many_shapes.py``, built as the example
+    builds it (150 mixed shapes, seed 7)."""
+    from avian_tpu import BodyType, SceneBuilder
+
+    rng = np.random.default_rng(7)
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    n = 150
+    for k in range(n):
+        x = (k % 12) * 1.1 - 6.5 + rng.uniform(-0.05, 0.05)
+        z = ((k // 12) % 12) * 1.1 - 6.5 + rng.uniform(-0.05, 0.05)
+        y = 1.0 + (k // 144) * 1.5
+        body = b.add_body(pos=(x, y, z))
+        kind = k % 5
+        if kind == 0:
+            b.sphere(body, 0.4)
+        elif kind == 1:
+            b.box(body, 0.35, 0.35, 0.35)
+        elif kind == 2:
+            b.capsule(body, 0.25, 0.5)
+        elif kind == 3:
+            b.cylinder(body, 0.3, 0.7)
+        else:
+            b.cone(body, 0.35, 0.7)
+    return b.finalize(max_bodies=n + 1, max_colliders=n + 1, max_contacts=8 * (n + 1))
+
+
 def as_numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def quats(rng, k, scale=1.0):
+    """``k`` unit quaternions, rotations of up to about ``2 * scale`` rad."""
+    q = rng.normal(size=(k, 4)).astype(np.float32) * np.float32(scale)
+    q[:, 3] += 1.0
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+def rotate_np(q, v):
+    """``v`` [K, 3] rotated by ``q`` [K, 4] (x, y, z, w), in float32."""
+    u, w = q[:, :3], q[:, 3:4]
+    t = 2.0 * np.cross(u, v)
+    return (v + w * t + np.cross(u, t)).astype(np.float32)
+
+
+def pad8(prm):
+    """Shape parameters [K, n] padded to the reference's [K, 8]."""
+    out = np.zeros((prm.shape[0], 8), np.float32)
+    out[:, :prm.shape[1]] = prm
+    return out
+
+
+def assert_manifolds_equal(ref, port, tol, skip=()):
+    """Manifolds of K pairs, reference (a ``Manifold`` of the JAX package)
+    against the port's ``(normal, point_a, point_b, separation, feature_id,
+    count)``: counts and each pair's set of feature ids exactly, the normal
+    and every valid point's (finite separation) two witnesses and separation
+    within ``tol``, matched through the feature id. Pairs in ``skip`` are
+    left out (each named with its cause where the caller lists it)."""
+    r = [np.asarray(x) for x in (ref.normal, ref.point_a, ref.point_b, ref.separation,
+                                 ref.feature_id, ref.count)]
+    p = [as_numpy(x) for x in port]
+    keep = np.setdiff1d(np.arange(r[5].shape[0]), np.asarray(skip, np.int64))
+    np.testing.assert_array_equal(p[5][keep], r[5][keep], err_msg="count")
+    np.testing.assert_allclose(p[0][keep], r[0][keep], atol=tol, rtol=0, err_msg="normal")
+    for i in keep:
+        rk = {int(r[4][i, k]): k for k in range(4) if r[3][i, k] < 1e8}
+        pk = {int(p[4][i, k]): k for k in range(4) if p[3][i, k] < 1e8}
+        assert sorted(rk) == sorted(pk), (i, rk, pk)
+        assert len(rk) == int(r[5][i]), (i, rk)
+        for f, k in rk.items():
+            for j, what in ((1, "point_a"), (2, "point_b"), (3, "separation")):
+                np.testing.assert_allclose(p[j][i, pk[f]], r[j][i, k], atol=tol, rtol=0,
+                                           err_msg=f"pair {i} feature {f} {what}")
 
 
 def assert_columns(ref, port, atol=0.0, skip=(), only=None):
