@@ -1,10 +1,15 @@
 """Host-side scene construction (port of ``avian_tpu/core/builder.py``).
 
 The subset the ported scenes need: ``add_body``, ``add_body_2d``, ``sphere``,
-``capsule``, ``box``, ``cylinder``, ``cone``, ``half_space``, ``add_joint``,
-``revolute_joint`` and ``finalize``. Everything is numpy until ``finalize``,
-with the reference's mass properties and padding, so a scene built here
-equals the reference's leaf for leaf.
+``capsule``, ``box``, ``cuboid``, ``cylinder``, ``cone``, ``half_space``,
+``segment``, ``triangle``, ``trimesh``, ``heightfield``, ``voxels``,
+``convex_hull``, ``round_cuboid``, ``add_joint``, ``revolute_joint`` and
+``finalize``. Everything is numpy until ``finalize``, with the reference's
+mass properties (the exact tetrahedron decomposition of a hull, the Steiner
+volume of a round cuboid), vertex pool and padding, so a scene built here
+equals the reference's leaf for leaf. ``convex_decomposition`` (it needs the
+reference's host C++ decomposer) and ``custom_collider`` (user shapes) raise
+``NotImplementedError``.
 """
 
 import math
@@ -16,10 +21,11 @@ from avian_tpu_torch.core import types
 from avian_tpu_torch.core.device import resolve
 from avian_tpu_torch.core.state import World
 from avian_tpu_torch.core.types import BodyType, JointType, ShapeType
+from avian_tpu_torch.geometry.convex import MAX_HULL_VERTS
 
 _INF = float("inf")
 _SUPPORTED = (ShapeType.SPHERE, ShapeType.CAPSULE, ShapeType.BOX, ShapeType.PLANE,
-              ShapeType.CYLINDER, ShapeType.CONE)
+              ShapeType.CYLINDER, ShapeType.CONE, ShapeType.SEGMENT, ShapeType.CONVEX)
 _PI = float(np.pi)
 
 
@@ -80,6 +86,39 @@ def _mass_properties_np(st, pr, dens):
     return mass.astype(np.float32), i6, com
 
 
+def _hull_mass_props_np(pts, hull, density):
+    """Exact convex-polyhedron mass properties by signed tetrahedron
+    decomposition (reference ``_hull_mass_props_np``, its arithmetic).
+    Returns (mass, inertia sym6 about the COM, com)."""
+    C_can = np.full((3, 3), 1.0 / 120.0)
+    np.fill_diagonal(C_can, 1.0 / 60.0)
+    vol = 0.0
+    first = np.zeros(3)
+    C = np.zeros((3, 3))
+    for fi, simplex in enumerate(hull.simplices):
+        a, b, c = pts[simplex]
+        # qhull does not orient simplices consistently: flip each so that its
+        # winding matches the outward face normal of ``equations``.
+        n_out = hull.equations[fi, :3]
+        if np.dot(n_out, np.cross(b - a, c - a)) < 0.0:
+            b, c = c, b
+        A = np.stack([a, b, c], axis=1)
+        det = np.linalg.det(A)
+        vol += det / 6.0
+        first += det / 6.0 * (a + b + c) / 4.0
+        C += det * (A @ C_can @ A.T)
+    vol = abs(vol) if vol != 0 else 1e-12
+    com = first / vol
+    mass = density * vol
+    C = density * C - mass * np.outer(com, com)
+    inertia = np.trace(C) * np.eye(3) - C
+    i6 = np.asarray(
+        [inertia[0, 0], inertia[1, 1], inertia[2, 2],
+         inertia[0, 1], inertia[0, 2], inertia[1, 2]], np.float32
+    )
+    return np.float32(mass), i6, com.astype(np.float32)
+
+
 def _shift_inertia_np(i6, mass, d):
     d2 = np.sum(d * d, axis=-1)
     shift = np.stack(
@@ -135,6 +174,8 @@ class SceneBuilder:
         self._bodies = []
         self._colliders = []
         self._joints = []
+        self._convex_verts = []  # np [k, 3] vertex blocks of the pool
+        self._convex_verts_len = 0
         self.gravity = (0.0, -9.81, 0.0)
 
     def add_body(
@@ -205,6 +246,8 @@ class SceneBuilder:
         is_sensor: bool = False,
         collision_margin: float = 0.0,
         speculative_margin: float = _INF,
+        _hull_cache=None,
+        _mass_cache=None,
     ) -> int:
         if int(shape) not in _SUPPORTED:
             raise NotImplementedError(
@@ -228,9 +271,17 @@ class SceneBuilder:
                 layer_members=layer_members, layer_filter=layer_filter,
                 is_sensor=is_sensor, collision_margin=collision_margin,
                 speculative_margin=speculative_margin,
+                hull_cache=_hull_cache, mass_cache=_mass_cache,
             )
         )
         return len(self._colliders) - 1
+
+    def _pool_append(self, verts):
+        """Append a vertex block to the pool; returns its offset."""
+        offset = self._convex_verts_len
+        self._convex_verts.append(verts)
+        self._convex_verts_len += verts.shape[0]
+        return offset
 
     def sphere(self, body, radius, **kw):
         return self.add_collider(body, ShapeType.SPHERE, (radius,), **kw)
@@ -251,10 +302,183 @@ class SceneBuilder:
         +height/2; stores ``(height / 2, radius)``."""
         return self.add_collider(body, ShapeType.CONE, (height / 2, radius), **kw)
 
+    def cuboid(self, body, x_len, y_len, z_len, **kw):
+        return self.box(body, x_len / 2, y_len / 2, z_len / 2, **kw)
+
     def half_space(self, body, normal=(0.0, 1.0, 0.0), **kw):
         n = np.asarray(normal, np.float32)
         n = n / max(float(np.linalg.norm(n)), 1e-12)
         return self.add_collider(body, ShapeType.PLANE, tuple(n), **kw)
+
+    def segment(self, body, a, b, **kw):
+        """Segment between the body-local points ``a`` and ``b``: massless,
+        stored as a half length on local X, the collider's local pose
+        carrying the midpoint and the rotation of +X onto ``b - a``."""
+        a = np.asarray(a, np.float32)
+        bb = np.asarray(b, np.float32)
+        mid = (a + bb) / 2.0
+        d = bb - a
+        length = float(np.linalg.norm(d))
+        if length < 1e-9:
+            raise ValueError("segment endpoints coincide")
+        dn = d / length
+        x = np.asarray([1.0, 0.0, 0.0], np.float32)
+        c = float(np.dot(x, dn))
+        axis = np.cross(x, dn)
+        s = float(np.linalg.norm(axis))
+        if s < 1e-9:
+            q = (
+                np.asarray([0, 0, 0, 1], np.float32)
+                if c > 0
+                else np.asarray([0, 0, 1, 0], np.float32)  # 180 degrees about Z
+            )
+        else:
+            axis = axis / s
+            half = 0.5 * np.arctan2(s, c)
+            q = np.asarray([*(np.sin(half) * axis), np.cos(half)], np.float32)
+        lp = np.asarray(kw.pop("local_pos", (0.0, 0.0, 0.0)), np.float32)
+        return self.add_collider(
+            body, ShapeType.SEGMENT, (length / 2.0,),
+            local_pos=tuple(lp + mid), local_quat=tuple(q), **kw,
+        )
+
+    def round_cuboid(self, body, x_len, y_len, z_len, border_radius, **kw):
+        """Cuboid with rounded edges and corners: the inner box's 8 corners
+        in the pool and the border radius in params lane 6 (a round hull).
+        Mass from the Steiner volume of the rounded solid, inertia of the box
+        of its outer extents (the reference's choice)."""
+        hx, hy, hz = x_len / 2.0, y_len / 2.0, z_len / 2.0
+        r = float(border_radius)
+        if r < 0.0 or min(hx, hy, hz) <= 0.0:
+            raise ValueError("round_cuboid needs positive extents, r >= 0")
+        corners = np.asarray(
+            [(sx * hx, sy * hy, sz * hz)
+             for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)],
+            np.float32,
+        )
+        offset = self._pool_append(corners)
+        dens = float(kw.get("density", 1.0))
+        vol = (
+            8.0 * hx * hy * hz
+            + 8.0 * (hx * hy + hy * hz + hz * hx) * r
+            + 2.0 * _PI * (hx + hy + hz) * r * r
+            + (4.0 / 3.0) * _PI * r**3
+        )
+        m = dens * vol
+        ox, oy, oz = hx + r, hy + r, hz + r
+        i3 = (
+            np.asarray([oy * oy + oz * oz, ox * ox + oz * oz, ox * ox + oy * oy], np.float32)
+            * (m / 3.0)
+        )
+        i6 = np.concatenate([i3, np.zeros(3, np.float32)]).astype(np.float32)
+        return self.add_collider(
+            body, ShapeType.CONVEX, (float(offset), 8.0, ox, oy, oz, 0.0, r),
+            _mass_cache=(np.float32(m), i6, np.zeros(3, np.float32)), **kw,
+        )
+
+    def triangle(self, body, a, b, c, **kw):
+        """One double-sided, massless triangle: 3 pool vertices about its
+        centroid, which becomes the collider's local offset; lane 5 flags it
+        flat (its face normal dominates a frontal contact's normal)."""
+        tri = np.asarray([a, b, c], np.float32)
+        centroid = tri.mean(axis=0)
+        tri = tri - centroid
+        lp = np.asarray(kw.pop("local_pos", (0.0, 0.0, 0.0)), np.float32)
+        offset = self._pool_append(tri)
+        h = np.abs(tri).max(axis=0)
+        return self.add_collider(
+            body, ShapeType.CONVEX,
+            (float(offset), 3.0, float(h[0]), float(h[1]), float(h[2]), 1.0),
+            local_pos=tuple(lp + centroid), **kw,
+        )
+
+    def trimesh(self, body, vertices, faces, **kw):
+        """Triangle mesh: one triangle collider per face, all on ``body``
+        (the broadphase's grid culls the triangles). Returns their indices."""
+        verts = np.asarray(vertices, np.float32).reshape(-1, 3)
+        faces = np.asarray(faces, np.int64).reshape(-1, 3)
+        return [self.triangle(body, verts[f[0]], verts[f[1]], verts[f[2]], **kw)
+                for f in faces]
+
+    def heightfield(self, body, heights, x_extent, z_extent, **kw):
+        """A regular ``[nx, nz]`` grid of heights over ``x_extent x
+        z_extent`` centred on the body, two triangles a cell (the
+        reference's triangulation). Returns the triangles' indices."""
+        hf = np.asarray(heights, np.float32)
+        nx, nz = hf.shape
+        xs = np.linspace(-x_extent / 2.0, x_extent / 2.0, nx)
+        zs = np.linspace(-z_extent / 2.0, z_extent / 2.0, nz)
+        verts = np.stack(
+            [np.repeat(xs, nz), hf.reshape(-1), np.tile(zs, nx)], axis=-1
+        ).astype(np.float32)
+        faces = []
+        for i in range(nx - 1):
+            for k in range(nz - 1):
+                faces.append((i * nz + k, (i + 1) * nz + k, i * nz + k + 1))
+                faces.append(((i + 1) * nz + k, (i + 1) * nz + k + 1, i * nz + k + 1))
+        return self.trimesh(body, verts, faces, **kw)
+
+    def voxels(self, body, occupancy, voxel_size=1.0, origin=(0.0, 0.0, 0.0), **kw):
+        """One cube collider per surface voxel of a boolean ``[nx, ny, nz]``
+        occupancy grid whose corner is ``origin`` in the body frame. Returns
+        the collider indices."""
+        occ = np.asarray(occupancy, bool)
+        if occ.ndim != 3:
+            raise ValueError("occupancy must be [nx, ny, nz] booleans")
+        h = voxel_size / 2.0
+        filled = np.pad(occ, 1, constant_values=False)
+        interior = (
+            filled[:-2, 1:-1, 1:-1] & filled[2:, 1:-1, 1:-1]
+            & filled[1:-1, :-2, 1:-1] & filled[1:-1, 2:, 1:-1]
+            & filled[1:-1, 1:-1, :-2] & filled[1:-1, 1:-1, 2:]
+        )
+        org = np.asarray(origin, np.float32)
+        lp0 = np.asarray(kw.pop("local_pos", (0.0, 0.0, 0.0)), np.float32)
+        out = []
+        for ix, iy, iz in zip(*np.nonzero(occ & ~interior)):
+            c = org + (np.asarray([ix, iy, iz], np.float32) + 0.5) * voxel_size
+            out.append(self.box(body, h, h, h, local_pos=tuple(lp0 + c), **kw))
+        return out
+
+    def convex_hull(self, body, points, **kw):
+        """Convex hull of a point cloud (scipy's qhull), at most
+        ``MAX_HULL_VERTS`` vertices (farthest-point simplification beyond
+        that), stored about the vertices' centroid, which becomes the
+        collider's local offset. Mass properties are the hull's exact ones."""
+        from scipy.spatial import ConvexHull
+
+        pts = np.asarray(points, np.float32).reshape(-1, 3)
+        if pts.shape[0] < 4:
+            raise ValueError("convex_hull needs >= 4 non-coplanar points")
+        hull = ConvexHull(pts)
+        verts = pts[hull.vertices]
+        if verts.shape[0] > MAX_HULL_VERTS:
+            keep = [int(np.argmax(np.linalg.norm(verts - verts.mean(0), axis=1)))]
+            d = np.linalg.norm(verts - verts[keep[0]], axis=1)
+            for _ in range(MAX_HULL_VERTS - 1):
+                nxt = int(np.argmax(d))
+                keep.append(nxt)
+                d = np.minimum(d, np.linalg.norm(verts - verts[nxt], axis=1))
+            verts = verts[np.asarray(keep)]
+        centroid = verts.mean(axis=0)
+        verts = verts - centroid
+        lp = np.asarray(kw.pop("local_pos", (0.0, 0.0, 0.0)), np.float32)
+        offset = self._pool_append(verts)
+        h = np.abs(verts).max(axis=0)
+        return self.add_collider(
+            body, ShapeType.CONVEX,
+            (float(offset), float(verts.shape[0]), float(h[0]), float(h[1]), float(h[2])),
+            local_pos=tuple(lp + centroid), _hull_cache=(pts - centroid, hull), **kw,
+        )
+
+    def convex_decomposition(self, body, vertices, faces, **kw):
+        raise NotImplementedError(
+            "convex_decomposition is not ported yet: it needs the reference's host C++ "
+            "decomposer (avian_tpu/native)"
+        )
+
+    def custom_collider(self, body, shape=None, params=(), **kw):
+        raise NotImplementedError("custom shapes are not ported yet")
 
     def add_joint(
         self,
@@ -366,6 +590,14 @@ class SceneBuilder:
             pr = np.asarray([cd["params"] for cd in self._colliders], np.float32)
             dens = np.asarray(col["density"], np.float32)
             cm, ci6, ccom = _mass_properties_np(st, pr, dens)
+            # Hulls: exact tetrahedron-decomposition properties; round
+            # cuboids: their precomputed ones.
+            for ci, cd in enumerate(self._colliders):
+                if cd["hull_cache"] is not None:
+                    pts_h, hull_h = cd["hull_cache"]
+                    cm[ci], ci6[ci], ccom[ci] = _hull_mass_props_np(pts_h, hull_h, cd["density"])
+                if cd["mass_cache"] is not None:
+                    cm[ci], ci6[ci], ccom[ci] = cd["mass_cache"]
             lp = np.asarray(
                 [cd["local_pos"] for cd in self._colliders], np.float32
             ).reshape(nc, 3)
@@ -462,11 +694,21 @@ class SceneBuilder:
                 collision_disabled=jcol("collision_disabled", bool, False),
             )
 
+        if self._convex_verts:
+            # 32 zero rows after the last block: a hull's fixed 32-row window
+            # stays inside the pool (reference finalize).
+            pool = np.concatenate(
+                self._convex_verts + [np.zeros((MAX_HULL_VERTS, 3), np.float32)], axis=0
+            )
+        else:
+            pool = np.zeros((1, 3), np.float32)
+
         world = world.replace(
             bodies=bodies,
             colliders=colliders,
             joints=joints,
             gravity=torch.tensor(self.gravity, dtype=torch.float32),
+            convex_verts=t(pool),
             shape_pairs=self.shape_pairs(),
         )
         return world.to(device)

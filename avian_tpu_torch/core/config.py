@@ -82,7 +82,9 @@ class PhysicsConfig:
     # Sweep-and-prune candidate window: after sorting colliders by AABB min-x,
     # each collider is tested against the next `sap_window` colliders. Wider
     # windows cost compute; overlaps beyond the window are missed (counted in
-    # diagnostics as dropped pairs).
+    # diagnostics as dropped pairs). The reference takes at most 32; the port
+    # up to 64 (Kernel B's 64-bit candidate mask), which a crowded grid cell
+    # such as the terrain's needs.
     sap_window: int = 32
     # Sleeping thresholds (rigid_body/sleeping.rs:84-97, :149-152).
     sleep_linear_threshold: float = 0.15

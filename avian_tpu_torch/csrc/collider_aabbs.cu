@@ -15,7 +15,8 @@
 namespace {
 
 constexpr int kSentinel = 0x7fffffff;
-constexpr int kSphere = 0, kCapsule = 1, kBox = 2, kPlane = 3, kCylinder = 4, kCone = 5;
+constexpr int kSphere = 0, kCapsule = 1, kBox = 2, kPlane = 3, kCylinder = 4, kCone = 5,
+              kSegment = 6, kConvex = 8;
 constexpr int kDynamic = 1;
 constexpr float kBig = 1.0e9f;
 
@@ -42,6 +43,10 @@ __global__ void collider_aabbs_kernel(
   if (st == kCapsule) h = v3(pr[1], pr[0] + pr[1], pr[1]);
   if (st == kBox) h = v3(pr[0], pr[1], pr[2]);
   if (st == kCylinder || st == kCone) h = v3(pr[1], pr[0], pr[1]);
+  // Segment: half length on local x. Convex (hulls, round cuboids,
+  // triangles): the builder's half extents in pr[2..4].
+  if (st == kSegment) h = v3(pr[0], 0.0f, 0.0f);
+  if (st == kConvex) h = v3(pr[2], pr[3], pr[4]);
   if (st == kPlane) h = v3(kBig, kBig, kBig);
 
   float x2 = q.x + q.x, y2 = q.y + q.y, z2 = q.z + q.z;

@@ -18,7 +18,8 @@ namespace {
 constexpr int kSentinel = 0x7fffffff;
 
 __global__ void pair_counts_kernel(
-    int n_e, int w, int g_cap, int m, const int* __restrict__ bits, const int* __restrict__ rank,
+    int n_e, int w, int g_cap, int m, const long long* __restrict__ bits,
+    const int* __restrict__ rank,
     const int* __restrict__ skey, const float* __restrict__ aabb_min,
     const float* __restrict__ aabb_max, const unsigned char* __restrict__ active,
     const unsigned char* __restrict__ is_global, const unsigned char* __restrict__ dyn,
@@ -27,7 +28,7 @@ __global__ void pair_counts_kernel(
     int* __restrict__ cnt, int* __restrict__ gflag, int* __restrict__ window_overflow) {
   long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t < n_e) {
-    cnt[t] = __popc((unsigned)bits[t]);
+    cnt[t] = __popcll((unsigned long long)bits[t]);
     if (rank[t] > w && skey[t] != kSentinel) atomicAdd(window_overflow, 1);
   }
   if (t < (long)g_cap * m) {
@@ -45,7 +46,8 @@ __global__ void pair_counts_kernel(
 }
 
 __global__ void pair_slots_kernel(int n_e, int g_cap, int m, int c_cap,
-                                  const int* __restrict__ bits, const int* __restrict__ cnt,
+                                  const long long* __restrict__ bits,
+                                  const int* __restrict__ cnt,
                                   const int* __restrict__ ends, const long long* __restrict__ scol,
                                   const int* __restrict__ gflag, const int* __restrict__ gl_ends,
                                   const long long* __restrict__ g_idx, int* __restrict__ ca,
@@ -53,10 +55,10 @@ __global__ void pair_slots_kernel(int n_e, int g_cap, int m, int c_cap,
   long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t < n_e && cnt[t] > 0) {
     int slot = ends[t] - cnt[t];
-    unsigned b = (unsigned)bits[t];
+    unsigned long long b = (unsigned long long)bits[t];
     int a = (int)scol[t];
     while (b != 0 && slot < c_cap) {
-      int k = __ffs(b);  // bit k - 1: the entry k places later in the run
+      int k = __ffsll((long long)b);  // bit k - 1: the entry k places later in the run
       b &= b - 1;
       long partner = t + k < n_e ? t + k : n_e - 1;
       ca[slot] = a;
@@ -119,7 +121,8 @@ int blocks(long n, int threads) { return (int)((n + threads - 1) / threads); }
 
 }  // namespace
 
-extern "C" int avian_pair_counts(int n_e, int w, int g_cap, int m, const int* bits, const int* rank,
+extern "C" int avian_pair_counts(int n_e, int w, int g_cap, int m, const long long* bits,
+                                 const int* rank,
                                  const int* skey, const float* aabb_min, const float* aabb_max,
                                  const unsigned char* active, const unsigned char* is_global,
                                  const unsigned char* dyn, const int* body, const int* members,
@@ -134,7 +137,7 @@ extern "C" int avian_pair_counts(int n_e, int w, int g_cap, int m, const int* bi
   return (int)cudaGetLastError();
 }
 
-extern "C" int avian_pair_slots(int n_e, int g_cap, int m, int c_cap, const int* bits,
+extern "C" int avian_pair_slots(int n_e, int g_cap, int m, int c_cap, const long long* bits,
                                 const int* cnt, const int* ends, const long long* scol,
                                 const int* gflag, const int* gl_ends, const long long* g_idx,
                                 int* ca, int* cb, void* stream) {

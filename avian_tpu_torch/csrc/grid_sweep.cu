@@ -6,7 +6,8 @@
 // (6 floats + 7 ints each), which neighbouring threads share through L1.
 // A thread stops at the end of its cell run, where the reference's same_cell
 // test is false for every remaining window position, and caps the run rank
-// at w + 1, which is all window_overflow reads.
+// at w + 1, which is all window_overflow reads. The candidate mask is 64 bits
+// wide, so the window may reach 64 (the reference stops at 32).
 #include "common.cuh"
 
 namespace {
@@ -18,7 +19,8 @@ __device__ __forceinline__ int cell_key(int x, int y, int z) {
 }
 
 __global__ void grid_sweep_kernel(const int* __restrict__ skey, const float* __restrict__ sf,
-                                  const int* __restrict__ si, unsigned int* __restrict__ bits,
+                                  const int* __restrict__ si,
+                                  unsigned long long* __restrict__ bits,
                                   int* __restrict__ rank, int n, int w) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -28,7 +30,7 @@ __global__ void grid_sweep_kernel(const int* __restrict__ skey, const float* __r
   while (r <= w && i - r - 1 >= 0 && skey[i - r - 1] == key) ++r;
   rank[i] = r;
 
-  unsigned int mask = 0u;
+  unsigned long long mask = 0ull;
   if (key != kSentinel) {
     const float* af = sf + 6 * i;
     const int* ai = si + 7 * i;
@@ -45,7 +47,7 @@ __global__ void grid_sweep_kernel(const int* __restrict__ skey, const float* __r
       int canon = cell_key(max(c0, bi[0]), max(c1, bi[1]), max(c2, bi[2]));
       bool ok = overlap && canon == key && body != bi[3] && (mem & bi[5]) != 0 &&
                 (bi[4] & fil) != 0 && (dyn | bi[6]) > 0;
-      if (ok) mask |= 1u << (k - 1);
+      if (ok) mask |= 1ull << (k - 1);
     }
   }
   bits[i] = mask;
@@ -53,10 +55,10 @@ __global__ void grid_sweep_kernel(const int* __restrict__ skey, const float* __r
 
 }  // namespace
 
-extern "C" int avian_grid_sweep(const int* skey, const float* sf, const int* si, int* bits,
+extern "C" int avian_grid_sweep(const int* skey, const float* sf, const int* si, long long* bits,
                                 int* rank, int n, int w, void* stream) {
   const int threads = 256;
   grid_sweep_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      skey, sf, si, reinterpret_cast<unsigned int*>(bits), rank, n, w);
+      skey, sf, si, reinterpret_cast<unsigned long long*>(bits), rank, n, w);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,21 @@
-"""Contact manifolds of support-mapped convex shapes (port of the parts of
-``avian_tpu/geometry/convex.py`` the mixed-shape path needs).
+"""Contact manifolds of support-mapped convex shapes (port of
+``avian_tpu/geometry/convex.py``).
 
-This is the plain PyTorch form of Kernels M and O, batched over K pairs of
-one canonical shape pair: the oracle of ``csrc/convex_manifold.cu``, which
-computes the same thing one thread per pair. The reference's pipeline, step
-by step:
+This is the plain PyTorch form of Kernels M, O, P and Q, batched over K pairs
+of one canonical shape pair: the oracle of ``csrc/convex_manifold.cu`` and
+``csrc/hull_manifold.cu``, which compute the same thing one thread per pair.
+The reference's pipeline, step by step:
 
 1. Direction: a working-set Frank-Wolfe iteration (24 steps) for the
    closest point of the Minkowski difference to the origin, and projected
    subgradient descent (20 steps) of its support function for the
    minimum-overlap direction; a penetration test picks one.
 2. Polish: the normal snaps to a flat feature (box face, cylinder cap, cone
-   base, capsule or cylinder side) aligned within ``_FACE_SNAP``.
+   base, capsule, cylinder or segment side, hull face) aligned within
+   ``_FACE_SNAP``; then a FLAT shape (a triangle, params lane 5) facing the
+   contact takes the normal from its plane (the reference's flat rule,
+   which the port applies only where the other shape's centre lies in front
+   of that face: ROADMAP 3b).
 3. Manifold: each shape's support patch (8-slot rings) along the normal;
    the incident patch is clipped against the reference patch's edges in the
    normal's 2D frame (8 half-plane clips of a 16-point ring), lifted back
@@ -19,16 +23,29 @@ by step:
    reference patch gives the 1-2 point "degenerate" manifold of support
    witnesses instead.
 
-``plane_patch_manifold`` is ``support_patch_plane_pair``: a cylinder's or
-cone's support patch against a half-space, reduced to 4 points.
+``plane_patch_manifold`` is ``support_patch_plane_pair``: a shape's support
+patch against a half-space, reduced to 4 points.
 
-Every argmax/argmin takes the first extremum (as ``jnp.argmax`` does),
-square roots are correctly rounded (``vec.sqrt_rn``),
-``sign`` is 0 at 0 where the reference's ``jnp.sign`` is, the constants are
-the reference's, and every sum is written out in the order the kernel uses.
-The disc tables are the reference's: numpy ``cos``/``sin`` of a float64
-``linspace``, cast to float32.
+Pool-backed convex shapes (CONVEX: hulls, round cuboids, triangles) read
+their vertices from the world's vertex pool: params ``(offset, count, hx,
+hy, hz, flat, radius)``, a window of ``MAX_HULL_VERTS`` rows from
+``offset``, of which the first ``count`` are vertices (``hull_windows``).
+A radius in lane 6 makes the shape the Minkowski sum of the hull and a
+sphere: the support grows by ``r * d_hat``, a patch lifts by ``r`` along its
+face normal.
+
+Every argmax/argmin takes the first extremum (as ``jnp.argmax`` does), the
+top 8 of ``patch_convex`` are a stable descending sort (``lax.top_k`` puts
+the lower index first among equals), square roots are correctly rounded
+(``vec.sqrt_rn``), ``sign`` is 0 at 0 where the reference's ``jnp.sign`` is,
+the constants are the reference's, and every sum is written out in the
+order the kernels use, which is the order XLA:CPU sums in (the masked vertex
+sums from 0 upward, one row after the other). The disc tables are the
+reference's: numpy ``cos``/``sin`` of a float64 ``linspace``, cast to
+float32.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +63,7 @@ _FACE_SNAP = 0.98    # cos threshold: snap normal to a flat feature
 _FACE_TOL = 0.98     # cos threshold: direction counts as hitting a face
 _SIDE_TOL = 0.05     # sin threshold: direction counts as hitting a side
 _EPS = 1e-9
+MAX_HULL_VERTS = 32  # a pool-backed shape's vertex window
 
 _DISC_ANGLES = np.linspace(0.0, 2.0 * np.pi, PATCH, endpoint=False)
 DISC_COS = np.cos(_DISC_ANGLES).astype(np.float32)
@@ -120,6 +138,13 @@ def support_box(prm, d):
     return torch.where(d >= 0.0, prm, -prm)
 
 
+def support_segment(prm, d):
+    """Segment on local X with half length ``prm[:, 0]``: its end along d."""
+    sx = torch.sign(d[:, 0]) + (d[:, 0] == 0.0).to(torch.float32)
+    hs = prm[:, 0] * sx
+    return torch.stack([hs, 0.0 * hs, 0.0 * hs], -1)  # X * (h * sx)
+
+
 def _radial(d, r):
     """The rim point of the unit-height disc of radius ``r`` along ``d``'s
     xz part (0 where that part vanishes): (x, z)."""
@@ -179,6 +204,23 @@ def patch_capsule(prm, d):
     pts = torch.where(is_side[:, None, None], _with_two(pole, p0, p1), pole)
     nf = torch.where(is_side[:, None], perp, dn)
     return pts, nf, torch.where(is_side, 2, 1).to(torch.int32)
+
+
+def patch_segment(prm, d):
+    """The whole segment when ``d`` is mostly across it, else its end."""
+    h = prm[:, 0]
+    dn = nrm(d)
+    y_axis = torch.zeros_like(dn)
+    y_axis[:, 1] = 1.0
+    perp = nrm(torch.stack([0.0 * dn[:, 0], dn[:, 1], dn[:, 2]], -1), y_axis)
+    is_edge = torch.abs(dn[:, 0]) < (1.0 - _SIDE_TOL)
+    nh = -h
+    p0 = torch.stack([nh, nh * 0.0, nh * 0.0], -1)
+    p1 = torch.stack([h, h * 0.0, h * 0.0], -1)
+    end = _ring(support_segment(prm, d))
+    pts = torch.where(is_edge[:, None, None], _with_two(end, p0, p1), end)
+    nf = torch.where(is_edge[:, None], perp, dn)
+    return pts, nf, torch.where(is_edge, 2, 1).to(torch.int32)
 
 
 def first_argmin(score):
@@ -254,13 +296,139 @@ def patch_cone(prm, d):
     return pts, nf, cnt
 
 
+# ---------------------------------------------------------------------------
+# Pool-backed convex shapes (reference convex.py:741-864).
+# ---------------------------------------------------------------------------
+
+
+class Hull(NamedTuple):
+    """K pool-backed convex shapes: params f32[K, 7] ``(offset, count, hx,
+    hy, hz, flat, radius)``, their vertex windows f32[K, 32, 3] and which
+    rows of a window are vertices bool[K, 32]."""
+
+    prm: torch.Tensor
+    verts: torch.Tensor
+    valid: torch.Tensor
+
+
+def hull_windows(prm, pool):
+    """The ``Hull`` of params ``prm`` [K, 7] on the vertex pool f32[V, 3]:
+    ``MAX_HULL_VERTS`` rows from each offset, read from the pool padded with
+    that many zero rows as the reference pads it (narrowphase.py:507-514),
+    the first ``count`` of them valid."""
+    lanes = torch.arange(MAX_HULL_VERTS, device=prm.device)
+    pool = torch.cat([pool, pool.new_zeros((MAX_HULL_VERTS, 3))])
+    off = prm[:, 0].to(torch.int64)
+    cnt = prm[:, 1].to(torch.int64)
+    return Hull(prm, pool[off[:, None] + lanes], lanes[None, :] < cnt[:, None])
+
+
+def _hull_dots(h, axis):
+    """Each vertex's dot with ``axis`` [K, 3]; -1e30 on rows past the count."""
+    return torch.where(h.valid, vec.dot(h.verts, axis[:, None, :]), -1e30)
+
+
+def _masked_sum(x, mask):
+    """sum_j where(mask[:, j], x[:, j], 0) over axis 1 of x [K, P, 3], from 0
+    upward one row after the other (XLA:CPU's order of ``jnp.sum``)."""
+    acc = torch.zeros_like(x[:, 0])
+    for j in range(x.shape[1]):
+        acc = acc + torch.where(mask[:, j, None], x[:, j], 0.0)
+    return acc
+
+
+def support_convex(h, d):
+    """The first vertex farthest along ``d``, plus ``r * d_hat``."""
+    i = first_argmax(_hull_dots(h, d))
+    return _rows(h.verts, i) + h.prm[:, 6:7] * nrm(d)
+
+
+def patch_convex(h, d):
+    """The hull's support face along ``d``, two-phase: vertices in a loose
+    band (0.35 of the largest half extent) along ``d`` fit a plane normal,
+    then a tight band (0.02) along that normal collects the face, falling
+    back to the loose set where the tight one is smaller; a shape of at most
+    3 vertices is its own face. The top 8 by support value, ordered by angle
+    about their centroid, padded with the first; the face normal from the
+    ring (``d`` below 3 points); lifted by the radius."""
+    verts, valid = h.verts, h.valid
+    dn = nrm(d)
+    size = torch.clamp(h.prm[:, 2:5].amax(1), min=1e-3)
+
+    def collect(axis, band):
+        dots = _hull_dots(h, axis)
+        return dots, valid & (dots > dots.amax(1, keepdim=True) - band[:, None])
+
+    # Phase 1: loose band along d; the candidates' plane from the cross of
+    # the two longest offsets from their centroid.
+    _, near1 = collect(dn, 0.35 * size)
+    k1 = near1.sum(1)
+    c1 = _masked_sum(verts, near1) / torch.clamp(k1.to(torch.float32), min=1.0)[:, None]
+    rel1 = torch.where(near1[..., None], verts - c1[:, None, :], 0.0)
+    ra = _rows(rel1, first_argmax(vec.dot(rel1, rel1)))
+    cr = vec.cross(ra[:, None, :], rel1)
+    rb = _rows(rel1, first_argmax(vec.dot(cr, cr)))
+    nf_fit = vec.normalize_or_rn(vec.cross(ra, rb), dn)
+    nf_fit = nf_fit * torch.sign(vec.dot(nf_fit, dn) + 1e-12)[:, None]
+    axis2 = torch.where((k1 >= 3)[:, None], nf_fit, dn)
+
+    # Phase 2: tight band along the fitted normal.
+    dots, near = collect(axis2, 0.02 * size)
+    dots_dn = _hull_dots(h, dn)
+    use2 = near.sum(1) >= torch.clamp(k1, max=3)
+    near = torch.where(use2[:, None], near, near1)
+    dots = torch.where(use2[:, None], dots, dots_dn)
+    tiny = (h.prm[:, 1].to(torch.int64) <= 3)[:, None]
+    near = torch.where(tiny, valid, near)
+    dots = torch.where(tiny, dots_dn, dots)
+
+    score = torch.where(near, dots, -torch.inf)
+    idx = torch.sort(score, dim=1, descending=True, stable=True)[1][:, :PATCH]
+    sel_ok = near.gather(1, idx)
+    pts = verts.gather(1, idx[..., None].expand(-1, -1, 3))
+    k = torch.clamp(near.sum(1), max=PATCH)
+
+    # Angle order about the selected points' centroid.
+    t1 = vec.any_orthonormal(dn)
+    t2 = vec.cross(dn, t1)
+    centroid = _masked_sum(pts, sel_ok) / torch.clamp(k.to(torch.float32), min=1.0)[:, None]
+    rel = pts - centroid[:, None, :]
+    ang = torch.atan2(vec.dot(rel, t2[:, None, :]), vec.dot(rel, t1[:, None, :]))
+    ang = torch.where(sel_ok, ang, 1e9)
+    order = torch.argsort(ang, dim=1, stable=True)
+    pts = pts.gather(1, order[..., None].expand(-1, -1, 3))
+    pad = torch.arange(PATCH, device=d.device)[None, :] >= k[:, None]
+    pts = torch.where(pad[..., None], pts[:, 0:1], pts)
+
+    nf = vec.normalize_or_rn(vec.cross(pts[:, 1] - pts[:, 0], pts[:, 2] - pts[:, 0]), dn)
+    nf = nf * torch.sign(vec.dot(nf, dn) + 1e-12)[:, None]
+    nf = torch.where((k >= 3)[:, None], nf, dn)
+    pts = pts + h.prm[:, 6, None, None] * nf[:, None, :]
+    return pts, nf, k.to(torch.int32)
+
+
 SHAPES = {
     int(ShapeType.SPHERE): (support_sphere, patch_sphere),
     int(ShapeType.CAPSULE): (support_capsule, patch_capsule),
     int(ShapeType.BOX): (support_box, patch_box),
     int(ShapeType.CYLINDER): (support_cylinder, patch_cylinder),
     int(ShapeType.CONE): (support_cone, patch_cone),
+    int(ShapeType.SEGMENT): (support_segment, patch_segment),
+    int(ShapeType.CONVEX): (support_convex, patch_convex),
 }
+
+
+def _shape(t, prm, pool):
+    """(support, patch, the shape argument they take, flat flag bool[K]) of K
+    shapes of type ``t`` with params ``prm`` [K, >= 3]; a CONVEX shape reads
+    the pool and may be flat (lane 5 > 0.5)."""
+    support, patch = SHAPES[int(t)]
+    if int(t) == int(ShapeType.CONVEX):
+        if pool is None:
+            raise ValueError("a CONVEX shape needs the vertex pool")
+        return support, patch, hull_windows(prm, pool), prm[:, 5] > 0.5
+    flat = torch.zeros(prm.shape[0], dtype=torch.bool, device=prm.device)
+    return support, patch, prm[:, :3], flat
 
 
 # ---------------------------------------------------------------------------
@@ -437,14 +605,16 @@ def _get_patch(patch_fn, prm, pos, quat, d_world):
     return pts_w, quat_m.rotate(quat, nf_l), cnt
 
 
-def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b):
+def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b, pool=None):
     """Manifolds of K pairs of shape ``type_a`` (A) and ``type_b`` (B), both
-    support-mapped (reference ``generic_convex_pair``). ``prm_*`` are the
-    first three shape parameters [K, 3]. Returns (normal f32[K,3], point_a
+    support-mapped (reference ``generic_convex_pair``, and
+    ``generic_convex_pair_aux`` with its flat rule where a side is CONVEX).
+    ``prm_*`` are the shape parameters [K, 3], or [K, 7] for CONVEX, whose
+    vertices come from ``pool`` f32[V, 3]. Returns (normal f32[K,3], point_a
     f32[K,4,3], point_b f32[K,4,3], separation f32[K,4], feature_id
     i32[K,4], count i32[K])."""
-    support_a, patch_a = SHAPES[int(type_a)]
-    support_b, patch_b = SHAPES[int(type_b)]
+    support_a, patch_a, prm_a, flat_a = _shape(type_a, prm_a, pool)
+    support_b, patch_b, prm_b, flat_b = _shape(type_b, prm_b, pool)
     k_n = pa.shape[0]
     dev = pa.device
     sa = _world_support(support_a, prm_a, pa, qa)
@@ -470,6 +640,18 @@ def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b):
     snap_a = elig_a & (~elig_b | (align_a >= align_b))
     snap_b = elig_b & ~snap_a
     n = torch.where(snap_a[:, None], nf_a, torch.where(snap_b[:, None], -nf_b, n))
+    # Flat shapes dominate: a frontal contact takes the normal of their plane.
+    # Frontal also means that the other shape's centre lies in front of the
+    # face the contact sees (its normal faces along the contact); the
+    # reference asks only the alignment, and at a concave fold of a mesh it
+    # snaps to a neighbouring triangle's back face and pushes a body resting
+    # on the next triangle down through the mesh (ROADMAP 3b). A triangle's
+    # origin lies in its plane.
+    prefer_b = (flat_b & (align_b > 0.3) & (cnt_b >= 3)
+                & (vec.dot(nf_b, pa - pb) > 0.0))
+    prefer_a = (flat_a & (align_a > 0.3) & (cnt_a >= 3) & (vec.dot(nf_a, pb - pa) > 0.0)
+                & (~prefer_b | (align_a > align_b)))
+    n = torch.where(prefer_a[:, None], nf_a, torch.where(prefer_b[:, None], -nf_b, n))
     n = nrm(n)
 
     pts_a, nf_a, cnt_a = _get_patch(patch_a, prm_a, pa, qa, n)
@@ -590,14 +772,16 @@ def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b):
     )
 
 
-def plane_patch_manifold(type_b, pa, qa, na, pb, qb, prm_b):
-    """Manifolds of K pairs of a half-space A (local normal ``na``) and a
-    support-mapped shape B, in that canonical order (reference
-    ``_swapped(support_patch_plane_pair(...))``): B's support patch along the
-    plane's inward normal, its distances to the plane, reduced to 4 spread
-    points. Same returns as ``generic_manifold``; the normal points from the
-    plane to the shape."""
-    _, patch_b = SHAPES[int(type_b)]
+def plane_patch_manifold(type_b, pa, qa, na, pb, qb, prm_b, pool=None):
+    """Manifolds of K pairs of a half-space A (local normal ``na``, the
+    first three lanes of its params) and a support-mapped shape B, in that
+    canonical order (reference ``_swapped(support_patch_plane_pair(...))``,
+    ``_swapped_aux`` for CONVEX): B's support patch along the plane's inward
+    normal, its distances to the plane, reduced to 4 spread points. Same
+    returns as ``generic_manifold``; the normal points from the plane to the
+    shape."""
+    _, patch_b, prm_b, _ = _shape(type_b, prm_b, pool)
+    na = na[:, :3]
     dev = pa.device
     n_plane = quat_m.rotate(qa, na)
     pts_l, _, cnt = patch_b(prm_b, quat_m.rotate_inv(qb, -n_plane))

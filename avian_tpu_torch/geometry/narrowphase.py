@@ -8,9 +8,15 @@ and each bucket that holds pairs gets one launch of its kernel:
 - Kernel A (``kernels/box_manifold.py``): box/box and box/plane;
 - Kernel N (``kernels/round_manifold.py``): the six analytic pairs of
   spheres, capsules, boxes and half-spaces, whose plain versions are below;
-- Kernel M (``kernels/convex_manifold.py``): the ten support-mapped pairs of
-  spheres, capsules, boxes, cylinders and cones (``geometry/convex.py``);
-- Kernel O (same module): half-space against cylinder or cone.
+- Kernel M (``kernels/convex_manifold.py``): the sixteen support-mapped
+  pairs of spheres, capsules, boxes, cylinders, cones and segments
+  (``geometry/convex.py``);
+- Kernel O (same module): half-space against cylinder, cone or segment;
+- Kernel P (``kernels/hull_manifold.py``): a pool-backed convex shape (hull,
+  round cuboid, triangle) against a sphere, capsule, box, cylinder, cone,
+  segment or another such shape, whose buckets carry all seven parameter
+  lanes and the world's vertex pool;
+- Kernel Q (same module): half-space against a pool-backed convex shape.
 
 Inputs are swapped into canonical order (type_a <= type_b) first and the
 results swapped back, as the reference does (narrowphase.py:470-534). A
@@ -30,6 +36,7 @@ from avian_tpu_torch.geometry.box_box import _closest_segment_segment
 from avian_tpu_torch.geometry.convex import first_argmin, nrm
 from avian_tpu_torch.kernels import box_manifold as ka
 from avian_tpu_torch.kernels import convex_manifold as km
+from avian_tpu_torch.kernels import hull_manifold as kpq
 from avian_tpu_torch.kernels import round_manifold as kn
 from avian_tpu_torch.math import quat as quat_m
 from avian_tpu_torch.math import vec
@@ -50,8 +57,13 @@ PAIR_KERNELS = {
     (int(_S.BOX), int(_S.PLANE)): (ka, "box_manifold", ka.BOX_PLANE),
     (int(_S.PLANE), int(_S.CYLINDER)): (km, "plane_patch_manifold", km.PLANE_CYLINDER),
     (int(_S.PLANE), int(_S.CONE)): (km, "plane_patch_manifold", km.PLANE_CONE),
+    (int(_S.PLANE), int(_S.SEGMENT)): (km, "plane_patch_manifold", km.PLANE_SEGMENT),
+    (int(_S.PLANE), int(_S.CONVEX)): (kpq, "plane_hull_manifold", kpq.PLANE_CONVEX),
     **{pair: (km, "convex_manifold", kind) for kind, pair in enumerate(km.GENERIC_PAIRS)},
+    **{pair: (kpq, "hull_manifold", kind) for kind, pair in enumerate(kpq.HULL_PAIRS)},
 }
+# Kernels whose buckets take every parameter lane and the vertex pool.
+POOL_KERNELS = ("hull_manifold", "plane_hull_manifold")
 SUPPORTED_PAIRS = tuple(sorted(PAIR_KERNELS))
 _EMPTY_PAIRS = ((int(_S.PLANE), int(_S.PLANE)),)
 _NUM_TYPES = 16
@@ -284,7 +296,7 @@ class Bucket:
     kind: int            # its first argument
     slots: torch.Tensor  # i64[K] pair-buffer slots
     swap: torch.Tensor   # bool[K] inputs were swapped into canonical order
-    inputs: tuple        # (pa, qa, prm_a, pb, qb, prm_b), contiguous f32
+    inputs: tuple        # (pa, qa, prm_a, pb, qb, prm_b[, pool]), contiguous f32
     module: object       # the kernel's module
 
     def run(self, twin=False):
@@ -294,10 +306,12 @@ class Bucket:
 
 
 def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
-                     shape_pairs=None):
+                     shape_pairs=None, convex_verts=None):
     """Bucket the valid pairs by canonical shape pair: one stable sort of the
     pair codes, one host read of the bucket sizes, and one gather of every
-    input; each bucket's inputs are then a contiguous slice. Raises for a
+    input; each bucket's inputs are then a contiguous slice. Buckets of
+    Kernels P and Q get the first ``kpq.PARAM_LANES`` params and the vertex
+    pool ``convex_verts``, the others the first three params. Raises for a
     pair the port does not support; skips pairs outside ``shape_pairs`` and
     half-space pairs."""
     ta = shape_type[ca.long()]
@@ -314,13 +328,14 @@ def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
             raise NotImplementedError(
                 f"shape pair {ShapeType(pair[0]).name}/{ShapeType(pair[1]).name}"
                 " is not ported yet (pairs of spheres, capsules, boxes, cylinders,"
-                " cones and half-spaces are)"
+                " cones, segments, pool-backed convex shapes and half-spaces are)"
             )
     order = torch.argsort(code, stable=True)  # valid pairs by code, slots ascending
     sw = swap[order]
     c_a = torch.where(sw, cb[order], ca[order]).long()
     c_b = torch.where(sw, ca[order], cb[order]).long()
     gathered = (pos[c_a], quat[c_a], params[c_a, :3], pos[c_b], quat[c_b], params[c_b, :3])
+    wide = None
     buckets = []
     start = 0
     for flat, n_pairs in enumerate(counts[:-1]):
@@ -329,6 +344,14 @@ def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
         if n_pairs and pair in allowed and pair in PAIR_KERNELS:
             module, name, kind = PAIR_KERNELS[pair]
             inputs = tuple(x[start:end] for x in gathered)
+            if name in POOL_KERNELS:
+                if convex_verts is None:
+                    raise ValueError(f"shape pair {pair} needs the vertex pool")
+                if wide is None:
+                    lanes = kpq.PARAM_LANES
+                    wide = (params[c_a, :lanes], params[c_b, :lanes])
+                inputs = (inputs[0], inputs[1], wide[0][start:end], inputs[3], inputs[4],
+                          wide[1][start:end], convex_verts)
             buckets.append(Bucket(pair, name, kind, order[start:end], sw[start:end], inputs,
                                   module))
         start = end
@@ -336,15 +359,17 @@ def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
 
 
 def compute_manifolds(shape_type, params, pos, quat, ca, cb, valid,
-                      shape_pairs=None):
-    """Manifolds for every slot of the pair buffer.
+                      shape_pairs=None, convex_verts=None):
+    """Manifolds for every slot of the pair buffer (``convex_verts``: the
+    world's vertex pool, for pool-backed convex shapes).
 
     Slots that hold no pair, and pairs whose canonical shape pair is not in
     ``shape_pairs``, get the empty manifold (the reference's ``_unsupported``
     branch). Returns ``(manifold, bucket_sizes)`` where ``bucket_sizes``
     maps each canonical shape pair launched to its number of pairs."""
     out = empty(ca.shape[0], pos.device)
-    buckets = manifold_buckets(shape_type, params, pos, quat, ca, cb, valid, shape_pairs)
+    buckets = manifold_buckets(shape_type, params, pos, quat, ca, cb, valid, shape_pairs,
+                               convex_verts)
     if not buckets:
         return out, {}
     # One scatter of every bucket's manifolds, swapped back where the inputs

@@ -1,6 +1,7 @@
 """Collider AABBs (port of ``avian_tpu/geometry/shapes.py:24-83``) for the
-shapes the port supports: spheres, capsules, boxes, half-spaces, cylinders
-and cones, plus the zero-size sphere that padded collider slots carry."""
+shapes the port supports: spheres, capsules, boxes, half-spaces, cylinders,
+cones, segments and pool-backed convex shapes (hulls, round cuboids,
+triangles), plus the zero-size sphere that padded collider slots carry."""
 
 import torch
 
@@ -23,10 +24,15 @@ def local_aabb_half_extents(shape_type, params):
     cyl = torch.stack([cr, ch, cr], dim=-1)
     box = params[..., :3]
     plane = torch.full_like(box, BIG)
+    zero = torch.zeros_like(r)
+    seg = torch.stack([r, zero, zero], dim=-1)  # segment on local X
+    convex = params[..., 2:5]  # the builder's precomputed half extents
     st = shape_type[..., None]
     out = torch.where(st == ShapeType.CAPSULE, capsule, half)
     out = torch.where(st == ShapeType.BOX, box, out)
     out = torch.where((st == ShapeType.CYLINDER) | (st == ShapeType.CONE), cyl, out)
+    out = torch.where(st == ShapeType.SEGMENT, seg, out)
+    out = torch.where(st == ShapeType.CONVEX, convex, out)
     return torch.where(st == ShapeType.PLANE, plane, out)
 
 

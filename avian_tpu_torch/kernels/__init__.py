@@ -15,9 +15,14 @@
 - ``compact_pairs`` (Kernel L, CUDA): broadphase compaction, global pass,
   joint probe and pair keys;
 - ``convex_manifold`` (Kernel M, CUDA): manifolds of the support-mapped
-  pairs (cylinders, cones, capsule/box);
+  pairs (cylinders, cones, segments, capsule/box);
 - ``round_manifold`` (Kernel N, CUDA): the analytic sphere and capsule pairs;
-- ``plane_patch_manifold`` (Kernel O, CUDA): cylinder or cone on a half-space.
+- ``plane_patch_manifold`` (Kernel O, CUDA): cylinder, cone or segment on a
+  half-space;
+- ``hull_manifold`` (Kernel P, CUDA): manifolds of a pool-backed convex shape
+  (hull, round cuboid, triangle) against any shape but a half-space;
+- ``plane_hull_manifold`` (Kernel Q, CUDA): a pool-backed convex shape on a
+  half-space.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -40,6 +45,7 @@ from avian_tpu_torch.kernels import body_pass as _k
 from avian_tpu_torch.kernels import compact_pairs as _l
 from avian_tpu_torch.kernels import convex_manifold as _mo
 from avian_tpu_torch.kernels import round_manifold as _n
+from avian_tpu_torch.kernels import hull_manifold as _pq
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -57,6 +63,8 @@ WRAPPERS = {
     "convex_manifold": (_mo.convex_manifold,),
     "round_manifold": (_n.round_manifold,),
     "plane_patch_manifold": (_mo.plane_patch_manifold,),
+    "hull_manifold": (_pq.hull_manifold,),
+    "plane_hull_manifold": (_pq.plane_hull_manifold,),
 }
 
 

@@ -10,7 +10,7 @@ change to a source rebuilds. A failed build raises; there is no fallback.
 ``launch`` calls one entry point on PyTorch's current stream, ``require``
 is the wrappers' check of device, dtype, shape and contiguity, and
 ``launch_manifold`` is the common launch of the narrowphase's pair kernels
-(A, M, N, O).
+(A, M, N, O, P, Q).
 """
 
 import ctypes
@@ -40,6 +40,9 @@ _SIGNATURES = {
     "avian_round_manifold": [_I, _I] + [_P] * 12 + [_P],
     "avian_convex_manifold": [_I, _I] + [_P] * 13 + [_P],
     "avian_plane_patch_manifold": [_I, _I] + [_P] * 13 + [_P],
+    # Kernels P, Q
+    "avian_hull_manifold": [_I, _I] + [_P] * 14 + [_P],
+    "avian_plane_hull_manifold": [_I, _I] + [_P] * 13 + [_P],
     "avian_grid_sweep": [_P] * 5 + [_I, _I, _P],
     "avian_solve_color": [_I] * 5 + [_P] * 10 + [_F] * 5 + [_P],
     # Kernel E
@@ -189,17 +192,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     check(err, name)
 
 
-def launch_manifold(name, kind, inputs, *tables):
+def launch_manifold(name, kind, inputs, *tables, prm_width=3):
     """Launch pair kernel ``name`` of ``kind`` on the K pairs ``inputs`` =
-    (pa, qa, prm_a, pb, qb, prm_b), contiguous f32 [K, 3] / [K, 4] on one
-    card; ``tables`` are extra f32 device arrays passed after the outputs.
-    Returns (normal f32[K,3], point_a f32[K,4,3], point_b f32[K,4,3],
-    separation f32[K,4], feature_id i32[K,4], count i32[K])."""
+    (pa, qa, prm_a, pb, qb, prm_b), contiguous f32 [K, 3] / [K, 4] (params
+    [K, ``prm_width``]) on one card; ``tables`` are extra f32 device arrays
+    passed after the outputs. Returns
+    (normal f32[K,3], point_a f32[K,4,3], point_b f32[K,4,3], separation
+    f32[K,4], feature_id i32[K,4], count i32[K])."""
     pa = inputs[0]
     dev, k_n = pa.device, pa.shape[0]
     f32 = torch.float32
-    require(name, dev, [(n, x, (k_n, w), f32) for n, x, w in zip(
-        ("pa", "qa", "prm_a", "pb", "qb", "prm_b"), inputs, (3, 4, 3, 3, 4, 3))])
+    w = prm_width
+    require(name, dev, [(n, x, (k_n, c), f32) for n, x, c in zip(
+        ("pa", "qa", "prm_a", "pb", "qb", "prm_b"), inputs, (3, 4, w, 3, 4, w))])
     out = (
         torch.empty((k_n, 3), dtype=f32, device=dev),
         torch.empty((k_n, 4, 3), dtype=f32, device=dev),

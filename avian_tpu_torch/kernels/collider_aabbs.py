@@ -8,8 +8,9 @@ thread per collider each:
 
 - ``collider_aabbs``: world pose = body pose o local offset, the rotated
   AABB of the shape's local box (sphere, capsule ``(r, h + r, r)``, box,
-  cylinder and cone ``(r, h, r)``, half-space, padded slot; a sphere's is
-  not rotated), and the symmetric expansion
+  cylinder and cone ``(r, h, r)``, segment ``(h, 0, 0)``, a pool-backed
+  convex shape its params' ``(hx, hy, hz)``, half-space, padded slot; a
+  sphere's is not rotated), and the symmetric expansion
   ``min(|v| dt, speculative margin) + collision margin + tolerance``. It
   also returns the world pose, which the narrowphase reuses.
 - ``cell_keys``: ``floor(aabb / cell)``, the up to 8 cell keys packed

@@ -103,7 +103,7 @@ def compact_pairs_twin(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid
 
     # Grid pairs, output-driven: each slot finds its entry and its bit.
     shifts = torch.arange(w, device=dev)
-    bitmat = (bits.long()[:, None] >> shifts[None, :]) & 1          # [n_e, w]
+    bitmat = (bits[:, None] >> shifts[None, :]) & 1                  # [n_e, w]
     cnt = bitmat.sum(dim=1)
     ends = torch.cumsum(cnt, dim=0)
     total_grid = ends[-1] if n_e else torch.zeros((), dtype=torch.int64, device=dev)
@@ -144,7 +144,7 @@ def compact_pairs_twin(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid
 def compact_pairs(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid,
                   global_overflow, jkeys, n_bodies, c_cap) -> Pairs:
     """The broadphase's pairs in ``c_cap`` slots from Kernel B's candidate
-    ``bits`` i32[8M] and run ``rank`` over the sorted cell keys ``skey`` (the
+    ``bits`` i64[8M] and run ``rank`` over the sorted cell keys ``skey`` (the
     collider of each sorted entry in ``scol`` i64[8M]), the global pass of
     the ``g_idx`` i64[G] colliders (``g_valid`` bool[G]; ``global_overflow``
     i64[] globals that did not fit), and the joint-disabled body pairs
@@ -160,7 +160,8 @@ def compact_pairs(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid,
     n_e, m, g_cap, j_n = bits.shape[0], col.active.shape[0], g_idx.shape[0], jkeys.shape[0]
     f32, i32, i64, u8 = torch.float32, torch.int32, torch.int64, torch.bool
     build.require("compact_pairs", dev, (
-        ("bits", bits, (n_e,), i32), ("rank", rank, (n_e,), i32), ("skey", skey, (n_e,), i32),
+        ("bits", bits, (n_e,), torch.int64), ("rank", rank, (n_e,), i32),
+        ("skey", skey, (n_e,), i32),
         ("scol", scol, (n_e,), i64), ("aabb_min", col.aabb_min, (m, 3), f32),
         ("aabb_max", col.aabb_max, (m, 3), f32), ("active", col.active, (m,), u8),
         ("is_global", col.is_global, (m,), u8), ("dyn", col.dyn, (m,), u8),

@@ -3,12 +3,14 @@ contact manifolds of support-mapped convex shapes.
 
 Kernel M replaces ``avian_tpu/geometry/convex.py::generic_convex_pair``
 (:468), the reference's support-map fallback for every pair without a
-dedicated function. On this path those are the ten pairs of
-``GENERIC_PAIRS``: sphere with cylinder and cone; capsule with box, cylinder
-and cone; box with cylinder and cone; cylinder/cylinder, cylinder/cone and
-cone/cone. Kernel O replaces ``support_patch_plane_pair`` (:702) behind the
-reference's ``_swapped`` wrapper (``narrowphase.py:313-326``): a half-space
-against a cylinder or a cone, the half-space first.
+dedicated function. Those are the sixteen pairs of ``GENERIC_PAIRS``: sphere
+with cylinder and cone; capsule with box, cylinder and cone; box with
+cylinder and cone; cylinder/cylinder, cylinder/cone and cone/cone; and a
+segment with each of sphere, capsule, box, cylinder, cone and segment.
+Kernel O replaces ``support_patch_plane_pair`` (:702) behind the reference's
+``_swapped`` wrapper (``narrowphase.py:313-326``): a half-space against a
+cylinder, a cone or a segment, the half-space first. (A pool-backed convex
+shape's pairs are Kernels P and Q, ``kernels/hull_manifold.py``.)
 
 A pair of Kernel M is some 24 Frank-Wolfe and 20 subgradient steps, each
 two support functions under two rotations, then two rounds of support
@@ -46,10 +48,13 @@ GENERIC_PAIRS = tuple((int(a), int(b)) for a, b in (
     (_S.CAPSULE, _S.BOX), (_S.CAPSULE, _S.CYLINDER), (_S.CAPSULE, _S.CONE),
     (_S.BOX, _S.CYLINDER), (_S.BOX, _S.CONE),
     (_S.CYLINDER, _S.CYLINDER), (_S.CYLINDER, _S.CONE), (_S.CONE, _S.CONE),
+    (_S.SPHERE, _S.SEGMENT), (_S.CAPSULE, _S.SEGMENT), (_S.BOX, _S.SEGMENT),
+    (_S.CYLINDER, _S.SEGMENT), (_S.CONE, _S.SEGMENT), (_S.SEGMENT, _S.SEGMENT),
 ))
 PLANE_CYLINDER = 0
 PLANE_CONE = 1
-PLANE_SHAPES = (int(_S.CYLINDER), int(_S.CONE))
+PLANE_SEGMENT = 2
+PLANE_SHAPES = (int(_S.CYLINDER), int(_S.CONE), int(_S.SEGMENT))
 
 @functools.cache
 def _disc_table(device):
@@ -92,20 +97,20 @@ convex_manifold.launches = 0
 
 def plane_patch_manifold_twin(kind, pa, qa, na, pb, qb, prm_b):
     """Plain PyTorch version; see ``plane_patch_manifold``."""
-    if kind not in (PLANE_CYLINDER, PLANE_CONE):
+    if not 0 <= kind < len(PLANE_SHAPES):
         raise ValueError(f"unknown plane_patch_manifold kind {kind}")
     return convex.plane_patch_manifold(PLANE_SHAPES[kind], pa, qa, na, pb, qb, prm_b)
 
 
 def plane_patch_manifold(kind, pa, qa, na, pb, qb, prm_b):
     """Manifolds of K pairs of a half-space A (local normal ``na``) and the
-    cylinder (``PLANE_CYLINDER``) or cone (``PLANE_CONE``) B. Same returns as
-    ``convex_manifold``."""
+    cylinder (``PLANE_CYLINDER``), cone (``PLANE_CONE``) or segment
+    (``PLANE_SEGMENT``) B. Same returns as ``convex_manifold``."""
     if pa.device.type == "cpu":
         return plane_patch_manifold_twin(kind, pa, qa, na, pb, qb, prm_b)
     if pa.device.type != "cuda":
         raise RuntimeError(f"plane_patch_manifold: unsupported device {pa.device}")
-    if kind not in (PLANE_CYLINDER, PLANE_CONE):
+    if not 0 <= kind < len(PLANE_SHAPES):
         raise ValueError(f"unknown plane_patch_manifold kind {kind}")
     from avian_tpu_torch.kernels import build
 

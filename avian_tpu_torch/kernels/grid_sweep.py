@@ -6,7 +6,7 @@ and every ``k = 1..w`` it tests, exactly as the reference does, that entry
 ``i + k`` lies in the same cell, that this cell is the pair's canonical cell,
 that the two AABBs overlap, that the bodies differ, that the layer masks
 accept each other and that one side is dynamic, and sets bit ``k - 1`` of a
-u32 mask. It also emits each entry's rank in its cell run, which the caller
+64-bit mask. It also emits each entry's rank in its cell run, which the caller
 turns into the ``window_overflow`` count.
 
 On the H100 the sweep is bound by the loads of neighbouring entries: each
@@ -16,9 +16,12 @@ through L1. The CUDA kernel (``csrc/grid_sweep.cu``) gives one thread to each
 entry, stops at the end of the cell run (the reference's remaining window
 positions are all ``same_cell == False``), and caps the run rank at
 ``w + 1`` (all ``window_overflow`` needs), so a long run of empty entries
-costs O(w) per thread rather than O(run). The window stays the reference's
-``w = min(sap_window, 8M - 1) <= 32``, so pair set, slot order and ``dropped``
-match the reference exactly.
+costs O(w) per thread rather than O(run). The window is
+``w = min(sap_window, 8M - 1)``; up to the reference's limit of 32 the pair
+set, slot order and ``dropped`` match the reference exactly, and the port
+also takes 33..64 (the reference refuses them), which pairs the entries of
+a cell run of up to 65 where the reference drops those past 33 (ROADMAP 3b:
+the window cliff; the terrain path needs it).
 
 The plain PyTorch version, ``grid_sweep_twin``, runs on CPU tensors; on a
 CUDA tensor the wrapper launches the kernel or raises.
@@ -29,6 +32,7 @@ import ctypes
 import torch
 
 SENTINEL = 2**31 - 1
+MAX_WINDOW = 64  # bits of the candidate mask
 F_COLS = 6  # aabb_min(3), aabb_max(3)
 I_COLS = 7  # min-cell(3), body, layer members, layer filter, dynamic
 
@@ -37,13 +41,8 @@ def cell_key(c):
     return ((c[..., 0] & 1023) << 20) | ((c[..., 1] & 1023) << 10) | (c[..., 2] & 1023)
 
 
-def to_i32_bits(x):
-    """Wrap an int64 tensor holding u32 values to its int32 bit pattern."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
-
-
 def grid_sweep_twin(skey, sf, si, w):
-    """Plain PyTorch version: (bits i32[n_e], rank i32[n_e])."""
+    """Plain PyTorch version: (bits i64[n_e], rank i32[n_e])."""
     n_e = skey.shape[0]
     dev = skey.device
     spad_key = torch.cat([skey, torch.full((w,), SENTINEL, dtype=torch.int32, device=dev)])
@@ -77,7 +76,7 @@ def grid_sweep_twin(skey, sf, si, w):
     new_run[1:] = skey[1:] != skey[:-1]
     run_start = torch.cummax(torch.where(new_run, idx, 0), dim=0).values
     rank = torch.clamp(idx - run_start, max=w + 1)
-    return to_i32_bits(bits), rank.to(torch.int32)
+    return bits, rank.to(torch.int32)
 
 
 def grid_sweep(skey, sf, si, w):
@@ -85,15 +84,15 @@ def grid_sweep(skey, sf, si, w):
 
     ``skey`` i32[n_e] sorted cell keys (``SENTINEL`` = no cell), ``sf``
     f32[n_e, 6], ``si`` i32[n_e, 7] the entries' fields in sorted order.
-    Returns ``bits`` (i32 bit pattern of the u32 candidate mask) and the run
-    rank capped at ``w + 1``."""
+    Returns ``bits`` (i64 bit pattern of the 64-bit candidate mask) and the
+    run rank capped at ``w + 1``."""
     if skey.device.type == "cpu":
         return grid_sweep_twin(skey, sf, si, w)
     if skey.device.type != "cuda":
         raise RuntimeError(f"grid_sweep: unsupported device {skey.device}")
     n_e = skey.shape[0]
-    if not (1 <= w <= 32):
-        raise ValueError(f"grid_sweep: window {w} outside 1..32")
+    if not (1 <= w <= MAX_WINDOW):
+        raise ValueError(f"grid_sweep: window {w} outside 1..{MAX_WINDOW}")
     if skey.dtype != torch.int32 or si.dtype != torch.int32 or sf.dtype != torch.float32:
         raise TypeError("grid_sweep: want i32 keys, f32[.,6] and i32[.,7] tables")
     if sf.shape != (n_e, F_COLS) or si.shape != (n_e, I_COLS):
@@ -104,7 +103,7 @@ def grid_sweep(skey, sf, si, w):
         raise ValueError("grid_sweep: inputs must be contiguous")
     from avian_tpu_torch.kernels import build
 
-    bits = torch.empty((n_e,), dtype=torch.int32, device=skey.device)
+    bits = torch.empty((n_e,), dtype=torch.int64, device=skey.device)
     rank = torch.empty((n_e,), dtype=torch.int32, device=skey.device)
     if n_e == 0:
         return bits, rank

@@ -74,11 +74,14 @@ def update_aabbs(world: World, config: PhysicsConfig) -> World:
 
 
 def sweep_window(config: PhysicsConfig, m: int) -> int:
+    """The window of Kernel B's sweep. Up to 32 it is the reference's; the
+    port also takes 33..64 (one 64-bit candidate mask per grid entry), which
+    the reference refuses (ROADMAP 3b: the window cliff)."""
     w = min(config.sap_window, max(8 * m - 1, 1))
-    if w > 32:
+    if w > kb.MAX_WINDOW:
         raise ValueError(
-            f"sap_window={config.sap_window} > 32: the candidate bitmask is "
-            "one u32 per grid entry"
+            f"sap_window={config.sap_window} > {kb.MAX_WINDOW}: the candidate bitmask is "
+            "one u64 per grid entry"
         )
     return w
 

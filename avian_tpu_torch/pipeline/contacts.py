@@ -1,7 +1,9 @@
 """Narrowphase stage: manifolds, persistent pair matching and warm-start
 carry (port of ``avian_tpu/pipeline/contacts.py::narrow_phase``).
 
-Manifolds come from Kernels A, M, N and O through ``geometry.narrowphase``. Everything
+Manifolds come from Kernels A, M, N, O, P and Q through
+``geometry.narrowphase``, which gets the world's vertex pool for the
+pool-backed convex shapes (reference ``contacts.py:80``). Everything
 after them is Kernel F (``kernels/contact_rows.py``): the join of old and new
 pair keys, the speculative keep predicate, in-row point compaction, anchors,
 contact ids, feature-id / anchor-distance warm-start matching, material
@@ -45,7 +47,7 @@ def narrow_phase(world: World, bp: BroadPhaseResult, config: PhysicsConfig, pose
     pairs = config.shape_pairs if config.shape_pairs is not None else world.shape_pairs
     man, sizes = compute_manifolds(
         col.shape_type, col.params, pos, quat,
-        bp.collider_a.long(), bp.collider_b.long(), bp.valid, pairs,
+        bp.collider_a.long(), bp.collider_b.long(), bp.valid, pairs, world.convex_verts,
     )
 
     # ---- pair persistence: one stable sort of [old keys ++ new keys] ----

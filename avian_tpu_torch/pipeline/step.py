@@ -7,11 +7,13 @@ solve -> integrate positions -> relax solve -> XPBD joints -> joint
 damping] -> restitution -> store impulses and joint forces -> writeback and
 force clear -> sleeping -> NaN quarantine.
 
-The slices cover worlds of spheres, capsules, boxes, cylinders, cones and
-half-spaces, with joints of all five types. The step raises
-``NotImplementedError`` for ``config.swept_ccd``,
-``hooks``, ``custom_joints`` or ``custom_shapes``, and the narrowphase
-raises for any other shape pair; nothing is skipped silently.
+The slices cover worlds of spheres, capsules, boxes, cylinders, cones,
+segments, half-spaces and pool-backed convex shapes (convex hulls, round
+cuboids, and the triangles of trimeshes and heightfields), with joints of
+all five types. The step raises ``NotImplementedError`` for
+``config.swept_ccd``, ``hooks``, ``custom_joints`` or ``custom_shapes``, and
+the narrowphase raises for any other shape code (TRIANGLE, TRIMESH and
+HEIGHTFIELD written into a world directly); nothing is skipped silently.
 """
 
 from dataclasses import dataclass

@@ -1,7 +1,10 @@
 """Scenes of the ported slices (port of ``avian_tpu/scenes.py::cube_pile``,
 ``box_pyramid``, ``many_pyramids`` and ``falling_hinges``, the ``stack3`` golden scene of
-``tests/golden_common.py``, the mixed shapes of ``examples/many_shapes.py`` and
-the cylinder stack of ``tests/test_shapes_convex.py``). ``device=None`` builds the world on the card
+``tests/golden_common.py``, the mixed shapes of ``examples/many_shapes.py``,
+the cylinder stack of ``tests/test_shapes_convex.py``, the worlds of
+``examples/trimesh_shapes_3d.py``, ``examples/voxels_3d.py`` and
+``tests/test_convex_hull.py``, and mixed shapes, rocks and round cuboids on
+a heightfield). ``device=None`` builds the world on the card
 (``core.device.default_device``); pass ``device="cpu"`` for the CPU."""
 
 import math
@@ -258,3 +261,147 @@ def cylinder_stack(device=None):
     b.cone(cone, 0.5, 1.0)
     world = b.finalize(max_bodies=8, max_colliders=8, max_contacts=64, device=device)
     return world, stack, cone
+
+
+def trimesh_valley(device=None):
+    """Two balls (r 0.4, friction 0.1) dropped onto a static V-shaped
+    trimesh of four triangles: the world of ``examples/trimesh_shapes_3d.py``.
+    Returns (world, ball ids)."""
+    verts = np.asarray(
+        [[-4.0, 2.0, -4.0], [0.0, 0.0, -4.0], [4.0, 2.0, -4.0],
+         [-4.0, 2.0, 4.0], [0.0, 0.0, 4.0], [4.0, 2.0, 4.0]], np.float32)
+    faces = np.asarray([[0, 1, 3], [1, 4, 3], [1, 2, 4], [2, 5, 4]], np.int32)
+    b = SceneBuilder()
+    mesh = b.add_body(body_type=BodyType.STATIC)
+    b.trimesh(mesh, verts, faces, friction=0.1)
+    balls = []
+    for x in (-2.5, 2.0):
+        body = b.add_body(pos=(x, 4.0, 0.0))
+        b.sphere(body, 0.4, friction=0.1)
+        balls.append(body)
+    world = b.finalize(max_bodies=4, max_colliders=8, max_contacts=64, device=device)
+    return world, balls
+
+
+def voxel_stairs(device=None):
+    """A ball (r 0.4) dropped onto a staircase of unit voxels (column x
+    filled up to height x, 3 deep): the world of ``examples/voxels_3d.py``.
+    Returns (world, ball id)."""
+    occ = np.zeros((4, 4, 3), bool)
+    for x in range(4):
+        occ[x, : x + 1, :] = True
+    b = SceneBuilder()
+    vox = b.add_body(body_type=BodyType.STATIC)
+    b.voxels(vox, occ, voxel_size=1.0, origin=(0.0, 0.0, 0.0))
+    ball = b.add_body(pos=(1.5, 5.0, 1.5))
+    b.sphere(ball, 0.4)
+    world = b.finalize(max_bodies=4, max_colliders=64, max_contacts=256, device=device)
+    return world, ball
+
+
+def _cube_points(h=0.5):
+    return [(sx * h, sy * h, sz * h) for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+
+
+def hull_stack(single: bool = False, device=None):
+    """Convex hulls on a ground plane, the worlds of
+    ``tests/test_convex_hull.py``: with ``single``, one hull of a unit
+    cube's corners dropped from 0.8 m; else two such hulls stacked (the
+    upper 5 cm off axis) and an octahedron hull (r 0.6) beside them.
+    Returns (world, ids): the hull bodies, lower first."""
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    if single:
+        body = b.add_body(pos=(0, 0.8, 0))
+        b.convex_hull(body, _cube_points(0.5))
+        return b.finalize(max_bodies=4, max_colliders=4, max_contacts=16, device=device), [body]
+    ids = []
+    for pos in ((0, 0.55, 0), (0.05, 1.6, 0)):
+        ids.append(b.add_body(pos=pos))
+        b.convex_hull(ids[-1], _cube_points(0.5))
+    ids.append(b.add_body(pos=(3.0, 0.7, 0)))
+    r = 0.6
+    b.convex_hull(ids[-1], [(r, 0, 0), (-r, 0, 0), (0, r, 0), (0, -r, 0), (0, 0, r), (0, 0, -r)])
+    return b.finalize(max_bodies=6, max_colliders=6, max_contacts=64, device=device), ids
+
+
+def terrain_heights(field: int = 65):
+    """Heights f32[field, field] of ``terrain_shapes``' ground, 1 m apart
+    over ``field - 1`` metres: the ripple of
+    ``tests/test_trimesh.py::test_box_pile_on_heightfield``, ``0.3 sin(u)
+    cos(v)`` with u and v running 0..3 across the field, plus a bowl
+    ``0.004 (x^2 + z^2)`` that rises toward the edges."""
+    half = (field - 1) / 2.0
+    xs = np.linspace(-half, half, field)
+    ripple = 0.3 * np.sin(np.linspace(0, 3, field))[:, None] * np.cos(np.linspace(0, 3, field))[None, :]
+    return (ripple + 0.004 * (xs[:, None] ** 2 + xs[None, :] ** 2)).astype(np.float32)
+
+
+def terrain_height_at(heights, x, z):
+    """The height of the triangulated field ``heights`` (1 m apart, centred
+    on the origin, the builder's two triangles a cell) at points ``x``,
+    ``z`` (numpy arrays), interpolated on the triangle under each point."""
+    field = heights.shape[0]
+    half = (field - 1) / 2.0
+    gx = np.clip(np.asarray(x, np.float64) + half, 0.0, field - 1 - 1e-9)
+    gz = np.clip(np.asarray(z, np.float64) + half, 0.0, field - 1 - 1e-9)
+    i, k = np.floor(gx).astype(np.int64), np.floor(gz).astype(np.int64)
+    u, v = gx - i, gz - k
+    h = heights.astype(np.float64)
+    h00, h10, h01, h11 = h[i, k], h[i + 1, k], h[i, k + 1], h[i + 1, k + 1]
+    lower = h00 + u * (h10 - h00) + v * (h01 - h00)  # triangle (i,k) (i+1,k) (i,k+1)
+    upper = h11 + (1.0 - u) * (h01 - h11) + (1.0 - v) * (h10 - h11)
+    return np.where(u + v <= 1.0, lower, upper)
+
+
+def _rock(b, body, rng):
+    """A convex hull of 12 points on a sphere of radius 0.4."""
+    p = rng.normal(size=(12, 3))
+    p = 0.4 * p / np.linalg.norm(p, axis=1, keepdims=True)
+    b.convex_hull(body, p.astype(np.float32))
+
+
+def terrain_shapes(n: int = 10_000, per_row: int = 48, seed: int = 7, field: int = 65,
+                   max_contacts: int | None = None, device=None):
+    """Mixed shapes over a static heightfield: ``field x field`` heights 1 m
+    apart (``terrain_heights``; 65 gives 8,192 triangles over 64 m x 64 m),
+    and ``n`` bodies in ``many_shapes``' layout (rows of ``per_row`` 1.1 m
+    apart, layers 1.5 m apart), each starting 1 m plus 1.5 m per layer above
+    the field at its (x, z). Body ``k`` is of kind ``k % 7``: the five
+    shapes of ``examples/many_shapes.py`` (sphere r 0.4, box 0.35, capsule r
+    0.25 l 0.5, cylinder r 0.3 h 0.7, cone r 0.35 h 0.7), a rock (the hull
+    of 12 points on a sphere of radius 0.4, drawn from ``seed``) and a round
+    cuboid (0.5 m inner sides, 0.05 m border). Returns (world, ids)."""
+    rng = np.random.default_rng(seed)
+    heights = terrain_heights(field)
+    b = SceneBuilder()
+    ground = b.add_body(body_type=BodyType.STATIC)
+    b.heightfield(ground, heights, float(field - 1), float(field - 1))
+    x0 = -6.5 - (per_row - 12) * 0.55
+    ids = []
+    for k in range(n):
+        x = (k % per_row) * 1.1 + x0 + rng.uniform(-0.05, 0.05)
+        z = ((k // per_row) % per_row) * 1.1 + x0 + rng.uniform(-0.05, 0.05)
+        y = float(terrain_height_at(heights, x, z)) + 1.0 + (k // (per_row * per_row)) * 1.5
+        body = b.add_body(pos=(x, y, z))
+        kind = k % 7
+        if kind == 0:
+            b.sphere(body, 0.4)
+        elif kind == 1:
+            b.box(body, 0.35, 0.35, 0.35)
+        elif kind == 2:
+            b.capsule(body, 0.25, 0.5)
+        elif kind == 3:
+            b.cylinder(body, 0.3, 0.7)
+        elif kind == 4:
+            b.cone(body, 0.35, 0.7)
+        elif kind == 5:
+            _rock(b, body, rng)
+        else:
+            b.round_cuboid(body, 0.5, 0.5, 0.5, 0.05)
+        ids.append(body)
+    m = n + 2 * (field - 1) ** 2
+    world = b.finalize(max_bodies=n + 1, max_colliders=m,
+                       max_contacts=max_contacts or 8 * (n + 1), device=device)
+    return world, ids

@@ -3,21 +3,27 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the fifteen kernels against its plain PyTorch twin at the main paths' shapes
-(the 10,000-cube pile after 60 steps; the base-100 box pyramid after 2 steps,
-when most of its constraints sit in the overflow colour, and after 30; the
-30 x 334 hinged boxes after 30 steps; every shape-pair bucket of 10,000 mixed
-shapes after 40 steps), steps the ``stack3`` and
-``falling_hinges`` golden scenes against ``tests/golden/``, drives the three
-main paths through ``physics_step`` (the pile with 160,000 contact slots for
-180 steps; the 5,050-box pyramid for 120 steps, then 30 steps each of its
-free 3D variant and of 10 x 10 pyramids of base 10; the 10,020 hinged boxes
-with 9,990 revolute joints for 120 steps; 10,000 spheres, capsules, boxes,
-cylinders and cones for 120 steps, and the cylinder stack for 240) and checks
-that every kernel carried them, steps the pyramid, the hinged boxes and 2,000
-mixed shapes once more with every kernel replaced by its plain version and
-holds the kernels' trajectories to those, and checks that two runs are
-bitwise equal. Each phase prints one
+the seventeen kernels (A-Q) against its plain PyTorch twin at the main
+paths' shapes (the 10,000-cube pile after 60 steps; the base-100 box pyramid
+after 2 steps, when most of its constraints sit in the overflow colour, and
+after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
+shape-pair bucket of 10,000 mixed shapes after 40 steps; every bucket of
+10,000 mixed shapes, rocks and round cuboids on a heightfield of 8,192
+triangles after 40 steps, and 4,096 random pairs of each of the 15 pairs that
+segments and pool-backed convex shapes add), steps the ``stack3`` and
+``falling_hinges`` golden scenes against ``tests/golden/``, drives the main
+paths through ``physics_step`` (the pile with 160,000 contact slots for 180
+steps; the 5,050-box pyramid for 120 steps, then 30 steps each of its free
+3D variant and of 10 x 10 pyramids of base 10; the 10,080 hinged boxes with
+7,560 revolute joints for 120 steps; 10,000 spheres, capsules, boxes,
+cylinders and cones for 120 steps, and the cylinder stack for 240; the
+10,000-body terrain with 240,000 contact slots for 120 steps, every body
+held above the field's surface and inside its footprint) and checks that
+every kernel carried them, runs the reference's trimesh, voxel, hull and
+round-cuboid scenes with their own checks, steps the pyramid, the hinged
+boxes, 2,000 mixed shapes and a 2,000-body terrain once more with every
+kernel replaced by its plain version and holds the kernels' trajectories to
+those, and checks that two runs are bitwise equal. Each phase prints one
 line; the line before the last is a JSON object with each kernel's launches,
 error, times and bound, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises, and the script exits non-zero without that
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from avian_tpu_torch import kernels, scenes
+from avian_tpu_torch.core.builder import SceneBuilder
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.types import BodyType, ShapeType
 from avian_tpu_torch.kernels import body_pass as kk
@@ -43,6 +50,7 @@ from avian_tpu_torch.kernels import box_manifold as ka
 from avian_tpu_torch.kernels import build
 from avian_tpu_torch.kernels import compact_pairs as kl
 from avian_tpu_torch.kernels import grid_sweep as kb
+from avian_tpu_torch.kernels import hull_manifold as kpq
 from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.kernels import color_edges as kg
 from avian_tpu_torch.kernels import contact_rows as kf
@@ -61,8 +69,8 @@ from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
 from avian_tpu_torch.pipeline import xpbd as xpbd_m
 from avian_tpu_torch.pipeline.step import physics_step, prepare_step
-from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, compute_manifolds,
-                                                  manifold_buckets)
+from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, POOL_KERNELS,
+                                                  compute_manifolds, manifold_buckets)
 from avian_tpu_torch.math import quat as quat_m
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -175,13 +183,52 @@ TOL_MNO = 1e-5
 # Operations a pair: M runs 24 Frank-Wolfe and 20 subgradient steps (two
 # support functions under two rotations each), two rounds of patches, up to
 # 8 clips of 16 points and a lift of 16; O one patch and a reduction of 8; N
-# a closed form.
-OPS_PER_PAIR = {"convex_manifold": 15_000, "plane_patch_manifold": 700, "round_manifold": 150}
+# a closed form. P is M's pipeline plus, for each pool-backed shape of the
+# pair, a scan of its vertices in each of its ~48 support calls (6
+# operations a vertex) and two hull patches (some 60 a vertex and 500 more
+# each); Q is one hull patch and a reduction of 8. The vertices are this
+# launch's own (params lane 1).
+OPS_PER_PAIR = {"convex_manifold": 15_000, "plane_patch_manifold": 700, "round_manifold": 150,
+                "hull_manifold": 15_000, "plane_hull_manifold": 700}
+OPS_PER_HULL = {"hull_manifold": 1_000, "plane_hull_manifold": 500}
+OPS_PER_HULL_VERTEX = {"hull_manifold": 408, "plane_hull_manifold": 60}
 # tests/test_shapes_convex.py's cylinder stack: config, steps and bounds.
 CYLINDER_CONFIG = PhysicsConfig(max_colors=4, shape_pairs=((3, 4), (4, 4), (3, 5)))
 CYLINDER_STEPS, CYLINDER_HEIGHT_TOL, CYLINDER_TILT_TOL, CONE_TOL = 240, 0.08, 0.05, 0.05
 # examples/many_shapes.py: its scene and config, 300 steps (5 x 60) twice.
 EXAMPLE_SHAPES_STEPS = 300
+
+# The hull-and-terrain path: scenes.terrain_shapes, examples/many_shapes.py's
+# layout 48 wide (10,000 bodies: its five shapes, rocks of 12 hull points and
+# round cuboids in turn) over a 65 x 65 heightfield (8,192 triangles over
+# 64 m x 64 m), 24 contact slots a body, the 21 canonical pairs of spheres,
+# capsules, boxes, cylinders, cones and pool-backed convex shapes. Kernel P
+# (and A-N again) is held against its plain version on every bucket after
+# TERRAIN_KERNEL_STEPS, when the first layers have landed.
+TERRAIN_N, TERRAIN_PER_ROW, TERRAIN_SEED, TERRAIN_FIELD = 10_000, 48, 7, 65
+TERRAIN_SLOTS_PER_BODY = 24
+_TERRAIN_SHAPES = (0, 1, 2, 4, 5, 8)
+TERRAIN_PAIRS = tuple((a, b) for i, a in enumerate(_TERRAIN_SHAPES) for b in _TERRAIN_SHAPES[i:])
+# Kernel B's window at 64: the landed layers and the triangles beneath them
+# fill grid cells past the reference's 32-entry window (ROADMAP 3b), which
+# drops pairs; the port's 64-bit candidate mask takes a cell run of 65.
+TERRAIN_WINDOW = 64
+TERRAIN_CONFIG = PhysicsConfig(substeps=4, shape_pairs=TERRAIN_PAIRS, sap_window=TERRAIN_WINDOW)
+TERRAIN_KERNEL_STEPS, TERRAIN_STEPS = 40, 120
+# No body's centre more than this below the field's surface at its (x, z).
+TERRAIN_BELOW_TOL = 0.05
+TERRAIN_PLAIN_N, TERRAIN_PLAIN_PER_ROW = 2_000, 24
+DETERMINISM_TERRAIN = dict(n=300, per_row=12, field=17)
+DETERMINISM_TERRAIN_STEPS = 120
+# Random pairs of each of the 15 canonical pairs of segments and pool-backed
+# convex shapes (Kernels M and O's segment instances, P and Q).
+RANDOM_PAIRS = 4096
+# The reference's own scenes, configs, steps and checks:
+# examples/trimesh_shapes_3d.py, examples/voxels_3d.py,
+# tests/test_convex_hull.py:54-88 and tests/test_round_shapes.py:34.
+SCENE_CONFIG = PhysicsConfig(max_colors=4)
+HULL_CONFIG = PhysicsConfig(max_colors=4, shape_pairs=((3, 8), (8, 8), (2, 8)))
+ROUND_CONFIG = PhysicsConfig(max_colors=4, shape_pairs=((3, 8), (8, 8)))
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, taken for the
@@ -219,6 +266,10 @@ REPLACES = {
                        "avian_tpu/geometry/narrowphase.py:88"),
     "plane_patch_manifold": ("cuda", "avian_tpu_torch/csrc/convex_manifold.cu",
                              "avian_tpu/geometry/convex.py:702"),
+    "hull_manifold": ("cuda", "avian_tpu_torch/csrc/hull_manifold.cu",
+                      "avian_tpu/geometry/convex.py:881"),
+    "plane_hull_manifold": ("cuda", "avian_tpu_torch/csrc/hull_manifold.cu",
+                            "avian_tpu/geometry/convex.py:902"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -400,7 +451,7 @@ def kernels_abcd(world, config, bounce):
     col = w2.colliders
     buckets = [b for b in manifold_buckets(col.shape_type, col.params, pos, quat,
                                            bp.collider_a, bp.collider_b, bp.valid,
-                                           config.shape_pairs)
+                                           config.shape_pairs, w2.convex_verts)
                if b.name == "box_manifold"]
     err_a, bytes_a, ops_a = 0.0, 0, 0
     for bkt in buckets:
@@ -549,7 +600,8 @@ def kernels_efgh(world, config):
     old = w2.contacts
     c_cap = old.capacity
     man, _ = compute_manifolds(col.shape_type, col.params, pos, quat, bp.collider_a.long(),
-                               bp.collider_b.long(), bp.valid, config.shape_pairs)
+                               bp.collider_b.long(), bp.valid, config.shape_pairs,
+                               w2.convex_verts)
     ks, s = torch.sort(torch.cat([old.pair_key, bp.pair_key]), stable=True)
     hit, survives = kf.contact_join(ks, s, c_cap)
     hit_t, survives_t = kf.contact_join_twin(ks, s, c_cap)
@@ -853,40 +905,170 @@ def kernels_ijkl(world, config):
     return out, "; ".join(notes)
 
 
-def kernels_mno(world, config):
-    """Kernels M, N and O against their plain versions on every shape-pair
-    bucket of ``world``'s next step; {name: measurements}, and the bucket
-    sizes."""
+def hold_manifold(tag, got, want):
+    """A pair kernel's manifolds against its plain version's: feature ids and
+    counts equal, floats within ``TOL_MNO``; returns the largest float
+    difference."""
+    compare(f"{tag} feature ids", got[4], want[4])
+    compare(f"{tag} counts", got[5], want[5])
+    return max(compare(tag, x, y, TOL_MNO) for x, y in zip(got[:4], want[:4]))
+
+
+def pair_work(name, kind, inputs, out):
+    """(bytes, operations) of one launch of pair kernel ``name``: each input
+    and output once and each vertex a pool-backed shape reads (12 bytes);
+    the operations of ``OPS_PER_PAIR`` and, for P and Q, of this launch's
+    hull vertices."""
+    k = inputs[0].shape[0]
+    io = nbytes(*inputs[:6], *out)
+    ops = OPS_PER_PAIR[name] * k
+    if name in POOL_KERNELS:
+        hulls = [inputs[5]] + ([inputs[2]] if name == "hull_manifold"
+                               and kpq.HULL_PAIRS[kind][0] == ShapeType.CONVEX else [])
+        verts = sum(int(h[:, 1].sum()) for h in hulls)
+        io += 12 * verts
+        ops += OPS_PER_HULL[name] * k * len(hulls) + OPS_PER_HULL_VERTEX[name] * verts
+    return io, ops
+
+
+def kernels_pairs(world, config, names, required=None):
+    """The pair kernels ``names`` against their plain versions on every
+    shape-pair bucket of ``world``'s next step; {name: measurements} of those
+    with a bucket, and the bucket sizes. Fails if one of ``required``
+    (default: all of ``names``) has none."""
     w2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
     bp = bp_m.broad_phase(w2, config)
     col = w2.colliders
     buckets = [b for b in manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a,
-                                           bp.collider_b, bp.valid, config.shape_pairs)
-               if b.name in OPS_PER_PAIR]
+                                           bp.collider_b, bp.valid, config.shape_pairs,
+                                           w2.convex_verts)
+               if b.name in names]
     out = {}
-    for name in OPS_PER_PAIR:
+    for name in names:
         mine = [b for b in buckets if b.name == name]
+        if not mine and name in (names if required is None else required):
+            raise AssertionError(f"{name}: no bucket of this world runs it")
         if not mine:
-            raise AssertionError(f"{name}: no bucket of the mixed shapes runs it")
-        err, io_bytes, pairs = 0.0, 0, 0
+            continue
+        err, io_bytes, ops = 0.0, 0, 0
         for b in mine:
-            got, want = b.run(), b.run(twin=True)
-            tag = f"{name} {b.pair}"
-            compare(f"{tag} feature ids", got[4], want[4])
-            compare(f"{tag} counts", got[5], want[5])
-            for x, y in zip(got[:4], want[:4]):
-                err = max(err, compare(tag, x, y, TOL_MNO))
-            io_bytes += nbytes(*b.inputs, *got)
-            pairs += b.slots.shape[0]
+            got = b.run()
+            err = max(err, hold_manifold(f"{name} {b.pair}", got, b.run(twin=True)))
+            work = pair_work(name, b.kind, b.inputs, got)
+            io_bytes, ops = io_bytes + work[0], ops + work[1]
 
         def run_all(twin, mine=mine):
             for b in mine:
                 b.run(twin=twin)
 
         out[name] = measured(err, lambda r=run_all: r(False), lambda r=run_all: r(True),
-                             io_bytes, OPS_PER_PAIR[name] * pairs)
+                             io_bytes, ops)
     sizes = {b.pair: b.slots.shape[0] for b in buckets}
     return out, sizes
+
+
+def random_hulls(rng, k, blocks, start):
+    """Params f32[k, 7] of ``k`` seeded pool-backed convex shapes whose
+    vertices are appended to ``blocks`` from pool row ``start``: hulls of
+    4-32 points on an ellipsoid, box hulls (round, radius 0.05, in half the
+    cases), flat triangles and octahedra, in turn at random."""
+    prm = np.zeros((k, 7), np.float32)
+    row = start
+    for i in range(k):
+        kind, flat, r = int(rng.integers(0, 4)), 0.0, 0.0
+        if kind == 0:
+            p = rng.normal(size=(int(rng.integers(4, 33)), 3))
+            p = p / np.linalg.norm(p, axis=1, keepdims=True) * rng.uniform(0.3, 0.7, 3)
+        elif kind == 1:
+            e = rng.uniform(0.25, 0.6, 3)
+            p = np.asarray([(a * e[0], b * e[1], c * e[2])
+                            for a in (-1, 1) for b in (-1, 1) for c in (-1, 1)])
+            r = float(rng.choice([0.0, 0.05]))
+        elif kind == 2:
+            p = rng.uniform(-0.8, 0.8, (3, 3)) * np.asarray([1.0, 0.2, 1.0])
+            flat = 1.0
+        else:
+            p = np.concatenate([np.eye(3), -np.eye(3)]) * rng.uniform(0.35, 0.6)
+        p = (p - p.mean(0)).astype(np.float32)
+        h = np.abs(p).max(0) + r
+        prm[i] = (row, len(p), h[0], h[1], h[2], flat, r)
+        blocks.append(p)
+        row += len(p)
+    return prm
+
+
+def random_pair_inputs(pair, k, seed, device):
+    """``k`` seeded random pairs of canonical ``pair`` on the card, as its
+    bucket's kernel takes them: (pa, qa, prm_a, pb, qb, prm_b[, pool]), the
+    params 3 lanes wide, or 7 with the vertex pool (32 zero rows at its
+    end) for a pool-backed shape's pair. B lies 0.1-1.3 m from A in a random
+    direction, or within 0.5 m above a half-space A."""
+    rng = np.random.default_rng(seed + 10 * pair[0] + pair[1])
+    wide = ShapeType.CONVEX in pair
+    blocks = []
+
+    def params(shape):
+        if shape == ShapeType.CONVEX:
+            return random_hulls(rng, k, blocks, sum(len(b) for b in blocks))
+        p = np.zeros((k, 7 if wide else 3), np.float32)
+        if shape == ShapeType.PLANE:
+            p[:, 1] = 1.0
+        elif shape == ShapeType.BOX:
+            p[:, :3] = rng.uniform(0.2, 0.7, (k, 3))
+        elif shape in (ShapeType.SPHERE, ShapeType.SEGMENT):
+            p[:, 0] = rng.uniform(0.2, 0.8, k)
+        else:
+            p[:, 0], p[:, 1] = rng.uniform(0.2, 0.7, k), rng.uniform(0.2, 0.6, k)
+        return p
+
+    def quats(scale):
+        q = rng.normal(size=(k, 4)) * scale
+        q[:, 3] += 1.0
+        return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+    prm_a, prm_b = params(pair[0]), params(pair[1])
+    pa = rng.uniform(-1.0, 1.0, (k, 3)).astype(np.float32)
+    if pair[0] == ShapeType.PLANE:
+        qa = quats(0.1)
+        pb = pa + rng.uniform(0.0, 0.5, (k, 1)) * np.asarray([0.0, 1.0, 0.0])
+    else:
+        qa = quats(0.8)
+        d = rng.normal(size=(k, 3))
+        pb = pa + d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(0.1, 1.3, (k, 1))
+    out = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+           for x in (pa, qa, prm_a, pb, quats(0.8), prm_b)]
+    if wide:
+        pool = np.concatenate(blocks + [np.zeros((32, 3), np.float32)])
+        out.append(torch.from_numpy(pool).to(device))
+    return out
+
+
+def kernels_random_pairs(device):
+    """Kernels M and O's segment instances, P and Q against their plain
+    versions on ``RANDOM_PAIRS`` seeded random pairs of each of the 15
+    canonical pairs of segments and pool-backed convex shapes. Returns
+    {name: largest difference} and Q's measurements (Q's only inputs here
+    and on the reference scenes' hull stack)."""
+    errs = {}
+    q_measured = None
+    new_pairs = sorted(p for p in PAIR_KERNELS
+                       if ShapeType.SEGMENT in p or ShapeType.CONVEX in p)
+    for pair in new_pairs:
+        module, name, kind = PAIR_KERNELS[pair]
+        args = random_pair_inputs(pair, RANDOM_PAIRS, 0, device)
+        kernel = getattr(module, name)
+        twin = getattr(module, name + "_twin")
+        got = kernel(kind, *args)
+        err = hold_manifold(f"{name} {pair} random", got, twin(kind, *args))
+        errs[name] = max(errs.get(name, 0.0), err)
+        if name == "plane_hull_manifold":
+            work = pair_work(name, kind, args, got)
+            q_measured = measured(err, lambda: kernel(kind, *args), lambda: twin(kind, *args),
+                                  *work)
+    say("kernels", f"[random pairs, {RANDOM_PAIRS} of each of {len(new_pairs)} canonical pairs "
+        f"{new_pairs}] largest difference from the plain versions: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs, q_measured
 
 
 def show(tag, out):
@@ -1002,7 +1184,8 @@ def phase_kernels(device):
     for _ in range(SHAPES_KERNEL_STEPS):
         world = physics_step(world, SHAPES_CONFIG)
     torch.cuda.synchronize()
-    mno, sizes = kernels_mno(world, SHAPES_CONFIG)
+    mno, sizes = kernels_pairs(world, SHAPES_CONFIG,
+                               ("convex_manifold", "round_manifold", "plane_patch_manifold"))
     torch.cuda.synchronize()
     say("kernels", show(f"mixed shapes {SHAPES_N} after {SHAPES_KERNEL_STEPS} steps", mno)
         + f" (pairs per bucket: {sizes})")
@@ -1021,6 +1204,39 @@ def phase_kernels(device):
     for name, v in al.items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], v["max_abs_err"])
     out.update(mno)
+
+    # The terrain: P on every X/CONVEX bucket (its times are this state's),
+    # and A-N on the same state, errors only.
+    world, _ = terrain(device)
+    for _ in range(TERRAIN_KERNEL_STEPS):
+        world = physics_step(world, TERRAIN_CONFIG)
+    torch.cuda.synchronize()
+    mnp, sizes = kernels_pairs(world, TERRAIN_CONFIG,
+                               ("convex_manifold", "round_manifold", "hull_manifold"),
+                               required=("hull_manifold",))
+    torch.cuda.synchronize()
+    say("kernels", show(f"terrain {TERRAIN_N} after {TERRAIN_KERNEL_STEPS} steps", mnp)
+        + f" (pairs per bucket: {sizes})")
+    al, note = kernels_abcd(world, TERRAIN_CONFIG, bounce=False)
+    efgh, note2 = kernels_efgh(world, TERRAIN_CONFIG)
+    al.update(efgh)
+    jkl, _ = kernels_ijkl(world, TERRAIN_CONFIG)
+    al.update(jkl)
+    al.update({k: mnp[k] for k in ("convex_manifold", "round_manifold") if k in mnp})
+    torch.cuda.synchronize()
+    say("kernels", f"[terrain {TERRAIN_N} after {TERRAIN_KERNEL_STEPS} steps] A-N against "
+        "their twins: " + ", ".join(f"{k} err {v['max_abs_err']:.3g}" for k, v in al.items())
+        + f" ({note}; {note2})")
+    for name, v in al.items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], v["max_abs_err"])
+    out["hull_manifold"] = mnp["hull_manifold"]
+
+    # 4,096 random pairs of each new canonical pair: M's and O's segment
+    # instances, P, and Q, whose times are these pairs'.
+    errs, q_measured = kernels_random_pairs(device)
+    for name, err in errs.items():
+        out.setdefault(name, q_measured if name == "plane_hull_manifold" else {})
+        out[name]["max_abs_err"] = max(out[name].get("max_abs_err", 0.0), err)
     return out
 
 
@@ -1187,6 +1403,8 @@ def plain_versions():
         (km, "convex_manifold", km.convex_manifold_twin),
         (kn, "round_manifold", kn.round_manifold_twin),
         (km, "plane_patch_manifold", km.plane_patch_manifold_twin),
+        (kpq, "hull_manifold", kpq.hull_manifold_twin),
+        (kpq, "plane_hull_manifold", kpq.plane_hull_manifold_twin),
     ]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1419,6 +1637,176 @@ def phase_cylinder_stack(device):
         raise AssertionError(f"cylinder_stack: Kernels M and O did not carry it: {got}")
 
 
+def terrain(device, n=None, per_row=None, field=None):
+    """``scenes.terrain_shapes``, by default the full-width path's."""
+    n = n or TERRAIN_N
+    return scenes.terrain_shapes(n, per_row=per_row or TERRAIN_PER_ROW, seed=TERRAIN_SEED,
+                                 field=field or TERRAIN_FIELD,
+                                 max_contacts=TERRAIN_SLOTS_PER_BODY * n, device=device)
+
+
+def on_the_field(what, world, ids, field=None):
+    """(least height of a body's centre of mass above the field's surface at
+    its (x, z), farthest |x| or |z|); fails if a centre is more than
+    ``TERRAIN_BELOW_TOL`` below the surface or outside the footprint. (The
+    centre of mass lies inside the body's collider; a rock's origin need
+    not: the hull of 12 points on a sphere can miss its centre.)"""
+    field = field or TERRAIN_FIELD
+    b = world.bodies
+    idx = torch.tensor(ids, device=world.device)
+    p = (b.pos[idx] + quat_m.rotate(b.quat[idx], b.com[idx])).cpu().numpy().astype(np.float64)
+    heights = scenes.terrain_heights(field)
+    above = float((p[:, 1] - scenes.terrain_height_at(heights, p[:, 0], p[:, 2])).min())
+    reach = float(np.abs(p[:, [0, 2]]).max())
+    if not above >= -TERRAIN_BELOW_TOL:
+        raise AssertionError(f"{what}: a body is {-above} m below the field's surface "
+                             f"(limit {TERRAIN_BELOW_TOL})")
+    if not reach <= (field - 1) / 2:
+        raise AssertionError(f"{what}: a body left the field ({reach} m from its centre line)")
+    return above, reach
+
+
+def cell_runs(world, config):
+    """(largest number of entries in one grid cell, cells with more than the
+    sweep window + 1 entries) of ``world``'s next broadphase, computed by the
+    plain versions (no launch is counted)."""
+    with plain_versions():
+        g = bp_m.grid_entries(bp_m.update_aabbs(world, config), config)
+    keys = g.skey[g.skey != kb.SENTINEL]
+    _, counts = torch.unique_consecutive(keys, return_counts=True)
+    return int(counts.max()), int((counts > g.window + 1).sum())
+
+
+def phase_terrain(device, smi):
+    """The hull-and-terrain path at full width through ``physics_step``:
+    every one of its 21 shape pairs launched, no body below the field's
+    surface or off the field (checked every 10 steps). Returns the launch
+    counts."""
+    world, ids = terrain(device)
+    n_cols = int(world.colliders.active.sum())
+    pool = world.convex_verts.shape[0]
+    runs = [cell_runs(world, TERRAIN_CONFIG)]
+    buckets, field = {}, []
+
+    def check(w):
+        field.append(on_the_field("terrain", w, ids))
+        runs.append(cell_runs(w, TERRAIN_CONFIG))
+
+    world, got = drive("terrain", world, TERRAIN_CONFIG, TERRAIN_STEPS, smi, len(ids),
+                       every10=check, buckets=buckets)
+    seen = {pair: (len(v), max(v)) for pair, v in sorted(buckets.items())}
+    largest = sorted(((max(v), pair) for pair, v in buckets.items()), reverse=True)[:6]
+    say("terrain", f"{n_cols} colliders ({n_cols - len(ids)} triangles), a pool of {pool} "
+        f"vertices; {len(seen)} shape pairs launched (steps, most pairs in a step): {seen}; "
+        f"largest buckets {largest}; every 10 steps, least height above the field (m) and "
+        f"farthest |x|, |z| (m): " + ", ".join(f"{a:.3f}/{r:.1f}" for a, r in field)
+        + f"; largest grid cell run (entries, cells past the window) at the start and every "
+        f"10 steps: {runs}; {int(world.bodies.sleeping.sum())} asleep")
+    missing = sorted(set(TERRAIN_PAIRS) - set(seen))
+    if missing:
+        raise AssertionError(f"terrain: shape pairs never launched: {missing}")
+    return got
+
+
+def phase_terrain_plain_path(device):
+    """``TERRAIN_PLAIN_N`` bodies on the terrain from their start through
+    ``PLAIN_STEPS`` steps on the kernels and on their plain versions alone:
+    every body within ``PLAIN_TOL`` for ``PLAIN_TIGHT_STEPS`` steps; then,
+    landed after ``TERRAIN_KERNEL_STEPS`` steps, ``SHAPES_ONE_STEPS`` single
+    steps, each from the kernels' state on the kernels and on the plain
+    versions: every body within ``SHAPES_ONE_STEP_TOL`` after each (as the
+    mixed shapes' plain path)."""
+    world, ids = terrain(device, TERRAIN_PLAIN_N, TERRAIN_PLAIN_PER_ROW)
+    on_kernels, _ = trajectory(world, TERRAIN_CONFIG, PLAIN_STEPS, ids)
+    on_plain, _, seconds = on_plain_versions(world, TERRAIN_CONFIG, PLAIN_STEPS, ids)
+    diff = (on_kernels - on_plain).abs().amax(dim=(1, 2))
+    for _ in range(TERRAIN_KERNEL_STEPS):
+        world = physics_step(world, TERRAIN_CONFIG)
+    one, pairs = [], 0
+    for _ in range(SHAPES_ONE_STEPS):
+        on_k, diag = physics_step(world, TERRAIN_CONFIG, return_diagnostics=True)
+        pairs = max(pairs, sum(diag["manifold_pairs"].values()))
+        kernels.reset_launches()
+        with plain_versions():
+            on_p = physics_step(world, TERRAIN_CONFIG)
+        if any(kernels.launches().values()):
+            raise AssertionError(f"plain path: kernels were launched: {kernels.launches()}")
+        one.append(float((on_k.bodies.pos - on_p.bodies.pos).abs().max()))
+        world = on_k
+    say("plain path", f"terrain {TERRAIN_PLAIN_N}, {PLAIN_STEPS} steps from the start on the "
+        f"kernels and on their plain versions ({seconds:.1f} s): largest difference of any "
+        f"body's position {float(diff.max()):.3g} m (limit {PLAIN_TOL} over the first "
+        f"{PLAIN_TIGHT_STEPS}); after {TERRAIN_KERNEL_STEPS} steps ({pairs} manifold pairs a "
+        f"step), one step from the same state each: " + ", ".join(f"{d:.2g}" for d in one)
+        + f" m (limit {SHAPES_ONE_STEP_TOL})")
+    if not float(diff[:PLAIN_TIGHT_STEPS].max()) <= PLAIN_TOL:
+        raise AssertionError(f"plain path: a terrain body is {float(diff.max())} m from its "
+                             f"place on the plain versions (limit {PLAIN_TOL})")
+    if not max(one) <= SHAPES_ONE_STEP_TOL:
+        raise AssertionError(f"plain path: one step of the landed terrain parts by "
+                             f"{max(one)} m (limit {SHAPES_ONE_STEP_TOL})")
+
+
+def steps(world, config, n):
+    for _ in range(n):
+        world = physics_step(world, config)
+    return world
+
+
+def phase_reference_scenes(device):
+    """The reference's trimesh, voxel, hull and round-cuboid scenes on the
+    kernels, each held to its source's checks. Returns the launch counts
+    (the path of Kernel Q, a hull on a half-space)."""
+    kernels.reset_launches()
+    found = []
+    world, balls = scenes.trimesh_valley(device=device)
+    pos = steps(world, SCENE_CONFIG, 300).bodies.pos.cpu().numpy()
+    # examples/trimesh_shapes_3d.py: rolled into the valley, resting on the V.
+    ok = np.isfinite(pos).all() and all(abs(pos[b][0]) < 1.0 and 0.2 < pos[b][1] < 1.5
+                                        for b in balls)
+    found.append(("trimesh_valley", ok, "balls at " + ", ".join(
+        f"({pos[b][0]:.3f}, {pos[b][1]:.3f})" for b in balls)))
+    world, ball = scenes.voxel_stairs(device=device)
+    p = steps(world, SCENE_CONFIG, 240).bodies.pos[ball].cpu().numpy()
+    # examples/voxels_3d.py: on the step of column x = 1, y = 2 + 0.4.
+    found.append(("voxel_stairs", bool(np.isfinite(p).all() and abs(p[1] - 2.4) < 0.1),
+                  f"ball y {p[1]:.4f}"))
+    world, ids = scenes.hull_stack(single=True, device=device)
+    world = steps(world, HULL_CONFIG, 120)
+    y = float(world.bodies.pos[ids[0], 1])
+    # tests/test_convex_hull.py::test_hull_cube_rests_on_plane
+    found.append(("hull cube", abs(y - 0.5) < 0.02 and bool(world.bodies.sleeping[ids[0]]),
+                  f"y {y:.4f}, asleep {bool(world.bodies.sleeping[ids[0]])}"))
+    world, ids = scenes.hull_stack(device=device)
+    pos = steps(world, HULL_CONFIG, 240).bodies.pos.cpu().numpy()
+    lower, upper, octa = (pos[i][1] for i in ids)
+    # test_hull_stack_and_octahedron: the stack holds, the octahedron lies on
+    # a face (its centre r / sqrt(3) = 0.346 m up).
+    found.append(("hull stack", bool(np.isfinite(pos).all() and abs(lower - 0.5) < 0.05
+                                     and abs(upper - 1.5) < 0.1 and 0.25 < octa < 0.6 + 1e-3),
+                  f"lower {lower:.4f}, upper {upper:.4f}, octahedron {octa:.4f}"))
+    b = SceneBuilder()
+    g = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(g, normal=(0, 1, 0))
+    rc = b.add_body(pos=(0.0, 0.8, 0.0))
+    b.round_cuboid(rc, 1.0, 1.0, 1.0, 0.1)
+    world = steps(b.finalize(max_bodies=4, max_colliders=4, max_contacts=16, device=device),
+                  ROUND_CONFIG, 120)
+    y = float(world.bodies.pos[rc, 1])
+    # tests/test_round_shapes.py::test_round_cuboid_rests_at_outer_height
+    found.append(("round cuboid", abs(y - 0.6) < 0.03, f"y {y:.4f}"))
+    got = kernels.launches()
+    say("scenes", "; ".join(f"{name} {'OK' if ok else 'FAILED'}: {text}"
+                            for name, ok, text in found)
+        + f"; launches P {got['hull_manifold']} Q {got['plane_hull_manifold']}")
+    bad = [name for name, ok, _ in found if not ok]
+    if bad:
+        raise AssertionError(f"scenes: {bad} fail their checks")
+    if got["hull_manifold"] == 0 or got["plane_hull_manifold"] == 0:
+        raise AssertionError(f"scenes: Kernels P and Q did not carry them: {got}")
+    return got
+
+
 def phase_main_path(device, smi):
     """The 10k pile through ``physics_step``; returns the launch counts."""
     _, got = drive("main", pile(N_CUBES, device), PILE_CONFIG, SETTLE_STEPS + TIMED_STEPS,
@@ -1501,6 +1889,9 @@ def phase_determinism(device):
         raise AssertionError("many_shapes: diverged or fell through the plane")
     say("determinism", f"many_shapes OK: 150 mixed shapes, min y {float(pos[:, 1].min()):.2f}, "
         f"sleeping {int(world.bodies.sleeping[ids].sum())}/150")
+    twice_equal("terrain_shapes({n}, per_row={per_row}, field={field})".format(
+        **DETERMINISM_TERRAIN), lambda: terrain(device, **DETERMINISM_TERRAIN)[0],
+        TERRAIN_CONFIG, DETERMINISM_TERRAIN_STEPS)
     rows, cols = DETERMINISM_HINGE_ROWS, DETERMINISM_HINGE_COLS
     # The reference's determinism scene and protocol: 500 steps at 64 Hz.
     twice_equal(f"falling_hinges {rows} x {cols}",
@@ -1520,20 +1911,28 @@ def main():
     hinge_launches = phase_hinges(device, smi)
     shapes_launches = phase_shapes(device, smi)
     phase_cylinder_stack(device)
+    terrain_launches = phase_terrain(device, smi)
+    scene_launches = phase_reference_scenes(device)
     phase_plain_path(device)
     phase_hinges_plain_path(device)
     phase_shapes_plain_path(device)
+    phase_terrain_plain_path(device)
     phase_determinism(device)
     rows = []
     for name, (route, source, replaces) in REPLACES.items():
-        # ``launches``: the path that exercises the kernel most (the mixed
-        # shapes for M, N, O; the hinged boxes for the others).
-        main = shapes_launches if name in OPS_PER_PAIR else hinge_launches
+        # ``launches``: the path that exercises the kernel most (the terrain
+        # for P, the reference scenes for Q, the mixed shapes for M, N, O;
+        # the hinged boxes for the others).
+        main = {"hull_manifold": terrain_launches,
+                "plane_hull_manifold": scene_launches}.get(
+            name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
                          pyramid_launches=pyramid_launches[name],
                          hinge_launches=hinge_launches[name],
                          shapes_launches=shapes_launches[name],
+                         terrain_launches=terrain_launches[name],
+                         scene_launches=scene_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

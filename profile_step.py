@@ -1,8 +1,9 @@
 """Where one full step of the port spends its time on a CUDA card.
 
-    python3 profile_step.py [--scene pile|pyramid|hinges|shapes] [--out profile.json]
+    python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain] [--out profile.json]
 
-Settles the scene with the smoke's config for 30 steps (40 for ``shapes``),
+Settles the scene with the smoke's config for 30 steps (40 for ``shapes``
+and ``terrain``),
 so that it is awake and its contacts are warm: ``pile`` is
 ``cube_pile(10_000)`` with 160,000 contact slots, ``pyramid`` is
 ``box_pyramid(base=100)`` (5,050 boxes, the 2D profile) with 24 slots per
@@ -10,12 +11,17 @@ body, 121,224, ``hinges`` is ``falling_hinges(30, 334)`` (10,020 boxes, 9,990
 revolute joints) with 16 slots per body, 160,336, ``shapes`` is
 ``many_shapes(10_000, per_row=48)`` (spheres, boxes, capsules, cylinders and
 cones, five layers of 48 x 48) with 16 slots per body, 160,016, and its 20
-shape pairs. Then it measures from that state:
+shape pairs, ``terrain`` is ``terrain_shapes(10_000, per_row=48)`` (those
+shapes, rocks and round cuboids over a heightfield of 8,192 triangles) with
+24 slots per body, 240,000, its 21 shape pairs and a sweep window of 64.
+Then it measures from
+that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
   synchronized after every stage, mean of 3 steps (solver and integration
   stages summed over the substeps);
-- ``narrowphase_split_ms``: the narrowphase's manifold kernels (A, M, N, O)
+- ``narrowphase_split_ms``: the narrowphase's manifold kernels (A, M, N, O,
+  P, Q)
   on the same state, each the sum of its shape-pair buckets, and the
   bucketing before them, mean of 3; the rest of the stage ``narrowphase``
   is the persistence join and Kernel F;
@@ -51,14 +57,19 @@ from avian_tpu_torch.pipeline import xpbd as xpbd_m
 N_CUBES, PYRAMID_BASE, SETTLE_STEPS = 10_000, 100, 30
 HINGE_ROWS, HINGE_COLS = 30, 334
 SHAPES_N, SHAPES_PER_ROW, SHAPES_SETTLE_STEPS = 10_000, 48, 40
+TERRAIN_N, TERRAIN_PER_ROW, TERRAIN_SLOTS = 10_000, 48, 24 * 10_000
 PYRAMID_SLOTS = 24 * (PYRAMID_BASE * (PYRAMID_BASE + 1) // 2 + 1)
 CONFIG = PhysicsConfig(
     substeps=4, shape_pairs=((ShapeType.BOX, ShapeType.BOX), (ShapeType.BOX, ShapeType.PLANE))
 )
 SHAPES_CONFIG = CONFIG.replace(
     shape_pairs=tuple((a, b) for a in range(6) for b in range(a, 6) if (a, b) != (3, 3)))
+_TERRAIN_SHAPES = (0, 1, 2, 4, 5, 8)
+TERRAIN_CONFIG = CONFIG.replace(sap_window=64, shape_pairs=tuple(
+    (a, b) for i, a in enumerate(_TERRAIN_SHAPES) for b in _TERRAIN_SHAPES[i:]))
 KERNEL_OF = {"box_manifold": "Kernel A", "convex_manifold": "Kernel M",
-             "round_manifold": "Kernel N", "plane_patch_manifold": "Kernel O"}
+             "round_manifold": "Kernel N", "plane_patch_manifold": "Kernel O",
+             "hull_manifold": "Kernel P", "plane_hull_manifold": "Kernel Q"}
 
 
 def stage_ms(world, config):
@@ -120,7 +131,8 @@ def narrowphase_split_ms(world, config):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     buckets = manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a.long(),
-                               bp.collider_b.long(), bp.valid, config.shape_pairs)
+                               bp.collider_b.long(), bp.valid, config.shape_pairs,
+                               w2.convex_verts)
     torch.cuda.synchronize()
     out["bucketing"] = 1e3 * (time.perf_counter() - t0)
     for b in buckets:
@@ -134,7 +146,8 @@ def narrowphase_split_ms(world, config):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("pile", "pyramid", "hinges", "shapes"), default="pile")
+    ap.add_argument("--scene", choices=("pile", "pyramid", "hinges", "shapes", "terrain"),
+                    default="pile")
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -149,6 +162,10 @@ def main():
         config, settle = SHAPES_CONFIG, SHAPES_SETTLE_STEPS
         world, ids = scenes.many_shapes(SHAPES_N, per_row=SHAPES_PER_ROW,
                                         max_contacts=16 * (SHAPES_N + 1), device=device)
+    elif args.scene == "terrain":
+        config, settle = TERRAIN_CONFIG, SHAPES_SETTLE_STEPS
+        world, ids = scenes.terrain_shapes(TERRAIN_N, per_row=TERRAIN_PER_ROW,
+                                           max_contacts=TERRAIN_SLOTS, device=device)
     elif args.scene == "pile":
         world, ids = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
     elif args.scene == "pyramid":

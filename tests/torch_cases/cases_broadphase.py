@@ -71,9 +71,45 @@ def test_broad_phase_matches_reference(case):
 
 
 def test_sweep_window_refuses_more_than_32():
-    _, tcfg = pile_configs(sap_window=33)
+    """The reference refuses a window above 32; the port's candidate mask
+    is 64 bits wide, so it takes up to 64 and refuses more."""
+    _, tcfg = pile_configs(sap_window=65)
     with pytest.raises(ValueError):
         tbp.sweep_window(tcfg, 100)
+    for w in (33, 64):
+        _, tcfg = pile_configs(sap_window=w)
+        assert tbp.sweep_window(tcfg, 100) == w
+
+
+def _crowded_cell(builder, n=48, seed=3):
+    """``n`` dynamic boxes (half 0.3) whose AABBs all start in grid cell
+    (0, 0, 0) and overlap each other: a cell run of ``n`` entries, past the
+    reference's window of 32."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        body = builder.add_body(pos=tuple(rng.uniform(0.31, 0.35, 3)))
+        builder.box(body, 0.3, 0.3, 0.3)
+    return builder.finalize(max_contacts=4096)
+
+
+def test_window_64_pairs_the_entries_the_reference_drops():
+    """A cell run of 48: the reference (window 32) drops the entries past
+    33; the port at window 64 finds every pair the reference finds and the
+    ones it dropped (all 48 * 47 / 2 boxes overlap), drops nothing, and at
+    window 32 equals the reference."""
+    from avian_tpu import SceneBuilder as JBuilder
+
+    jw = _crowded_cell(JBuilder())
+    jcfg, tcfg = pile_configs()
+    jw2 = jbp.update_aabbs(jw, jcfg)
+    ref = jbp.broad_phase(jw2, jcfg)
+    assert int(ref.dropped) > 0
+    assert_columns(ref, tbp.broad_phase(to_torch(jw2), tcfg))
+    _, wide = pile_configs(sap_window=64)
+    port = tbp.broad_phase(to_torch(jw2), wide)
+    assert int(port.dropped) == 0 and int(port.num_pairs) == 48 * 47 // 2
+    ref_keys = set(np.asarray(ref.pair_key)[np.asarray(ref.valid)].tolist())
+    assert ref_keys < set(port.pair_key[port.valid].tolist())
 
 
 def test_grid_sweep_rank_is_run_rank_capped():
@@ -116,7 +152,7 @@ def test_grid_sweep_bits_match_a_scalar_loop():
     ).astype(np.int32)
     bits, _ = kb.grid_sweep(torch.from_numpy(keys), torch.from_numpy(sf),
                             torch.from_numpy(si), w)
-    bits = bits.numpy().view(np.uint32)
+    bits = bits.numpy().view(np.uint64)
     for i in range(n):
         expect = 0
         for k in range(1, w + 1):

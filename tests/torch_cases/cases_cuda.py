@@ -19,6 +19,7 @@ from avian_tpu_torch.kernels import color_edges as kg
 from avian_tpu_torch.kernels import contact_rows as kf
 from avian_tpu_torch.kernels import convex_manifold as km
 from avian_tpu_torch.kernels import grid_sweep as kb
+from avian_tpu_torch.kernels import hull_manifold as kpq
 from avian_tpu_torch.kernels import integrate_bodies as kc
 from avian_tpu_torch.kernels import pack_constraints as kh
 from avian_tpu_torch.kernels import round_manifold as kn
@@ -209,7 +210,8 @@ def test_contact_rows_match_twin(cuda, settled):
     bp = bp_m.broad_phase(w2, CONFIG)
     col, old = w2.colliders, w2.contacts
     man, _ = compute_manifolds(col.shape_type, col.params, pos, quat, bp.collider_a.long(),
-                               bp.collider_b.long(), bp.valid, CONFIG.shape_pairs)
+                               bp.collider_b.long(), bp.valid, CONFIG.shape_pairs,
+                               w2.convex_verts)
     ks, s = torch.sort(torch.cat([old.pair_key, bp.pair_key]), stable=True)
     hit, survives = kf.contact_join(ks, s, old.capacity)
     for x, y in zip((hit, survives), kf.contact_join_twin(ks, s, old.capacity)):
@@ -614,7 +616,8 @@ def test_convex_manifold_matches_twin(cuda, kind):
     _bit_equal(km.convex_manifold(kind, *args), km.convex_manifold_twin(kind, *args))
 
 
-@pytest.mark.parametrize("kind", [km.PLANE_CYLINDER, km.PLANE_CONE], ids=["cylinder", "cone"])
+@pytest.mark.parametrize("kind", [km.PLANE_CYLINDER, km.PLANE_CONE, km.PLANE_SEGMENT],
+                         ids=["cylinder", "cone", "segment"])
 def test_plane_patch_manifold_matches_twin(cuda, kind):
     args = _shape_inputs(cuda, (3, km.PLANE_SHAPES[kind]))
     _bit_equal(km.plane_patch_manifold(kind, *args), km.plane_patch_manifold_twin(kind, *args))
@@ -653,3 +656,113 @@ def test_shapes_step_launches_m_n_o(cuda, shapes):
         assert counts[name] == by_kernel[name] > 0, (name, counts, by_kernel)
     assert bool(torch.isfinite(world.bodies.pos).all())
     assert float(world.bodies.pos[1:, 1].min()) > 0.0
+
+
+# ---- Kernels P, Q (the hull-and-terrain path) ---------------------------------
+
+
+def _hull_params(rng, k, pool, start):
+    """``k`` seeded CONVEX shapes appended to ``pool`` (a list of vertex
+    blocks) from row ``start``: ellipsoid hulls of 4-32 vertices, box hulls
+    (round in half the cases), flat triangles and octahedra. Params
+    f32[k, 7]."""
+    prm = np.zeros((k, 7), np.float32)
+    row = start
+    for i in range(k):
+        kind, flat, r = int(rng.integers(0, 4)), 0.0, 0.0
+        if kind == 0:
+            p = rng.normal(size=(int(rng.integers(4, 33)), 3))
+            p = p / np.linalg.norm(p, axis=1, keepdims=True) * rng.uniform(0.3, 0.7, 3)
+        elif kind == 1:
+            e = rng.uniform(0.25, 0.6, 3)
+            p = np.asarray([(a * e[0], b * e[1], c * e[2])
+                            for a in (-1, 1) for b in (-1, 1) for c in (-1, 1)])
+            r = float(rng.choice([0.0, 0.05]))
+        elif kind == 2:
+            p = rng.uniform(-0.8, 0.8, (3, 3)) * np.asarray([1.0, 0.2, 1.0])
+            flat = 1.0
+        else:
+            s = rng.uniform(0.35, 0.6)
+            p = np.concatenate([np.eye(3) * s, -np.eye(3) * s])
+        p = (p - p.mean(0)).astype(np.float32)
+        h = np.abs(p).max(0) + r
+        prm[i] = (row, len(p), h[0], h[1], h[2], flat, r)
+        pool.append(p)
+        row += len(p)
+    return prm
+
+
+def _hull_inputs(cuda, pair, k=4096, seed=0):
+    """``k`` random pairs of ``pair`` (B CONVEX), params [k, 7] and their
+    vertex pool (with the builder's 32 zero rows)."""
+    rng = np.random.default_rng(seed + 10 * pair[0] + pair[1])
+    args = _shape_inputs(cuda, pair[:1] * 2, k, seed)
+    blocks = []
+    prm_a = np.zeros((k, 7), np.float32)
+    if pair[0] == 8:
+        prm_a = _hull_params(rng, k, blocks, 0)
+    else:
+        prm_a[:, :3] = args[2].cpu().numpy()
+    prm_b = _hull_params(rng, k, blocks, sum(len(b) for b in blocks))
+    pool = np.concatenate(blocks + [np.zeros((32, 3), np.float32)])
+    return [args[0], args[1], torch.from_numpy(prm_a).to(cuda), args[3], args[4],
+            torch.from_numpy(prm_b).to(cuda), torch.from_numpy(pool).to(cuda)]
+
+
+@pytest.mark.parametrize("kind", range(len(kpq.HULL_PAIRS)),
+                         ids=[f"{a}-{b}" for a, b in kpq.HULL_PAIRS])
+def test_hull_manifold_matches_twin(cuda, kind):
+    args = _hull_inputs(cuda, kpq.HULL_PAIRS[kind])
+    _bit_equal(kpq.hull_manifold(kind, *args), kpq.hull_manifold_twin(kind, *args))
+
+
+def test_plane_hull_manifold_matches_twin(cuda):
+    args = _hull_inputs(cuda, (3, 8))
+    rows = args[0].shape[0]
+    plane = torch.zeros((rows, 7), device=cuda)
+    plane[:, 1] = 1.0
+    args[2] = plane
+    args[3] = args[0] + torch.tensor([0.0, 0.4, 0.0], device=cuda) * torch.rand(
+        (rows, 1), device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    _bit_equal(kpq.plane_hull_manifold(kpq.PLANE_CONVEX, *args),
+               kpq.plane_hull_manifold_twin(kpq.PLANE_CONVEX, *args))
+
+
+@pytest.fixture(scope="module")
+def terrain(cuda):
+    """700 mixed shapes, rocks and round cuboids on a 21 x 21 heightfield
+    (800 triangles) after 40 steps: landed on the triangles."""
+    world, _ = scenes.terrain_shapes(700, per_row=16, field=21, max_contacts=24 * 701,
+                                     device=cuda)
+    for _ in range(40):
+        world = physics_step(world, CONFIG.replace(shape_pairs=None))
+    return world
+
+
+def test_terrain_buckets_match_twins(cuda, terrain):
+    """Every shape-pair bucket of the landed terrain, bit for bit."""
+    config = CONFIG.replace(shape_pairs=None)
+    w2, pos, quat = bp_m.update_aabbs_and_poses(terrain, config)
+    bp = bp_m.broad_phase(w2, config)
+    col = w2.colliders
+    buckets = manifold_buckets(col.shape_type, col.params, pos, quat, bp.collider_a,
+                               bp.collider_b, bp.valid, terrain.shape_pairs, terrain.convex_verts)
+    assert "hull_manifold" in {b.name for b in buckets}
+    for b in buckets:
+        _bit_equal(b.run(), b.run(twin=True))
+
+
+def test_terrain_and_hull_stack_steps_launch_p_and_q(cuda, terrain):
+    config = CONFIG.replace(shape_pairs=None)
+    kernels.reset_launches()
+    world, diag = physics_step(terrain, config, return_diagnostics=True)
+    hull_buckets = sum(PAIR_KERNELS[p][1] == "hull_manifold" for p in diag["manifold_pairs"])
+    assert kernels.launches()["hull_manifold"] == hull_buckets >= 5
+    assert bool(torch.isfinite(world.bodies.pos).all())
+    stack, ids = scenes.hull_stack(device=cuda)
+    kernels.reset_launches()
+    for _ in range(30):
+        stack = physics_step(stack, config)
+    counts = kernels.launches()
+    assert counts["plane_hull_manifold"] > 0 and counts["hull_manifold"] > 0, counts
+    assert abs(float(stack.bodies.pos[ids[0], 1]) - 0.5) < 0.05

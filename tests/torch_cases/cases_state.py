@@ -124,11 +124,20 @@ def test_entry_points_default_to_the_card_and_say_so_without_one():
 
 
 def test_builder_refuses_unported_shapes():
+    """Raw TRIANGLE, TRIMESH and HEIGHTFIELD codes (the builder makes those
+    shapes out of pool-backed CONVEX triangles), convex decomposition and
+    custom shapes are refused."""
     b = SceneBuilder()
     body = b.add_body()
-    for shape in (ttypes.ShapeType.SEGMENT, ttypes.ShapeType.TRIANGLE, ttypes.ShapeType.CONVEX):
+    for shape in (ttypes.ShapeType.TRIANGLE, ttypes.ShapeType.TRIMESH,
+                  ttypes.ShapeType.HEIGHTFIELD):
         with pytest.raises(NotImplementedError):
             b.add_collider(body, shape, (0.5,))
+    with pytest.raises(NotImplementedError):
+        b.convex_decomposition(body, [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)],
+                               [(0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)])
+    with pytest.raises(NotImplementedError):
+        b.custom_collider(body, index=0, mass=1.0, inertia=(1.0, 1.0, 1.0))
 
 
 def test_import_leaves_jax_out():

@@ -158,7 +158,9 @@ def test_an_active_joint_is_solved():
 
 
 def test_unported_shape_pair_raises():
-    """A segment resting on the ground reaches the narrowphase: refused."""
+    """A collider with the TRIMESH code written into the world directly (the
+    builders make trimeshes out of CONVEX triangles) resting on the ground
+    reaches the narrowphase: refused."""
     b = JBuilder()
     g = b.add_body(body_type=JBodyType.STATIC)
     b.half_space(g)
@@ -166,6 +168,8 @@ def test_unported_shape_pair_raises():
     b.segment(s, (-0.5, 0.0, 0.0), (0.5, 0.0, 0.0))
     jw = b.finalize(max_bodies=2, max_colliders=2, max_contacts=16)
     world = World.from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
+    col = world.colliders
+    world = world.replace(colliders=col.replace(shape_type=torch.tensor([3, 9], dtype=torch.int32)))
     with pytest.raises(NotImplementedError):
         physics_step(world, PhysicsConfig())
     assert to_torch(jw).colliders.shape_type.tolist() == [3, 6]  # half-space, segment
