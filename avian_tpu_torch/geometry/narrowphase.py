@@ -305,56 +305,80 @@ class Bucket:
         return getattr(self.module, self.name + ("_twin" if twin else ""))(self.kind, *self.inputs)
 
 
-def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
-                     shape_pairs=None, convex_verts=None):
-    """Bucket the valid pairs by canonical shape pair: one stable sort of the
-    pair codes, one host read of the bucket sizes, and one gather of every
-    input; each bucket's inputs are then a contiguous slice. Buckets of
-    Kernels P and Q get the first ``kpq.PARAM_LANES`` params and the vertex
-    pool ``convex_verts``, the others the first three params. Raises for a
-    pair the port does not support; skips pairs outside ``shape_pairs`` and
-    half-space pairs."""
-    ta = shape_type[ca.long()]
-    tb = shape_type[cb.long()]
-    swap = ta > tb
-    lo = torch.minimum(ta, tb).long()
-    hi = torch.maximum(ta, tb).long()
+def canonical_spans(type_a, type_b, valid, shape_pairs=None):
+    """Bucket items by the canonical shape pair of their two shape codes
+    (i64 or i32 [P]): one stable sort of the pair codes and one host read of
+    the bucket sizes. Returns ``(order, swap, spans)``: ``order`` i64[P] the
+    valid items by code (items ascending within a code), ``swap`` bool[P]
+    (per item) whether its codes were swapped into canonical order, and
+    ``spans`` one ``(pair, start, end)`` of ``order`` for each canonical pair
+    that has items, is in ``shape_pairs`` (``None`` = all) and has a kernel.
+    Raises for a pair the port does not support; half-space pairs and pairs
+    outside ``shape_pairs`` get no span (the empty manifold)."""
+    swap = type_a > type_b
+    lo = torch.minimum(type_a, type_b).long()
+    hi = torch.maximum(type_a, type_b).long()
     code = torch.where(valid, lo * _NUM_TYPES + hi, _NUM_TYPES * _NUM_TYPES)
     counts = torch.bincount(code, minlength=_NUM_TYPES * _NUM_TYPES + 1).tolist()
     allowed = allowed_pairs(shape_pairs)
-    for flat, n_pairs in enumerate(counts[:-1]):
+    spans = []
+    start = 0
+    for flat, n_items in enumerate(counts[:-1]):
         pair = divmod(flat, _NUM_TYPES)
-        if n_pairs and pair not in PAIR_KERNELS and pair not in _EMPTY_PAIRS:
+        if n_items and pair not in PAIR_KERNELS and pair not in _EMPTY_PAIRS:
             raise NotImplementedError(
                 f"shape pair {ShapeType(pair[0]).name}/{ShapeType(pair[1]).name}"
                 " is not ported yet (pairs of spheres, capsules, boxes, cylinders,"
                 " cones, segments, pool-backed convex shapes and half-spaces are)"
             )
-    order = torch.argsort(code, stable=True)  # valid pairs by code, slots ascending
+        end = start + n_items
+        if n_items and pair in allowed and pair in PAIR_KERNELS:
+            spans.append((pair, start, end))
+        start = end
+    return torch.argsort(code, stable=True), swap, spans
+
+
+def pair_manifold_twin(pair, pa, qa, prm_a, pb, qb, prm_b, pool=None):
+    """The plain version of canonical pair ``pair``'s kernel on K pairs in
+    canonical order; ``prm_*`` [K, >= 7] shape parameters (each kernel takes
+    the lanes it reads), ``pool`` the vertex pool for pool-backed shapes."""
+    module, name, kind = PAIR_KERNELS[pair]
+    twin = getattr(module, name + "_twin")
+    if name in POOL_KERNELS:
+        lanes = kpq.PARAM_LANES
+        return twin(kind, pa, qa, prm_a[:, :lanes], pb, qb, prm_b[:, :lanes], pool)
+    return twin(kind, pa, qa, prm_a[:, :3], pb, qb, prm_b[:, :3])
+
+
+def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
+                     shape_pairs=None, convex_verts=None):
+    """Bucket the valid pairs by canonical shape pair (``canonical_spans``)
+    and gather every input once; each bucket's inputs are then a contiguous
+    slice. Buckets of Kernels P and Q get the first ``kpq.PARAM_LANES``
+    params and the vertex pool ``convex_verts``, the others the first three
+    params. Raises for a pair the port does not support; skips pairs outside
+    ``shape_pairs`` and half-space pairs."""
+    order, swap, spans = canonical_spans(shape_type[ca.long()], shape_type[cb.long()], valid,
+                                         shape_pairs)
     sw = swap[order]
     c_a = torch.where(sw, cb[order], ca[order]).long()
     c_b = torch.where(sw, ca[order], cb[order]).long()
     gathered = (pos[c_a], quat[c_a], params[c_a, :3], pos[c_b], quat[c_b], params[c_b, :3])
     wide = None
     buckets = []
-    start = 0
-    for flat, n_pairs in enumerate(counts[:-1]):
-        pair = divmod(flat, _NUM_TYPES)
-        end = start + n_pairs
-        if n_pairs and pair in allowed and pair in PAIR_KERNELS:
-            module, name, kind = PAIR_KERNELS[pair]
-            inputs = tuple(x[start:end] for x in gathered)
-            if name in POOL_KERNELS:
-                if convex_verts is None:
-                    raise ValueError(f"shape pair {pair} needs the vertex pool")
-                if wide is None:
-                    lanes = kpq.PARAM_LANES
-                    wide = (params[c_a, :lanes], params[c_b, :lanes])
-                inputs = (inputs[0], inputs[1], wide[0][start:end], inputs[3], inputs[4],
-                          wide[1][start:end], convex_verts)
-            buckets.append(Bucket(pair, name, kind, order[start:end], sw[start:end], inputs,
-                                  module))
-        start = end
+    for pair, start, end in spans:
+        module, name, kind = PAIR_KERNELS[pair]
+        inputs = tuple(x[start:end] for x in gathered)
+        if name in POOL_KERNELS:
+            if convex_verts is None:
+                raise ValueError(f"shape pair {pair} needs the vertex pool")
+            if wide is None:
+                lanes = kpq.PARAM_LANES
+                wide = (params[c_a, :lanes], params[c_b, :lanes])
+            inputs = (inputs[0], inputs[1], wide[0][start:end], inputs[3], inputs[4],
+                      wide[1][start:end], convex_verts)
+        buckets.append(Bucket(pair, name, kind, order[start:end], sw[start:end], inputs,
+                              module))
     return buckets
 
 

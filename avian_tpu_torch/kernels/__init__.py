@@ -22,7 +22,10 @@
 - ``hull_manifold`` (Kernel P, CUDA): manifolds of a pool-backed convex shape
   (hull, round cuboid, triangle) against any shape but a half-space;
 - ``plane_hull_manifold`` (Kernel Q, CUDA): a pool-backed convex shape on a
-  half-space.
+  half-space;
+- ``swept_toi`` (Kernel R, CUDA): swept-CCD times of impact;
+- ``shape_cast`` (Kernel S, CUDA): shape casts;
+- ``ray_cast`` (Kernel T, CUDA): ray casts.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -46,6 +49,9 @@ from avian_tpu_torch.kernels import compact_pairs as _l
 from avian_tpu_torch.kernels import convex_manifold as _mo
 from avian_tpu_torch.kernels import round_manifold as _n
 from avian_tpu_torch.kernels import hull_manifold as _pq
+from avian_tpu_torch.kernels import swept_toi as _rr
+from avian_tpu_torch.kernels import shape_cast as _s
+from avian_tpu_torch.kernels import ray_cast as _t
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -65,6 +71,9 @@ WRAPPERS = {
     "plane_patch_manifold": (_mo.plane_patch_manifold,),
     "hull_manifold": (_pq.hull_manifold,),
     "plane_hull_manifold": (_pq.plane_hull_manifold,),
+    "swept_toi": (_rr.swept_toi,),
+    "shape_cast": (_s.shape_cast,),
+    "ray_cast": (_t.ray_cast,),
 }
 
 

@@ -10,7 +10,9 @@ change to a source rebuilds. A failed build raises; there is no fallback.
 ``launch`` calls one entry point on PyTorch's current stream, ``require``
 is the wrappers' check of device, dtype, shape and contiguity, and
 ``launch_manifold`` is the common launch of the narrowphase's pair kernels
-(A, M, N, O, P, Q).
+(A, M, N, O, P, Q). Kernels R and S instantiate the device code of all of
+those for every canonical pair (``csrc/pair_dispatch.cuh``), split over
+three translation units each so that no one ``nvcc`` holds up the build.
 """
 
 import ctypes
@@ -43,6 +45,12 @@ _SIGNATURES = {
     # Kernels P, Q
     "avian_hull_manifold": [_I, _I] + [_P] * 14 + [_P],
     "avian_plane_hull_manifold": [_I, _I] + [_P] * 13 + [_P],
+    # Kernels R, S (one entry point per group of canonical pairs) and T
+    **{f"avian_swept_toi_{g}": [_I] * 3 + [_P] * 18 + [_P]
+       for g in ("analytic", "generic", "hull")},
+    **{f"avian_shape_cast_{g}": [_I] * 3 + [_P] * 14 + [_P]
+       for g in ("analytic", "generic", "hull")},
+    "avian_ray_cast": [_I] * 4 + [_P] * 2 + [_I] + [_P] * 6 + [_P],
     "avian_grid_sweep": [_P] * 5 + [_I, _I, _P],
     "avian_solve_color": [_I] * 5 + [_P] * 10 + [_F] * 5 + [_P],
     # Kernel E
@@ -186,7 +194,7 @@ def launch(name: str, device: torch.device, *args) -> None:
     fn = getattr(library(), name)
     if len(args) + 1 != len(fn.argtypes):
         raise TypeError(f"{name}: {len(args)} arguments for {len(fn.argtypes) - 1}")
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]  # None: NULL
     with torch.cuda.device(device):
         err = fn(*conv, torch.cuda.current_stream().cuda_stream)
     check(err, name)

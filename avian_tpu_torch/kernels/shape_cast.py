@@ -1,0 +1,142 @@
+"""Kernel S, ``shape_cast``: how far a shape travels along a ray before it
+touches each collider.
+
+Replaces the per-collider conservative advancement of
+``avian_tpu/queries/shapecast.py::_sweep_all`` (:59, loop :92-121), which
+the reference runs on every collider under ``vmap`` + ``lax.switch``: 16
+rounds of the narrowphase's manifold between the query shape at
+``origin + direction * t`` and the collider, advancing t by the smallest
+separation over the closing speed along the normal, then one more manifold
+at t for the witness points (of the first smallest separation) and the
+normal. Here the caller (``queries/shapecast.py``) buckets the colliders by
+the canonical pair of (query shape, collider shape) and launches one
+instance per bucket.
+
+A collider is up to 17 manifolds (up to some 15,000 dependent f32
+operations each for a support-map pair) on its row read once, so the kernel
+is bound by operations and latency. The CUDA source
+(``csrc/shape_cast.cuh``) gives one thread to each collider and calls the
+pair's device function of Kernels A, M, N, O, P or Q
+(``csrc/pair_dispatch.cuh``); its instances are split over three
+translation units by pair group. It follows the plain version's arithmetic
+operation by operation (``-fmad=false``, IEEE ``sqrt`` and division), so
+the two agree bit for bit where the hardware rounds the same.
+
+The query is one f32[20] tensor: origin (3), rotation (4), unit direction
+(3), the shape's params padded to 8 lanes (a CONVEX query shape indexes the
+world's vertex pool through lanes 0 and 1), ``max_distance`` and
+``max_distance + 1`` (each rounded once to f32, as the reference's weakly
+typed Python floats are).
+
+The plain PyTorch version, ``shape_cast_twin``, runs on CPU tensors; on a
+CUDA tensor the wrapper launches the kernel or raises.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from avian_tpu_torch.kernels.contact_rows import first_argmax
+from avian_tpu_torch.kernels.convex_manifold import _disc_table
+from avian_tpu_torch.kernels.swept_toi import GROUP
+from avian_tpu_torch.math import vec
+
+ROUNDS = 16
+BIG = 1e30
+EPS = 1e-4
+QUERY_LEN = 20
+
+
+class CastOut(NamedTuple):
+    """Per-collider results, written at the bucket's colliders."""
+
+    t: torch.Tensor    # f32[M] travel distance
+    hit: torch.Tensor  # bool[M] touched within max_distance
+    pa: torch.Tensor   # f32[M, 3] witness on the query shape
+    pb: torch.Tensor   # f32[M, 3] witness on the collider
+    n: torch.Tensor    # f32[M, 3] normal from the query shape to the collider
+
+
+def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
+    """Plain PyTorch version; see ``shape_cast``. Runs every round of every
+    collider."""
+    from avian_tpu_torch.geometry.narrowphase import pair_manifold_twin
+
+    c = cols.long()
+    k_n = c.shape[0]
+    swap = (st > shape_type[c])[:, None]
+    o, rot, d = query[0:3], query[3:7].expand(k_n, 4), query[7:10]
+    qprm = query[10:18].expand(k_n, 8)
+    max_d, lim = query[18], query[19]
+    cp, cq, cprm = pos[c], quat[c], params[c]
+
+    def manifold(t):
+        qp = o + d * t[:, None]
+        return pair_manifold_twin(
+            pair, torch.where(swap, cp, qp), torch.where(swap, cq, rot),
+            torch.where(swap, cprm, qprm), torch.where(swap, qp, cp), torch.where(swap, rot, cq),
+            torch.where(swap, qprm, cprm), pool)
+
+    t = torch.zeros((k_n,), dtype=torch.float32, device=c.device)
+    done = torch.zeros((k_n,), dtype=torch.bool, device=c.device)
+    for k in range(ROUNDS):
+        normal, _, _, sep4, _, _ = manifold(t)
+        sep = sep4.amin(1)
+        approach = vec.dot(d.expand(k_n, 3), torch.where(swap, -normal, normal))
+        hit_now = sep < EPS
+        step = torch.where(approach > 1e-6, sep / torch.clamp(approach, min=1e-6), BIG)
+        new_t = torch.where(done | hit_now, t, t + torch.clamp(step, min=0.0))
+        t = torch.minimum(new_t, lim)
+        done = done | hit_now
+    normal, p_a, p_b, sep4, _, _ = manifold(t)
+    pi = first_argmax(-sep4)[:, None, None].expand(-1, 1, 3)
+    p_a, p_b = p_a.gather(1, pi)[:, 0], p_b.gather(1, pi)[:, 0]
+    out.t[c] = t
+    out.hit[c] = done & (t <= max_d)
+    out.pa[c] = torch.where(swap, p_b, p_a)
+    out.pb[c] = torch.where(swap, p_a, p_b)
+    out.n[c] = torch.where(swap, -normal, normal)
+    return out
+
+
+def shape_cast(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut,
+               rounds=None):
+    """Cast the query shape of type ``st`` (``query`` f32[20], see above)
+    against the colliders ``cols`` (i32[K]), all of canonical shape pair
+    ``pair`` with it; ``pos`` f32[M, 3], ``quat`` f32[M, 4], ``params``
+    f32[M, 8] and ``shape_type`` i32[M] are the colliders', ``pool`` the
+    vertex pool. Writes each collider's results into ``out``. A collider
+    stops once it has hit; one more manifold follows. With ``rounds``
+    (i32[M], the kernel only) each collider's rounds of advancement are
+    written too: the data-dependent work of the launch."""
+    from avian_tpu_torch.geometry.narrowphase import PAIR_KERNELS
+
+    if pair not in PAIR_KERNELS:
+        raise ValueError(f"shape_cast: no kernel for shape pair {pair}")
+    if cols.device.type == "cpu":
+        if rounds is not None:
+            raise ValueError("shape_cast: the plain version counts no rounds")
+        return shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out)
+    if cols.device.type != "cuda":
+        raise RuntimeError(f"shape_cast: unsupported device {cols.device}")
+    from avian_tpu_torch.kernels import build
+
+    dev, f32 = cols.device, torch.float32
+    m = pos.shape[0]
+    build.require("shape_cast", dev, [
+        ("cols", cols, cols.shape, torch.int32), ("query", query, (QUERY_LEN,), f32),
+        ("pos", pos, (m, 3), f32), ("quat", quat, (m, 4), f32), ("params", params, (m, 8), f32),
+        ("shape_type", shape_type, (m,), torch.int32), ("pool", pool, pool.shape, f32),
+        ("t", out.t, (m,), f32), ("hit", out.hit, (m,), torch.bool),
+        ("pa", out.pa, (m, 3), f32), ("pb", out.pb, (m, 3), f32), ("n", out.n, (m, 3), f32),
+    ] + ([] if rounds is None else [("rounds", rounds, (m,), torch.int32)]))
+    if cols.shape[0]:
+        group = GROUP[PAIR_KERNELS[pair][1]]
+        build.launch(f"avian_shape_cast_{group}", dev, pair[0] * 16 + pair[1], cols.shape[0],
+                     int(st), cols, query, pos, quat, params, shape_type, _disc_table(dev), pool,
+                     *out, rounds)
+        shape_cast.launches += 1
+    return out
+
+
+shape_cast.launches = 0

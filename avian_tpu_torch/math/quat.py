@@ -57,6 +57,23 @@ def from_scaled_axis(v):
     return torch.cat([v * s[..., None], w[..., None]], dim=-1)
 
 
+def to_scaled_axis(q):
+    """Rotation vector (axis * angle) of a quaternion, the inverse of
+    ``from_scaled_axis`` (reference quat.py:86): the short arc, then
+    ``axis * 2 atan2(|xyz|, w)``, with the Taylor form ``2 + s2 / 1.5`` for
+    tiny angles. ``atan2`` is PyTorch's, which rounds differently from
+    XLA's on about a tenth of inputs (by an ulp or two of the angle)."""
+    sgn = torch.where(q[..., 3] < 0.0, -1.0, 1.0)
+    xyz = q[..., :3] * sgn[..., None]
+    w = q[..., 3] * sgn
+    s2 = vec.length_sq(xyz)
+    s = vec.sqrt_rn(torch.clamp(s2, min=1e-30))
+    angle = 2.0 * torch.atan2(s, w)
+    small = s2 < 1e-12
+    scale = torch.where(small, 2.0 + s2 / 1.5, angle / s)
+    return xyz * scale[..., None]
+
+
 def from_axis_angle(axis, angle):
     """Quaternion rotating by ``angle`` about the unit ``axis``."""
     half = 0.5 * angle

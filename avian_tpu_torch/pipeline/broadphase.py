@@ -68,6 +68,13 @@ def update_aabbs_and_poses(world: World, config: PhysicsConfig):
     return world.replace(colliders=col.replace(aabb_min=lo, aabb_max=hi)), pos, quat
 
 
+def collider_poses(world: World):
+    """``(pos f32[M,3], quat f32[M,4])``: each collider's world pose (reference
+    ``update_collider_poses`` :85), from Kernel E's pose path; the AABBs it
+    computes beside them are dropped."""
+    return update_aabbs_and_poses(world, PhysicsConfig())[1:]
+
+
 def update_aabbs(world: World, config: PhysicsConfig) -> World:
     """World AABBs, expanded for speculative contacts (reference :96)."""
     return update_aabbs_and_poses(world, config)[0]

@@ -10,8 +10,10 @@ force clear -> sleeping -> NaN quarantine.
 The slices cover worlds of spheres, capsules, boxes, cylinders, cones,
 segments, half-spaces and pool-backed convex shapes (convex hulls, round
 cuboids, and the triangles of trimeshes and heightfields), with joints of
-all five types. The step raises ``NotImplementedError`` for
-``config.swept_ccd``, ``hooks``, ``custom_joints`` or ``custom_shapes``, and
+all five types, and the opt-in swept CCD pass (``config.swept_ccd``,
+``pipeline/ccd.py``) after the substeps. The step raises
+``NotImplementedError`` for ``hooks``, ``custom_joints`` or
+``custom_shapes``, and
 the narrowphase raises for any other shape code (TRIANGLE, TRIMESH and
 HEIGHTFIELD written into a world directly); nothing is skipped silently.
 """
@@ -24,6 +26,7 @@ from avian_tpu_torch.core import types
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.state import Contacts, World
 from avian_tpu_torch.pipeline import broadphase as bp_m
+from avian_tpu_torch.pipeline import ccd as ccd_m
 from avian_tpu_torch.pipeline import contacts as np_m
 from avian_tpu_torch.pipeline import integrator as int_m
 from avian_tpu_torch.pipeline import sleeping as sleep_m
@@ -45,6 +48,7 @@ class Prepared:
     num_pairs: torch.Tensor
     dropped: torch.Tensor
     manifold_pairs: dict               # canonical shape pair -> pairs launched on
+    poses: tuple                       # collider (pos f32[M,3], quat f32[M,4]) at step start
 
 
 def _check_supported(world, config, hooks, custom_joints, custom_shapes):
@@ -54,8 +58,6 @@ def _check_supported(world, config, hooks, custom_joints, custom_shapes):
         raise NotImplementedError("custom joints are not ported yet")
     if custom_shapes:
         raise NotImplementedError("custom shapes are not ported yet")
-    if config.swept_ccd:
-        raise NotImplementedError("swept CCD is not ported yet")
 
 
 def prepare_step(world: World, config: PhysicsConfig) -> Prepared:
@@ -68,12 +70,13 @@ def prepare_step(world: World, config: PhysicsConfig) -> Prepared:
     con = sol_m.prepare_constraints(world2, contacts, s, config)
     jcon = (xpbd_m.prepare_joints(world2, s, config)
             if world2.joints.capacity > 0 else None)
-    return Prepared(world2, contacts, s, table, con, jcon, bp.num_pairs, bp.dropped, sizes)
+    return Prepared(world2, contacts, s, table, con, jcon, bp.num_pairs, bp.dropped, sizes,
+                    (pos, quat))
 
 
-def _core(world: World, config: PhysicsConfig):
+def run_substeps(p: Prepared, config: PhysicsConfig):
+    """The substep loop on a prepared step: ``(solver state, constraints)``."""
     h = config.substep_dt
-    p = prepare_step(world, config)
     s, con = p.s, p.con
     for _ in range(config.substeps):
         s = int_m.integrate_velocities(s, p.table, h)
@@ -83,6 +86,17 @@ def _core(world: World, config: PhysicsConfig):
         s, con = sol_m.solve_pass(s, con, False, config)
         if p.jcon is not None:
             s = xpbd_m.solve_position_constraints(s, p.jcon, h, config)
+    return s, con
+
+
+def _core(world: World, config: PhysicsConfig):
+    p = prepare_step(world, config)
+    s, con = run_substeps(p, config)
+    swept, n_swept = {}, 0
+    if config.swept_ccd:
+        s, grid = ccd_m.solve_swept_ccd(p.world, s, *p.poses, config)
+        swept = {pair: flat.shape[0] for pair, flat in grid.buckets}
+        n_swept = grid.k_ok
     s, con = sol_m.solve_restitution(s, con, config)
     contacts = sol_m.store_impulses(p.contacts, con)
     joints = p.world.joints
@@ -101,16 +115,40 @@ def _core(world: World, config: PhysicsConfig):
         "num_overflow": con.num_overflow,
         "num_contact_points": num_points,
         "manifold_pairs": p.manifold_pairs,
+        "swept_pairs": swept,
+        "swept_colliders": n_swept,
     }
     return new_world, stats
+
+
+def pushed_sleepers(bodies) -> torch.Tensor:
+    """bool[N]: sleeping dynamic bodies with a force, torque, constant force
+    or constant torque written to them. The reference skips the step when
+    every body sleeps and keeps them asleep, so the push is lost; the
+    intended behaviour (``avian_tpu/api/forces.py:8-10``: a write wakes the
+    body) is that they wake (ROADMAP 3b)."""
+    b = bodies
+    dyn = b.active & (b.body_type == types.BodyType.DYNAMIC)
+    pushed = ((b.force != 0.0).any(-1) | (b.torque != 0.0).any(-1)
+              | (b.const_force != 0.0).any(-1) | (b.const_torque != 0.0).any(-1))
+    return dyn & b.sleeping & pushed
+
+
+def wake_pushed(world: World) -> World:
+    """Wake ``pushed_sleepers``: sleeping false, sleep timer reset."""
+    b = world.bodies
+    pushed = pushed_sleepers(b)
+    return world.replace(bodies=b.replace(
+        sleeping=b.sleeping & ~pushed, sleep_timer=torch.where(pushed, 0.0, b.sleep_timer)))
 
 
 def needs_step(world: World) -> torch.Tensor:
     """bool[]: some body can move this step (the all-asleep early-out's
     predicate, reference step.py:195-216). Besides the reference's awake
     dynamic bodies, moving kinematic bodies and teleported sleepers, a
-    velocity written to a sleeping dynamic body also counts: the reference
-    skips that step and loses the write."""
+    velocity written to a sleeping dynamic body also counts, and so does a
+    sleeping dynamic body with a force or torque (``pushed_sleepers``): the
+    reference skips that step and loses the write."""
     b = world.bodies
     dyn = b.active & (b.body_type == types.BodyType.DYNAMIC)
     moving = (b.lin_vel != 0.0).any(-1) | (b.ang_vel != 0.0).any(-1)
@@ -121,6 +159,7 @@ def needs_step(world: World) -> torch.Tensor:
     )
     return (
         (dyn & ~b.sleeping) | (dyn & b.sleeping & moving) | kin_moving | teleported
+        | pushed_sleepers(b)
     ).any()
 
 
@@ -141,11 +180,12 @@ def physics_step(world: World, config: PhysicsConfig, return_diagnostics=False,
         stats = {
             "num_pairs": zero, "dropped_pairs": zero, "overflow_dropped": zero,
             "num_overflow": zero, "num_contact_points": zero,
-            "manifold_pairs": {},
+            "manifold_pairs": {}, "swept_pairs": {}, "swept_colliders": 0,
         }
         stepped = False
     else:
-        new_world, stats = _core(world, config)
+        new_world, stats = _core(wake_pushed(world) if config.sleeping_enabled else world,
+                                 config)
         stepped = True
 
     nonfinite = torch.zeros((), dtype=torch.int32, device=world.device)
@@ -182,10 +222,12 @@ def physics_step(world: World, config: PhysicsConfig, return_diagnostics=False,
             c.touching[:, None] & (lanes < c.num_points[:, None]), c.penetration, 0.0
         ).max(),
         # Port-only: whether the full step ran (False = all-asleep
-        # early-out) and the pairs each narrowphase launch covered, by
-        # canonical shape pair.
+        # early-out), the pairs each narrowphase launch and each swept-CCD
+        # launch covered, by canonical shape pair, and the colliders swept.
         "stepped": stepped,
         "manifold_pairs": stats["manifold_pairs"],
+        "swept_pairs": stats["swept_pairs"],
+        "swept_colliders": stats["swept_colliders"],
     }
     return new_world, diagnostics
 

@@ -3,8 +3,9 @@
 ``tests/golden_common.py``, the mixed shapes of ``examples/many_shapes.py``,
 the cylinder stack of ``tests/test_shapes_convex.py``, the worlds of
 ``examples/trimesh_shapes_3d.py``, ``examples/voxels_3d.py`` and
-``tests/test_convex_hull.py``, and mixed shapes, rocks and round cuboids on
-a heightfield). ``device=None`` builds the world on the card
+``tests/test_convex_hull.py``, mixed shapes, rocks and round cuboids on
+a heightfield, the same with swept bullets fired into it, and the
+reference's ``ccd_stress``). ``device=None`` builds the world on the card
 (``core.device.default_device``); pass ``device="cpu"`` for the CPU."""
 
 import math
@@ -362,20 +363,10 @@ def _rock(b, body, rng):
     b.convex_hull(body, p.astype(np.float32))
 
 
-def terrain_shapes(n: int = 10_000, per_row: int = 48, seed: int = 7, field: int = 65,
-                   max_contacts: int | None = None, device=None):
-    """Mixed shapes over a static heightfield: ``field x field`` heights 1 m
-    apart (``terrain_heights``; 65 gives 8,192 triangles over 64 m x 64 m),
-    and ``n`` bodies in ``many_shapes``' layout (rows of ``per_row`` 1.1 m
-    apart, layers 1.5 m apart), each starting 1 m plus 1.5 m per layer above
-    the field at its (x, z). Body ``k`` is of kind ``k % 7``: the five
-    shapes of ``examples/many_shapes.py`` (sphere r 0.4, box 0.35, capsule r
-    0.25 l 0.5, cylinder r 0.3 h 0.7, cone r 0.35 h 0.7), a rock (the hull
-    of 12 points on a sphere of radius 0.4, drawn from ``seed``) and a round
-    cuboid (0.5 m inner sides, 0.05 m border). Returns (world, ids)."""
-    rng = np.random.default_rng(seed)
-    heights = terrain_heights(field)
-    b = SceneBuilder()
+def _terrain_pile(b, n, per_row, rng, heights):
+    """``terrain_shapes``' ground and bodies, added to builder ``b``;
+    returns the bodies' ids."""
+    field = heights.shape[0]
     ground = b.add_body(body_type=BodyType.STATIC)
     b.heightfield(ground, heights, float(field - 1), float(field - 1))
     x0 = -6.5 - (per_row - 12) * 0.55
@@ -401,7 +392,93 @@ def terrain_shapes(n: int = 10_000, per_row: int = 48, seed: int = 7, field: int
         else:
             b.round_cuboid(body, 0.5, 0.5, 0.5, 0.05)
         ids.append(body)
+    return ids
+
+
+def terrain_shapes(n: int = 10_000, per_row: int = 48, seed: int = 7, field: int = 65,
+                   max_contacts: int | None = None, device=None):
+    """Mixed shapes over a static heightfield: ``field x field`` heights 1 m
+    apart (``terrain_heights``; 65 gives 8,192 triangles over 64 m x 64 m),
+    and ``n`` bodies in ``many_shapes``' layout (rows of ``per_row`` 1.1 m
+    apart, layers 1.5 m apart), each starting 1 m plus 1.5 m per layer above
+    the field at its (x, z). Body ``k`` is of kind ``k % 7``: the five
+    shapes of ``examples/many_shapes.py`` (sphere r 0.4, box 0.35, capsule r
+    0.25 l 0.5, cylinder r 0.3 h 0.7, cone r 0.35 h 0.7), a rock (the hull
+    of 12 points on a sphere of radius 0.4, drawn from ``seed``) and a round
+    cuboid (0.5 m inner sides, 0.05 m border). Returns (world, ids)."""
+    rng = np.random.default_rng(seed)
+    heights = terrain_heights(field)
+    b = SceneBuilder()
+    ids = _terrain_pile(b, n, per_row, rng, heights)
     m = n + 2 * (field - 1) ** 2
     world = b.finalize(max_bodies=n + 1, max_colliders=m,
                        max_contacts=max_contacts or 8 * (n + 1), device=device)
+    return world, ids
+
+
+BULLET_HEIGHT, BULLET_SPEED, BULLET_SPIN = 12.0, 300.0, 40.0
+
+
+def terrain_ccd(n: int = 10_000, per_row: int = 48, bullets: int = 32, seed: int = 7,
+                field: int = 65, max_contacts: int | None = None, device=None):
+    """The swept-CCD world at full width: ``terrain_shapes(n, per_row, seed,
+    field)``'s world (the same bodies from the same draws) plus ``bullets``
+    swept bodies fired down into it, every one with a speculative margin of
+    0.05 m as in ``tests/test_scenes.py:77-97``. Even bullets are spheres of
+    radius 0.1 with ``swept_ccd`` (the linear sweep); odd ones are capsules
+    of radius 0.05 and length 0.4 with ``swept_ccd_nonlinear`` too, tilted
+    by a seeded rotation and spinning at 40 rad/s about a seeded axis. Each
+    starts 12 m above the field at a seeded (x, z) over the pile and flies
+    down at 300 m/s (5 m a step at 60 Hz) with a seeded horizontal part of
+    at most 3 m/s. Returns (world, ids of the pile's bodies, ids of the
+    bullets)."""
+    rng = np.random.default_rng(seed)
+    heights = terrain_heights(field)
+    b = SceneBuilder()
+    ids = _terrain_pile(b, n, per_row, rng, heights)
+    reach = min(20.0, 0.4 * (field - 1))
+    shots = []
+    for k in range(bullets):
+        x, z = rng.uniform(-reach, reach, size=2)
+        vx, vz = rng.uniform(-3.0, 3.0, size=2)
+        y = float(terrain_height_at(heights, x, z)) + BULLET_HEIGHT
+        vel = (float(vx), -BULLET_SPEED, float(vz))
+        if k % 2 == 0:
+            body = b.add_body(pos=(x, y, z), lin_vel=vel, swept_ccd=True)
+            b.sphere(body, 0.1, speculative_margin=0.05)
+        else:
+            q = rng.normal(size=4)
+            axis = rng.normal(size=3)
+            spin = BULLET_SPIN * axis / np.linalg.norm(axis)
+            body = b.add_body(pos=(x, y, z), quat=tuple(q / np.linalg.norm(q)), lin_vel=vel,
+                              ang_vel=tuple(spin), swept_ccd=True, swept_ccd_nonlinear=True)
+            b.capsule(body, 0.05, 0.4, speculative_margin=0.05)
+        shots.append(body)
+    n_bodies = n + bullets
+    m = n_bodies + 2 * (field - 1) ** 2
+    world = b.finalize(max_bodies=n_bodies + 1, max_colliders=m,
+                       max_contacts=max_contacts or 8 * (n_bodies + 1), device=device)
+    return world, ids, shots
+
+
+def ccd_stress(n_bullets: int = 32, speed: float = 80.0, device=None):
+    """Fast spheres shot at a thin wall (port of the reference's
+    ``scenes.ccd_stress``, BASELINE config 4: speculative contacts only).
+    Returns (world, ids)."""
+    b = SceneBuilder()
+    wall = b.add_body(body_type=BodyType.STATIC, pos=(5.0, 0.0, 0.0))
+    b.box(wall, 0.05, 10.0, 10.0)
+    g = b.add_body(body_type=BodyType.STATIC, pos=(0, -10.0, 0))
+    b.half_space(g, normal=(0, 1, 0))
+    ids = []
+    for k in range(n_bullets):
+        body = b.add_body(
+            pos=(0.0, (k % 8) * 0.5 - 2.0, (k // 8) * 0.5 - 1.0),
+            lin_vel=(speed, 0.0, 0.0),
+        )
+        b.sphere(body, 0.1, restitution=0.1)
+        ids.append(body)
+    n = n_bullets + 2
+    world = b.finalize(max_bodies=n, max_colliders=n, max_contacts=max(8 * n, 64),
+                       device=device)
     return world, ids

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the seventeen kernels (A-Q) against its plain PyTorch twin at the main
+the twenty kernels (A-T) against its plain PyTorch twin at the main
 paths' shapes (the 10,000-cube pile after 60 steps; the base-100 box pyramid
 after 2 steps, when most of its constraints sit in the overflow colour, and
 after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
@@ -20,10 +20,15 @@ cylinders and cones for 120 steps, and the cylinder stack for 240; the
 10,000-body terrain with 240,000 contact slots for 120 steps, every body
 held above the field's surface and inside its footprint) and checks that
 every kernel carried them, runs the reference's trimesh, voxel, hull and
-round-cuboid scenes with their own checks, steps the pyramid, the hinged
-boxes, 2,000 mixed shapes and a 2,000-body terrain once more with every
-kernel replaced by its plain version and holds the kernels' trajectories to
-those, and checks that two runs are bitwise equal. Each phase prints one
+round-cuboid scenes with their own checks, fires 32 swept bullets into the
+terrain for 120 steps (``terrain_ccd``: Kernel R against its twin, no bullet
+below the field, what the sweep's repairs of the reference did), runs the
+reference's swept-CCD scenes, casts five shapes and 1,024 rays into the
+terrain (Kernels S and T against their twins), steps the pyramid, the hinged
+boxes, 2,000 mixed shapes, a 2,000-body terrain and a 2,000-body
+``terrain_ccd`` once more with every kernel replaced by its plain version
+and holds the kernels' trajectories to those, and checks that two runs are
+bitwise equal. Each phase prints one
 line; the line before the last is a JSON object with each kernel's launches,
 error, times and bound, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises, and the script exits non-zero without that
@@ -62,15 +67,22 @@ from avian_tpu_torch.kernels import round_manifold as kn
 from avian_tpu_torch.kernels import run_rank as kr
 from avian_tpu_torch.kernels import solve_color as kd
 from avian_tpu_torch.kernels import solve_joints as ki
+from avian_tpu_torch.kernels import shape_cast as ks
+from avian_tpu_torch.kernels import ray_cast as kt
+from avian_tpu_torch.kernels import swept_toi as kccd
 from avian_tpu_torch.pipeline import broadphase as bp_m
+from avian_tpu_torch.pipeline import ccd as ccd_m
 from avian_tpu_torch.pipeline import contacts as np_m
 from avian_tpu_torch.pipeline import sleeping as sleep_m
 from avian_tpu_torch.pipeline import solver as sol_m
 from avian_tpu_torch.pipeline import solver_body as sb_m
 from avian_tpu_torch.pipeline import xpbd as xpbd_m
-from avian_tpu_torch.pipeline.step import physics_step, prepare_step
+from avian_tpu_torch.pipeline.step import physics_step, prepare_step, run_substeps
+from avian_tpu_torch.queries import (QueryFilter, cast_ray, cast_shape, ray_hits, raycast,
+                                     shape_hits, shapecast)
 from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, POOL_KERNELS,
-                                                  compute_manifolds, manifold_buckets)
+                                                  compute_manifolds, manifold_buckets,
+                                                  pair_manifold_twin)
 from avian_tpu_torch.math import quat as quat_m
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -175,7 +187,10 @@ SHAPES_KERNEL_STEPS, SHAPES_STEPS = 40, 120
 SHAPES_PLAIN_N, SHAPES_PLAIN_PER_ROW = 2_000, 24
 # One step of the landed pile on the kernels against one on the plain
 # versions, from the same state: they differ only by Kernel D's last bits.
-SHAPES_ONE_STEPS, SHAPES_ONE_STEP_TOL = 6, 1e-4
+# Three single steps each, cut from six to keep the smoke's time as its
+# phases grow (in the runs before the cut, the largest difference of the six
+# came within the first three).
+SHAPES_ONE_STEPS, SHAPES_ONE_STEP_TOL = 3, 1e-4
 # Kernels M, N, O against their plain versions. They are compiled without
 # fused multiply-adds and spell the plain versions' operations out, so the
 # aim is bit-equality; this is the most any float may differ.
@@ -219,7 +234,7 @@ TERRAIN_KERNEL_STEPS, TERRAIN_STEPS = 40, 120
 TERRAIN_BELOW_TOL = 0.05
 TERRAIN_PLAIN_N, TERRAIN_PLAIN_PER_ROW = 2_000, 24
 DETERMINISM_TERRAIN = dict(n=300, per_row=12, field=17)
-DETERMINISM_TERRAIN_STEPS = 120
+DETERMINISM_TERRAIN_STEPS = 60
 # Random pairs of each of the 15 canonical pairs of segments and pool-backed
 # convex shapes (Kernels M and O's segment instances, P and Q).
 RANDOM_PAIRS = 4096
@@ -229,6 +244,47 @@ RANDOM_PAIRS = 4096
 SCENE_CONFIG = PhysicsConfig(max_colors=4)
 HULL_CONFIG = PhysicsConfig(max_colors=4, shape_pairs=((3, 8), (8, 8), (2, 8)))
 ROUND_CONFIG = PhysicsConfig(max_colors=4, shape_pairs=((3, 8), (8, 8)))
+
+# The swept-CCD path: scenes.terrain_ccd, the terrain's world and 32 bullets
+# (16 linear spheres, 16 spinning capsules swept nonlinearly) fired down into
+# it at 300 m/s, K = 32 swept colliders against its 18,224; the terrain's
+# config with swept CCD. Kernel R is held against its plain version on the
+# state after CCD_KERNEL_STEPS steps, on every collider whose swept AABB meets
+# a bullet's and CCD_TWIN_COLUMNS seeded ones (the whole grid's 583k pairs
+# take the plain version minutes); the nonlinear rows within
+# TOL_R_NONLINEAR (the rotation at t comes from sinf/cosf, which may round
+# apart from PyTorch's), the rest bit for bit.
+CCD_BULLETS, CCD_STEPS, CCD_CONTROL_STEPS, CCD_KERNEL_STEPS = 32, 120, 30, 2
+CCD_CONFIG = TERRAIN_CONFIG.replace(swept_ccd=True)
+CCD_TWIN_COLUMNS, TOL_R_NONLINEAR = 2048, 1e-5
+# One step of CCD_PLAIN_N bodies and bullets on the kernels against one on
+# the plain versions, from the same state, as the mixed shapes' plain path.
+CCD_PLAIN_N, CCD_PLAIN_BULLETS, CCD_ONE_STEPS, CCD_ONE_STEP_TOL = 2_000, 8, 2, 1e-4
+DETERMINISM_CCD = dict(n=300, per_row=12, bullets=8, field=17)
+DETERMINISM_CCD_STEPS = 60
+# tests/test_scenes.py's swept-CCD config (its TEST_SHAPE_PAIRS).
+SWEPT_CONFIG = PhysicsConfig(max_colors=4, swept_ccd=True, shape_pairs=(
+    (0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 3), (2, 2), (2, 3)))
+# The queries: casts into the terrain after TERRAIN_KERNEL_STEPS steps, one of
+# each shape (params as the builder stores them), S held to its plain version
+# on each cast's colliders whose AABB, widened by QUERY_AABB_PAD, meets the
+# cast's swept box, and CCD_TWIN_COLUMNS seeded ones; QUERY_RAYS rays in one
+# call, T held to its plain version on the first QUERY_TWIN_RAYS of them.
+QUERY_SHAPES = ((int(ShapeType.SPHERE), (0.3,)), (int(ShapeType.CAPSULE), (0.3, 0.15)),
+                (int(ShapeType.BOX), (0.3, 0.2, 0.4)), (int(ShapeType.CYLINDER), (0.3, 0.25)),
+                (int(ShapeType.CONE), (0.35, 0.3)))
+QUERY_MAX_DISTANCE, QUERY_RAYS, QUERY_TWIN_RAYS, QUERY_AABB_PAD = 40.0, 1024, 64, 0.5
+# S and T against their plain versions: the aim is bit-equality (the kernels
+# spell the plain versions' operations out); this is the most a float may
+# differ.
+TOL_ST = 1e-5
+# Operations of one manifold of each pair kernel's pairs (OPS_PER_PAIR's,
+# box/box's SAT and clip as Kernel A's bound counts it), and of the rest of a
+# round of R or S (two rotations at t, the advancement); of one (ray,
+# analytic collider) of T, and of one vertex of one scan of a hull's
+# vertices (a dot product and a compare).
+MANIFOLD_OPS = dict(OPS_PER_PAIR, box_manifold=2500)
+ROUND_OPS, RAY_OPS, HULL_SCAN_OPS = 100, 60, 6
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet): device memory
 # 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, taken for the
@@ -270,6 +326,12 @@ REPLACES = {
                       "avian_tpu/geometry/convex.py:881"),
     "plane_hull_manifold": ("cuda", "avian_tpu_torch/csrc/hull_manifold.cu",
                             "avian_tpu/geometry/convex.py:902"),
+    "swept_toi": ("cuda", "avian_tpu_torch/csrc/swept_toi.cuh",
+                  "avian_tpu/pipeline/ccd.py:40"),
+    "shape_cast": ("cuda", "avian_tpu_torch/csrc/shape_cast.cuh",
+                   "avian_tpu/queries/shapecast.py:59"),
+    "ray_cast": ("cuda", "avian_tpu_torch/csrc/ray_cast.cu",
+                 "avian_tpu/queries/raycast.py:372"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -310,6 +372,17 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """``(fn(), milliseconds)`` of one call, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def nbytes(*tensors):
@@ -1283,14 +1356,15 @@ def moved(start, world, ids):
 
 
 def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, every10=None,
-          buckets=None):
+          buckets=None, each_step=None):
     """``steps`` steps of ``world`` through ``physics_step`` with diagnostics.
     Fails on a dropped pair, an overflow drop, a non-finite state or launch
     counts other than what the full steps imply; prints the rates, and with
     ``watch=(start, ids, max sideways, max apex)`` how far the boxes have moved
     every 10 steps, held to those limits. ``every10(world)`` is called every
-    10 steps, outside the timed steps. ``buckets``, a dict, gathers each
-    shape pair's bucket sizes, one per full step.
+    10 steps, outside the timed steps, and ``each_step(i, world, diag)``
+    after every step. ``buckets``, a dict, gathers each shape pair's bucket
+    sizes, one per full step.
     Returns ``(world, launches)``."""
     series = []
     torch.cuda.synchronize()
@@ -1316,12 +1390,15 @@ def drive(what, world, config, steps, smi, n_boxes, timed_from=0, watch=None, ev
             series.append((i + 1,) + moved(watch[0], world, watch[1]))
         if every10 is not None and (i + 1) % 10 == 0:
             every10(world)
+        if each_step is not None:
+            each_step(i, world, diag)
         if diag["stepped"]:
             full_s.append(dt)
             for pair, n in diag["manifold_pairs"].items():
                 expect[PAIR_KERNELS[pair][1]] += int(n > 0)
                 if buckets is not None:
                     buckets.setdefault(pair, []).append(n)
+            expect["swept_toi"] += sum(int(n > 0) for n in diag["swept_pairs"].values())
             for name, per_step in STEP_LAUNCHES.items():
                 expect[name] += per_step(config, world.joints.capacity > 0)
     got = kernels.launches()
@@ -1405,6 +1482,8 @@ def plain_versions():
         (km, "plane_patch_manifold", km.plane_patch_manifold_twin),
         (kpq, "hull_manifold", kpq.hull_manifold_twin),
         (kpq, "plane_hull_manifold", kpq.plane_hull_manifold_twin),
+        (kccd, "swept_toi", kccd.swept_toi_twin), (ks, "shape_cast", ks.shape_cast_twin),
+        (kt, "ray_cast", kt.ray_cast_twin),
     ]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1645,19 +1724,27 @@ def terrain(device, n=None, per_row=None, field=None):
                                  max_contacts=TERRAIN_SLOTS_PER_BODY * n, device=device)
 
 
-def on_the_field(what, world, ids, field=None):
-    """(least height of a body's centre of mass above the field's surface at
-    its (x, z), farthest |x| or |z|); fails if a centre is more than
-    ``TERRAIN_BELOW_TOL`` below the surface or outside the footprint. (The
-    centre of mass lies inside the body's collider; a rock's origin need
-    not: the hull of 12 points on a sphere can miss its centre.)"""
+def heights_above(world, ids, field=None):
+    """(height f64[len(ids)] of each body's centre of mass above the field's
+    surface at its (x, z), farthest |x| or |z|). (The centre of mass lies
+    inside the body's collider; a rock's origin need not: the hull of 12
+    points on a sphere can miss its centre.)"""
     field = field or TERRAIN_FIELD
     b = world.bodies
     idx = torch.tensor(ids, device=world.device)
     p = (b.pos[idx] + quat_m.rotate(b.quat[idx], b.com[idx])).cpu().numpy().astype(np.float64)
     heights = scenes.terrain_heights(field)
-    above = float((p[:, 1] - scenes.terrain_height_at(heights, p[:, 0], p[:, 2])).min())
-    reach = float(np.abs(p[:, [0, 2]]).max())
+    return (p[:, 1] - scenes.terrain_height_at(heights, p[:, 0], p[:, 2]),
+            float(np.abs(p[:, [0, 2]]).max()))
+
+
+def on_the_field(what, world, ids, field=None):
+    """(least height of a body's centre of mass above the field's surface,
+    farthest |x| or |z|); fails if a centre is more than
+    ``TERRAIN_BELOW_TOL`` below the surface or outside the footprint."""
+    field = field or TERRAIN_FIELD
+    h, reach = heights_above(world, ids, field)
+    above = float(h.min())
     if not above >= -TERRAIN_BELOW_TOL:
         raise AssertionError(f"{what}: a body is {-above} m below the field's surface "
                              f"(limit {TERRAIN_BELOW_TOL})")
@@ -1807,6 +1894,565 @@ def phase_reference_scenes(device):
     return got
 
 
+# ---- the time-of-impact path: swept CCD (Kernel R) and the casts (S, T) ------
+
+
+def bullets_below(world, shots):
+    """How many bullets' centres of mass are more than ``TERRAIN_BELOW_TOL``
+    below the field's surface."""
+    return int((heights_above(world, shots)[0] < -TERRAIN_BELOW_TOL).sum())
+
+
+def ccd_world(device, n=None, per_row=None, bullets=None, field=None):
+    """``scenes.terrain_ccd``, by default the full-width path's."""
+    n = n or TERRAIN_N
+    bullets = bullets or CCD_BULLETS
+    return scenes.terrain_ccd(n, per_row=per_row or TERRAIN_PER_ROW, bullets=bullets,
+                              seed=TERRAIN_SEED, field=field or TERRAIN_FIELD,
+                              max_contacts=TERRAIN_SLOTS_PER_BODY * (n + bullets), device=device)
+
+
+def substepped(world, config):
+    """(prepared step, solver state after its substeps) of ``world``'s next
+    step: what the swept-CCD pass of that step sees."""
+    p = prepare_step(world, config)
+    s, _ = run_substeps(p, config)
+    return p, s
+
+
+def r_rounds(grid):
+    """Kernel R over ``grid``, with the rounds each pair ran: ``(toi
+    f32[k_ok * M], rounds i32[k_ok * M])``, ``rounds`` negated where a valid
+    pair ran all without a hit and t stayed below 1 (``kernels/swept_toi.py``)."""
+    m = grid.tab.pos0.shape[0]
+    dev = grid.tab.pos0.device
+    toi = torch.ones((grid.k_ok * m,), dtype=torch.float32, device=dev)
+    rounds = torch.zeros((grid.k_ok * m,), dtype=torch.int32, device=dev)
+    rows = grid.swept[:grid.k_ok].contiguous()
+    for pair, flat in grid.buckets:
+        kccd.swept_toi(pair, flat, rows, m, grid.tab, toi, rounds)
+    return toi, rounds
+
+
+def grid_work(grid, rounds):
+    """(bytes, operations) of Kernel R over ``grid``: each collider's row and
+    the pair list read once, the TOIs written once; each pair's manifolds
+    (the rounds it ran, from ``r_rounds``) at ``MANIFOLD_OPS`` of its kernel
+    plus ``ROUND_OPS`` for the rest of a round."""
+    io = nbytes(*grid.tab, *(flat for _, flat in grid.buckets)) + 4 * rounds.numel()
+    ops = 0
+    for pair, flat in grid.buckets:
+        ran = int(rounds[flat.long()].abs().sum())
+        ops += ran * (MANIFOLD_OPS[PAIR_KERNELS[pair][1]] + ROUND_OPS)
+    return io, ops
+
+
+def swept_subset(grid, aabbs, seed):
+    """bool[M]: the colliders whose swept AABB (this step's AABB ``aabbs``
+    stretched along its delta position) meets a swept collider's, and
+    ``seed``'s ``CCD_TWIN_COLUMNS`` more."""
+    tab = grid.tab
+    lo = aabbs[0] + torch.clamp(tab.sweep, max=0.0)
+    hi = aabbs[1] + torch.clamp(tab.sweep, min=0.0)
+    rows = grid.swept[:grid.k_ok].long()
+    meets = ((lo[None, :, :] <= hi[rows][:, None, :])
+             & (hi[None, :, :] >= lo[rows][:, None, :])).all(-1).any(0)
+    return with_seeded(meets, seed)
+
+
+def with_seeded(mask, seed):
+    """``mask`` (bool[M]) with ``CCD_TWIN_COLUMNS`` more entries, drawn by
+    ``seed``, set."""
+    m = mask.shape[0]
+    rng = np.random.default_rng(seed)
+    extra = torch.from_numpy(rng.choice(m, min(CCD_TWIN_COLUMNS, m), replace=False))
+    mask[extra.to(mask.device)] = True
+    return mask
+
+
+def kernel_r_against_twin(grid, aabbs, nonlinear_rows):
+    """Kernel R over the whole grid, then its plain version on the pairs of
+    ``swept_subset``'s columns; linear rows bit for bit, nonlinear ones
+    within ``TOL_R_NONLINEAR``. Returns (max abs error, twin pairs, the
+    twin's milliseconds on them, the rounds of the whole grid)."""
+    m = grid.tab.pos0.shape[0]
+    toi, rounds = r_rounds(grid)
+    if not torch.equal(toi, ccd_m.grid_tois(grid).reshape(-1)):
+        raise AssertionError("swept_toi: two runs differ")
+    if bool(((rounds < 0) & ~(toi < 1.0)).any()):
+        raise AssertionError("swept_toi: a pair whose rounds ran out returned t >= 1")
+    cols = swept_subset(grid, aabbs, 3)
+    rows = grid.swept[:grid.k_ok].contiguous()
+    twin = torch.ones_like(toi)
+    sub = [(pair, flat[cols[flat.long() % m]].contiguous()) for pair, flat in grid.buckets]
+    sub = [(pair, keep) for pair, keep in sub if keep.numel()]
+
+    def run_twin():
+        for pair, keep in sub:
+            kccd.swept_toi_twin(pair, keep, rows, m, grid.tab, twin)
+
+    _, twin_ms = once_ms(run_twin)
+    flats = torch.cat([f for _, f in sub]).long()
+    nonlinear = nonlinear_rows[flats // m]
+    err = compare("swept_toi linear rows", toi[flats][~nonlinear], twin[flats][~nonlinear])
+    err = max(err, compare("swept_toi nonlinear rows", toi[flats][nonlinear],
+                           twin[flats][nonlinear], TOL_R_NONLINEAR))
+    return err, int(flats.numel()), twin_ms, rounds
+
+
+def touching_at_start(grid, r, j):
+    """Whether the grid's pair (row ``r``, collider ``j``) touches at t = 0
+    (its least separation there <= 1e-4), by the plain manifold function:
+    the pairs the sweep's first repair advances only ``DEEPER`` deep."""
+    tab = grid.tab
+    i = int(grid.swept[r])
+    a, b = (j, i) if int(tab.shape_type[i]) > int(tab.shape_type[j]) else (i, j)
+    pair = (int(tab.shape_type[a]), int(tab.shape_type[b]))
+    sep4 = pair_manifold_twin(pair, tab.pos0[a:a + 1], tab.quat0[a:a + 1], tab.params[a:a + 1],
+                              tab.pos0[b:b + 1], tab.quat0[b:b + 1], tab.params[b:b + 1],
+                              tab.pool)[3]
+    return float(sep4.amin()) <= 1e-4
+
+
+def ccd_side_effects(world):
+    """What the sweep's two repairs of the reference (``kernels/swept_toi.py``,
+    ROADMAP 3b) do on the ``ccd`` run: its ``CCD_STEPS`` steps again from
+    ``world``, and per step the grid's pairs that return t < 1 without a
+    hit (their rounds ran out: the second repair), the bullets whose delta
+    position R cut, and of those the ones with no contact point in the next
+    step's narrowphase (stopped short of anything). Each of the last is put
+    down to the pair that set its TOI: one whose rounds ran out, one that
+    touched at t = 0 (the first repair, advancing only ``DEEPER`` deep), or
+    one that met from apart (the reference's own rule). Returns (the three
+    counts a step, {cause: bullets cut with no contact after})."""
+    n_bodies = world.bodies.capacity
+    ran_out, cut, alone = [], [], []
+    causes = {"ran out": 0, "touching at t = 0": 0, "met from apart": 0}
+    pending = {}  # body -> (grid, row, collider, ran out) of the previous step's cuts
+
+    def check(p):
+        c = p.contacts
+        live = c.active & (c.num_points > 0)
+        touched = torch.zeros(n_bodies, dtype=torch.bool, device=world.device)
+        touched[c.body_a[live].long()] = True
+        touched[c.body_b[live].long()] = True
+        lone = [why for body, why in pending.items() if not bool(touched[body])]
+        for grid, r, j, out in lone:
+            causes["ran out" if out else "touching at t = 0" if touching_at_start(grid, r, j)
+                   else "met from apart"] += 1
+        alone.append(len(lone))
+
+    for step in range(CCD_STEPS):
+        p, s = substepped(world, CCD_CONFIG)
+        if step:
+            check(p)
+        grid = ccd_m.swept_grid(p.world, s, *p.poses, CCD_CONFIG)
+        pending, n_out = {}, 0
+        if grid.k_ok:
+            toi, rounds = r_rounds(grid)
+            n_out = int((rounds < 0).sum())
+            row_min, col = toi.view(grid.k_ok, -1).min(1)
+            body = p.world.colliders.body_idx[grid.swept[:grid.k_ok].long()].long()
+            m = toi.shape[0] // grid.k_ok
+            for r in torch.nonzero(row_min * ccd_m.TOI_EPS < 1.0)[:, 0].tolist():
+                j = int(col[r])
+                why = (grid, r, j, bool(rounds[r * m + j] < 0))
+                pending[int(body[r])] = min(pending.get(int(body[r]), why), why,
+                                            key=lambda w: float(toi[w[1] * m + w[2]]))
+        ran_out.append(n_out)
+        cut.append(len(pending))
+        world = physics_step(world, CCD_CONFIG)
+    check(prepare_step(world, CCD_CONFIG))
+    return ran_out, cut, alone, causes
+
+
+def phase_ccd(device, smi):
+    """The swept-CCD path at full width: ``terrain_ccd`` (the terrain's
+    10,000 bodies and 32 bullets fired down into it at 300 m/s) through
+    ``physics_step`` with ``swept_ccd`` for ``CCD_STEPS`` steps: no bullet's
+    centre of mass ever below the field's surface or off the field (checked
+    every step), every body of the terrain held as before (every 10 steps),
+    no dropped pair, and Kernel R launched on every step that sweeps a
+    moving collider. Before that, R against its plain version on the
+    grid of the state after ``CCD_KERNEL_STEPS`` steps; after, what the
+    sweep's repairs did over those steps (``ccd_side_effects``), and the
+    same world for ``CCD_CONTROL_STEPS`` steps without ``swept_ccd`` (both
+    printed, not gated). Returns ({"swept_toi": measurements}, launch counts)."""
+    world, ids, shots = ccd_world(device)
+    n_cols = int(world.colliders.active.sum())
+    start = world
+    for _ in range(CCD_KERNEL_STEPS):
+        world = physics_step(world, CCD_CONFIG)
+    p, s = substepped(world, CCD_CONFIG)
+    grid = ccd_m.swept_grid(p.world, s, *p.poses, CCD_CONFIG)
+    if grid.k_ok != CCD_BULLETS:
+        raise AssertionError(f"ccd: {grid.k_ok} swept colliders, not {CCD_BULLETS}")
+    body = p.world.colliders.body_idx[grid.swept[:grid.k_ok].long()].long()
+    nonlinear = p.world.bodies.swept_ccd_nonlinear[body]
+    err, twin_pairs, twin_ms, rounds = kernel_r_against_twin(
+        grid, (p.world.colliders.aabb_min, p.world.colliders.aabb_max), nonlinear)
+    io, ops = grid_work(grid, rounds)
+    b_ms, b_by = bound(io, ops)
+    hits = int((ccd_m.grid_tois(grid).amin(1) < 1.0).sum())
+    m = grid.tab.pos0.shape[0]
+    r = dict(max_abs_err=err, ms=cuda_ms(lambda: ccd_m.grid_tois(grid)), plain_ms=twin_ms,
+             bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs=grid.k_ok * m,
+             plain_pairs=twin_pairs, mean_rounds=float(rounds.abs().double().mean()))
+    say("ccd", f"Kernel R on the grid after {CCD_KERNEL_STEPS} steps: {grid.k_ok} x {m} pairs "
+        f"in {len(grid.buckets)} buckets ({[pair for pair, _ in grid.buckets]}), "
+        f"{r['mean_rounds']:.3f} rounds a pair, {hits} swept colliders meet something within "
+        f"the step; against the twin on {twin_pairs} pairs (every collider whose swept AABB "
+        f"meets a bullet's and {CCD_TWIN_COLUMNS} seeded ones): max abs err {err:.3g}; "
+        f"kernel {r['ms']:.3f} ms (whole grid), twin {r['plain_ms']:.3f} ms (those pairs, "
+        f"one run), "
+        f"bound {b_ms:.5f} ms ({b_by}) [{smi}]")
+
+    steps_swept, steps_r, field = [0], [0], []
+
+    def each_step(i, w, diag):
+        field.append(on_the_field("ccd bullets", w, shots))
+        if diag["stepped"] and diag["swept_colliders"] > 0:
+            steps_swept[0] += 1
+            steps_r[0] += int(len(diag["swept_pairs"]) > 0)
+
+    def every10(w):
+        on_the_field("ccd pile", w, ids)
+
+    world, got = drive("ccd", start, CCD_CONFIG, CCD_STEPS, smi, len(ids) + len(shots),
+                       every10=every10, each_step=each_step)
+    if steps_r[0] != steps_swept[0] or steps_swept[0] == 0:
+        raise AssertionError(f"ccd: Kernel R ran on {steps_r[0]} of the {steps_swept[0]} steps "
+                             "that swept a moving collider")
+    low = min(a for a, _ in field)
+    ran_out, cut, alone, causes = ccd_side_effects(start)
+    say("ccd", f"the sweep's repairs over the same {CCD_STEPS} steps (ROADMAP 3b): pairs "
+        f"returning t < 1 without a hit {sum(ran_out)} (most in a step {max(ran_out)}); "
+        f"bullets cut {sum(cut)} (most in a step {max(cut)}), of which with no contact point "
+        f"in the next step {sum(alone)} (most in a step {max(alone)}; by the pair that set "
+        f"the TOI: {causes}); a step each: ran out {ran_out}, cut {cut}, cut and no contact "
+        f"after {alone}")
+    control = start
+    for _ in range(CCD_CONTROL_STEPS):
+        control = physics_step(control, CCD_CONFIG.replace(swept_ccd=False))
+    say("ccd", f"{n_cols} colliders, {len(shots)} bullets ({CCD_BULLETS // 2} linear spheres, "
+        f"{CCD_BULLETS // 2} nonlinear spinning capsules): R ran on all {steps_swept[0]} steps "
+        f"that swept a moving collider ({got['swept_toi']} launches); the bullets' least "
+        f"height above the field over all {CCD_STEPS} steps {low:.4f} m, "
+        f"{bullets_below(world, shots)} below at the end; without swept CCD, "
+        f"{bullets_below(control, shots)} of {len(shots)} end below the field after "
+        f"{CCD_CONTROL_STEPS} steps")
+    return {"swept_toi": r}, got
+
+
+def swept_scene(device, bullets):
+    """tests/test_scenes.py's two swept worlds: a bullet at 300 m/s into a
+    thin wall (``bullets == 1``) or two at 150 m/s into each other."""
+    b = SceneBuilder()
+    if bullets == 1:
+        wall = b.add_body(body_type=BodyType.STATIC, pos=(5.0, 0.0, 0.0))
+        b.box(wall, 0.05, 10.0, 10.0)
+        shots = [(0.0, 300.0)]
+    else:
+        shots = [(-4.0, 150.0), (4.0, -150.0)]
+    ids = []
+    for x, v in shots:
+        ids.append(b.add_body(pos=(x, 0.0, 0.0), lin_vel=(v, 0.0, 0.0), swept_ccd=True,
+                              gravity_scale=0.0))
+        b.sphere(ids[-1], 0.1, speculative_margin=0.05)
+    return b.finalize(max_bodies=4, max_colliders=4, max_contacts=16, device=device), ids
+
+
+def example_ccd(device, swept):
+    """examples/ccd.py's scene."""
+    b = SceneBuilder()
+    wall = b.add_body(body_type=BodyType.STATIC, pos=(5.0, 0.0, 0.0))
+    b.box(wall, 0.05, 3.0, 3.0)
+    bullet = b.add_body(pos=(0.0, 0.0, 0.0), lin_vel=(80.0, 0.0, 0.0), gravity_scale=0.0,
+                        swept_ccd=swept)
+    b.sphere(bullet, 0.1)
+    return b.finalize(max_bodies=4, max_colliders=4, max_contacts=16, device=device), bullet
+
+
+def phase_ccd_reference(device):
+    """The reference's swept-CCD scenes on the kernels with their own
+    checks: tests/test_scenes.py's bullet (x < 5 after 10 steps) and its two
+    bullets (not crossed after 12), examples/ccd.py in both modes (x < 5
+    after 30 steps), and ``ccd_stress(32, 80)`` for 30 steps (finite)."""
+    kernels.reset_launches()
+    found = []
+    world, (bullet,) = swept_scene(device, 1)
+    x = float(steps(world, SWEPT_CONFIG, 10).bodies.pos[bullet, 0])
+    found.append(("swept bullet", x < 5.0, f"x {x:.4f}"))
+    world, (left, right) = swept_scene(device, 2)
+    pos = steps(world, SWEPT_CONFIG, 12).bodies.pos
+    xl, xr = float(pos[left, 0]), float(pos[right, 0])
+    found.append(("two bullets", xl <= xr + 0.2 and math.isfinite(xl + xr),
+                  f"left {xl:.4f}, right {xr:.4f}"))
+    for swept in (False, True):
+        world, bullet = example_ccd(device, swept)
+        x = float(steps(world, PhysicsConfig(max_colors=4, swept_ccd=swept), 30)
+                  .bodies.pos[bullet, 0])
+        found.append((f"examples/ccd.py {'swept' if swept else 'speculative'}", x < 5.0,
+                      f"x {x:.4f}"))
+    world, ids = scenes.ccd_stress(32, 80.0, device=device)
+    dropped = 0
+    for _ in range(30):
+        world, diag = physics_step(world, PhysicsConfig(max_colors=4), return_diagnostics=True)
+        dropped = max(dropped, int(diag["dropped_pairs"]))
+    x = world.bodies.pos[ids, 0]
+    found.append(("ccd_stress(32, 80)", bool(torch.isfinite(world.bodies.pos).all()),
+                  f"bullets' x {float(x.min()):.3f}..{float(x.max()):.3f}, most dropped "
+                  f"pairs in a step {dropped} (272 contact slots; ROADMAP 3b)"))
+    got = kernels.launches()
+    say("ccd scenes", "; ".join(f"{name} {'OK' if ok else 'FAILED'}: {text}"
+                                for name, ok, text in found)
+        + f"; launches R {got['swept_toi']}")
+    bad = [name for name, ok, _ in found if not ok]
+    if bad:
+        raise AssertionError(f"ccd scenes: {bad} fail their checks")
+    if got["swept_toi"] == 0:
+        raise AssertionError("ccd scenes: Kernel R did not carry them")
+
+
+def query_rays(seed):
+    """``QUERY_RAYS`` seeded rays over the terrain: three in four straight
+    down (with a tilt of at most 0.05) from 20 m onto the pile and the field
+    (within 3/4 of its half width of the centre), the rest level through the
+    pile from the field's edge. (origins, unit directions) f32[R, 3] on the
+    CPU."""
+    rng = np.random.default_rng(seed)
+    n = QUERY_RAYS
+    down = n * 3 // 4
+    half = (TERRAIN_FIELD - 1) / 2
+    reach = 0.75 * half
+    o = np.concatenate([
+        np.stack([rng.uniform(-reach, reach, down), np.full(down, 20.0),
+                  rng.uniform(-reach, reach, down)], 1),
+        np.stack([np.full(n - down, -half - 1.0), rng.uniform(0.3, 4.0, n - down),
+                  rng.uniform(-reach, reach, n - down)], 1)])
+    d = np.concatenate([np.tile([[0.0, -1.0, 0.0]], (down, 1)),
+                        np.tile([[1.0, 0.0, 0.0]], (n - down, 1))])
+    d = d + rng.uniform(-0.05, 0.05, d.shape)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+
+
+def ray_work(world, n_rays, t):
+    """(bytes, operations) of Kernel T for ``n_rays`` rays on every collider
+    of ``world``: the rays, the colliders' rows and the hulls' vertices read
+    once, distances and normals written once; ``RAY_OPS`` a (ray, analytic
+    collider), and for a pool-backed shape 24 marches of 13 scans of its
+    vertices (``HULL_SCAN_OPS`` a vertex) plus the face fit."""
+    col = world.colliders
+    convex = col.shape_type == int(ShapeType.CONVEX)
+    verts = int(col.params[convex, 1].sum())
+    io = 24 * n_rays + 52 * col.capacity + 12 * verts + nbytes(*t)
+    ops = n_rays * (RAY_OPS * int((~convex).sum())
+                    + (24 * 13 + 8) * HULL_SCAN_OPS * verts + 500 * int(convex.sum()))
+    return io, ops
+
+
+def cast_work(world, shape_type, rounds, out):
+    """(bytes, operations) of Kernel S for one cast: the colliders' rows read
+    and their results written once; each collider's manifolds (its rounds and
+    the final one) at ``MANIFOLD_OPS`` of its pair's kernel."""
+    col = world.colliders
+    io = 52 * col.capacity + 12 * int(world.convex_verts.shape[0]) + nbytes(*out)
+    ops = 0
+    for t in torch.unique(col.shape_type).tolist():
+        pair = (min(shape_type, t), max(shape_type, t))
+        if pair in PAIR_KERNELS:
+            n = int(rounds[col.shape_type == t].sum()) + int((col.shape_type == t).sum())
+            ops += n * (MANIFOLD_OPS[PAIR_KERNELS[pair][1]] + ROUND_OPS)
+    return io, ops
+
+
+def cast_subset(world, params, origin, direction, seed):
+    """bool[M]: the colliders whose AABB (this step's, widened by
+    ``QUERY_AABB_PAD``) meets the cast's swept box (the segment from
+    ``origin`` along ``direction`` to ``QUERY_MAX_DISTANCE + 1``, widened by
+    the sum of the shape's params, which bounds the reach of the five query
+    shapes), and ``seed``'s ``CCD_TWIN_COLUMNS`` more."""
+    col = world.colliders
+    o = torch.tensor(origin, dtype=torch.float32, device=world.device)
+    d = torch.tensor(direction, dtype=torch.float32, device=world.device)
+    end = o + d / torch.linalg.vector_norm(d) * (QUERY_MAX_DISTANCE + 1.0)
+    reach = float(sum(params)) + QUERY_AABB_PAD
+    lo, hi = torch.minimum(o, end) - reach, torch.maximum(o, end) + reach
+    meets = ((col.aabb_min <= hi) & (col.aabb_max >= lo)).all(-1)
+    return with_seeded(meets, seed)
+
+
+def cast_against_twin(world, st, params, origin, rot, down, seed):
+    """Kernel S on one cast (every bucket, with its rounds), then its plain
+    version on ``cast_subset``'s colliders: hit flags exactly, the hits'
+    distances, points and normals within ``TOL_ST``. Returns (max abs error,
+    the twin's colliders, its milliseconds, the kernel's ``CastOut``, the
+    rounds)."""
+    name = ShapeType(st).name
+    query, tabs, out, buckets = shapecast.cast_setup(world, st, params, origin, rot, down,
+                                                     QUERY_MAX_DISTANCE)
+    twin = ks.CastOut(*(x.clone() for x in out))
+    rounds = torch.zeros(world.colliders.capacity, dtype=torch.int32, device=world.device)
+    for pair, cols in buckets:
+        ks.shape_cast(pair, cols, st, query, *tabs, out, rounds)
+    keep = cast_subset(world, params, origin, down, seed)
+    sub = [(pair, cols[keep[cols.long()]].contiguous()) for pair, cols in buckets]
+    sub = [(pair, cols) for pair, cols in sub if cols.numel()]
+
+    def run_twin():
+        for pair, cols in sub:
+            ks.shape_cast_twin(pair, cols, st, query, *tabs, twin)
+
+    _, twin_ms = once_ms(run_twin)
+    idx = torch.cat([cols for _, cols in sub]).long()
+    compare(f"shape_cast {name} hits", out.hit[idx], twin.hit[idx])
+    hit = idx[twin.hit[idx]]
+    err = 0.0
+    for what, x, y in zip(("distance", "point_a", "point_b", "normal"), (out.t, *out[2:]),
+                          (twin.t, *twin[2:])):
+        err = max(err, compare(f"shape_cast {name} {what}", x[hit], y[hit], TOL_ST))
+    return err, int(idx.numel()), twin_ms, out, rounds
+
+
+def phase_queries(device, smi):
+    """Ray and shape casts into the full-width terrain after
+    ``TERRAIN_KERNEL_STEPS`` steps, as a user makes them: ``cast_shape`` and
+    ``shape_hits(max_hits=4)`` of a sphere, a capsule, a box, a cylinder and
+    a cone from seeded origins above the pile, straight down; ``cast_ray``
+    and ``ray_hits`` with ``solid`` both ways; ``QUERY_RAYS`` rays in one
+    call (one launch of T per shape type). The launch counts are those of
+    these calls alone. Then S against its plain version on each of the five
+    casts (``cast_against_twin``), T on ``QUERY_TWIN_RAYS`` of the rays:
+    collider hits exactly, distances, points and normals within ``TOL_ST``;
+    then the times. Returns ({name: measurements}, launch counts)."""
+    world, _ = terrain(device)
+    for _ in range(TERRAIN_KERNEL_STEPS):
+        world = physics_step(world, TERRAIN_CONFIG)
+    rng = np.random.default_rng(11)
+    qf = QueryFilter()
+    reach = 0.6 * (TERRAIN_FIELD - 1) / 2
+    casts = []
+    for st, params in QUERY_SHAPES:
+        origin = (float(rng.uniform(-reach, reach)), 15.0, float(rng.uniform(-reach, reach)))
+        q = rng.normal(size=4)
+        rot = tuple(float(x) for x in q / np.linalg.norm(q))
+        down = (float(rng.uniform(-0.05, 0.05)), -1.0, float(rng.uniform(-0.05, 0.05)))
+        casts.append((st, params, origin, rot, down))
+    ray_from = [(solid, (float(rng.uniform(-reach, reach)), 20.0,
+                         float(rng.uniform(-reach, reach)))) for solid in (True, False)]
+    inside_from = tuple(float(x) for x in world.bodies.pos[1].tolist())
+    d = (0.0, -1.0, 0.0)
+    origins, dirs = query_rays(5)
+    o_dev, d_dev = origins.to(device), dirs.to(device)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    shape_results = [(cast_shape(world, st, params, origin, rot, down, QUERY_MAX_DISTANCE),
+                      shape_hits(world, st, params, origin, rot, down, QUERY_MAX_DISTANCE,
+                                 max_hits=4))
+                     for st, params, origin, rot, down in casts]
+    ray_results = [(cast_ray(world, o, d, 50.0, solid), ray_hits(world, o, d, 4, 50.0, solid),
+                    cast_ray(world, inside_from, d, 50.0, solid)) for solid, o in ray_from]
+    before = kernels.launches()["ray_cast"]
+    t, n = raycast.all_hits(world, o_dev, d_dev, True, qf)
+    got = kernels.launches()
+    n_launch = got["ray_cast"] - before
+
+    hits = []
+    for (st, *_), (one, many) in zip(casts, shape_results):
+        if not (bool(one.hit) and int(one.collider) == int(many.collider[0])):
+            raise AssertionError(f"queries: the {ShapeType(st).name} cast hit nothing or its "
+                                 "two calls disagree")
+        hits.append(f"{ShapeType(st).name.lower()} {float(one.distance):.3f} m to "
+                    f"{int(one.collider)}, {int(many.hit.sum())} hits")
+    ray_text = []
+    for (solid, _), (one, many, inside) in zip(ray_from, ray_results):
+        if not (bool(one.hit) and int(one.collider) == int(many.collider[0])):
+            raise AssertionError("queries: a ray down onto the terrain hit nothing")
+        if solid != (float(inside.distance) == 0.0):
+            raise AssertionError(f"queries: a ray from inside a body (solid={solid}) gave "
+                                 f"{float(inside.distance)}")
+        ray_text.append(f"solid={solid}: {float(one.distance):.3f} m to {int(one.collider)}, "
+                        f"{int(many.hit.sum())} hits, from inside {float(inside.distance):.3f}")
+    want_s = 2 * sum(sum(1 for _, cols in shapecast.cast_setup(
+        world, st, params, origin, rot, down, QUERY_MAX_DISTANCE)[3] if cols.numel())
+        for st, params, origin, rot, down in casts)
+    if got["shape_cast"] != want_s or n_launch == 0 or got["ray_cast"] <= n_launch:
+        raise AssertionError(f"queries: Kernels S and T did not carry the casts: {got} "
+                             f"(S: {want_s} buckets of the ten casts)")
+
+    out, err_s, twin_cols, twin_ms_s = {}, 0.0, [], 0.0
+    for st, params, origin, rot, down in casts:
+        err, n_cols, twin_ms, res, rounds = cast_against_twin(world, st, params, origin, rot,
+                                                              down, 3 + st)
+        err_s = max(err_s, err)
+        twin_cols.append(n_cols)
+        if st == int(ShapeType.SPHERE):
+            b_ms, b_by = bound(*cast_work(world, st, rounds, res))
+            args = (st, params, origin, rot, down, QUERY_MAX_DISTANCE, qf)
+            out["shape_cast"] = dict(
+                max_abs_err=0.0, ms=cuda_ms(lambda args=args: shapecast.sweep_all(world, *args)),
+                plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                plain_colliders=n_cols)
+    out["shape_cast"]["max_abs_err"] = err_s
+    hit = t < raycast.BIG
+    k = QUERY_TWIN_RAYS
+    with plain_versions():
+        (tw, nw), twin_ms = once_ms(lambda: raycast.all_hits(world, o_dev[:k], d_dev[:k], True,
+                                                             qf))
+    compare("ray_cast hits", hit[:k], tw < raycast.BIG)
+    err_t = compare("ray_cast distance", torch.where(hit[:k], t[:k], 0.0),
+                    torch.where(hit[:k], tw, 0.0), TOL_ST)
+    err_t = max(err_t, compare("ray_cast normal", torch.where(hit[:k, :, None], n[:k], 0.0),
+                               torch.where(hit[:k, :, None], nw, 0.0), TOL_ST))
+    b_ms, b_by = bound(*ray_work(world, QUERY_RAYS, (t, n)))
+    out["ray_cast"] = dict(max_abs_err=err_t,
+                           ms=cuda_ms(lambda: raycast.all_hits(world, o_dev, d_dev, True, qf)),
+                           plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           rays=QUERY_RAYS, plain_rays=k)
+    first = int(hit.any(1).sum())
+    say("queries", f"terrain {TERRAIN_N} after {TERRAIN_KERNEL_STEPS} steps, "
+        f"{world.colliders.capacity} colliders: shape casts " + "; ".join(hits)
+        + f"; rays " + "; ".join(ray_text) + f"; {QUERY_RAYS} rays in {n_launch} launches of T "
+        f"(one per shape type), {first} hit something, {int(hit.sum())} (ray, collider) hits; "
+        f"launches of these calls: S {got['shape_cast']} (one per bucket of each of the ten "
+        f"casts), T {got['ray_cast']}; S against its twin on the five casts "
+        f"({twin_cols} colliders: those whose AABB meets the cast's swept box and "
+        f"{CCD_TWIN_COLUMNS} seeded ones): max abs err {err_s:.3g}; T on {k} rays: "
+        f"{err_t:.3g}; " + show("times", out) + f" [{smi}]")
+    return out, got
+
+
+def phase_ccd_plain_path(device):
+    """``CCD_PLAIN_N`` bodies and ``CCD_PLAIN_BULLETS`` bullets on the
+    terrain: one step on the kernels, then ``CCD_ONE_STEPS`` single steps,
+    each from the kernels' state on the kernels and on the plain versions
+    alone (while the bullets meet the pile and the field): every body within
+    ``CCD_ONE_STEP_TOL`` after each."""
+    world, _, shots = ccd_world(device, CCD_PLAIN_N, TERRAIN_PLAIN_PER_ROW, CCD_PLAIN_BULLETS)
+    world = physics_step(world, CCD_CONFIG)
+    one, swept = [], 0
+    t0 = time.perf_counter()
+    for _ in range(CCD_ONE_STEPS):
+        on_k, diag = physics_step(world, CCD_CONFIG, return_diagnostics=True)
+        swept = max(swept, sum(diag["swept_pairs"].values()))
+        kernels.reset_launches()
+        with plain_versions():
+            on_p = physics_step(world, CCD_CONFIG)
+        if any(kernels.launches().values()):
+            raise AssertionError(f"plain path: kernels were launched: {kernels.launches()}")
+        one.append(float((on_k.bodies.pos - on_p.bodies.pos).abs().max()))
+        world = on_k
+    say("plain path", f"terrain_ccd {CCD_PLAIN_N} + {CCD_PLAIN_BULLETS} bullets, "
+        f"{CCD_ONE_STEPS} steps from the kernels' state on each ({swept} swept pairs a step, "
+        f"{time.perf_counter() - t0:.1f} s): largest difference of any body's position "
+        + ", ".join(f"{d:.2g}" for d in one) + f" m (limit {CCD_ONE_STEP_TOL})")
+    if not max(one) <= CCD_ONE_STEP_TOL:
+        raise AssertionError(f"plain path: one step of terrain_ccd parts by {max(one)} m "
+                             f"(limit {CCD_ONE_STEP_TOL})")
+
+
 def phase_main_path(device, smi):
     """The 10k pile through ``physics_step``; returns the launch counts."""
     _, got = drive("main", pile(N_CUBES, device), PILE_CONFIG, SETTLE_STEPS + TIMED_STEPS,
@@ -1860,7 +2506,7 @@ def phase_pyramid(device, smi):
 
 def twice_equal(what, make, config, steps):
     """Run ``make()`` for ``steps`` steps twice; fail unless the final poses
-    and velocities are bitwise equal."""
+    and velocities are bitwise equal. Returns the second run's world."""
     finals = []
     for _ in range(2):
         world = make()
@@ -1872,6 +2518,7 @@ def twice_equal(what, make, config, steps):
         if not torch.equal(x, y):
             raise AssertionError(f"determinism: two runs of {what} differ")
     say("determinism", f"{what} x {steps} steps twice: pos, quat, lin_vel, ang_vel bitwise equal")
+    return world
 
 
 def phase_determinism(device):
@@ -1879,11 +2526,9 @@ def phase_determinism(device):
                 PILE_CONFIG, DETERMINISM_STEPS)
     # examples/many_shapes.py: its scene, its config, its checks.
     example = PhysicsConfig()
-    twice_equal("many_shapes 150", lambda: scenes.many_shapes(device=device)[0], example,
-                EXAMPLE_SHAPES_STEPS)
-    world, ids = scenes.many_shapes(device=device)
-    for _ in range(EXAMPLE_SHAPES_STEPS):
-        world = physics_step(world, example)
+    world = twice_equal("many_shapes 150", lambda: scenes.many_shapes(device=device)[0],
+                        example, EXAMPLE_SHAPES_STEPS)
+    ids = scenes.many_shapes(device="cpu")[1]  # the same layout, for its body ids
     pos = world.bodies.pos[ids]
     if not (bool(torch.isfinite(pos).all()) and float(pos[:, 1].min()) > 0.0):
         raise AssertionError("many_shapes: diverged or fell through the plane")
@@ -1892,6 +2537,9 @@ def phase_determinism(device):
     twice_equal("terrain_shapes({n}, per_row={per_row}, field={field})".format(
         **DETERMINISM_TERRAIN), lambda: terrain(device, **DETERMINISM_TERRAIN)[0],
         TERRAIN_CONFIG, DETERMINISM_TERRAIN_STEPS)
+    twice_equal("terrain_ccd({n}, per_row={per_row}, bullets={bullets}, field={field})".format(
+        **DETERMINISM_CCD), lambda: scenes.terrain_ccd(**DETERMINISM_CCD, device=device)[0],
+        CCD_CONFIG, DETERMINISM_CCD_STEPS)
     rows, cols = DETERMINISM_HINGE_ROWS, DETERMINISM_HINGE_COLS
     # The reference's determinism scene and protocol: 500 steps at 64 Hz.
     twice_equal(f"falling_hinges {rows} x {cols}",
@@ -1903,28 +2551,46 @@ def main():
     smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    phase_build()
-    measured_by_kernel = phase_kernels(device)
-    phase_golden(device)
-    main_launches = phase_main_path(device, smi)
-    pyramid_launches = phase_pyramid(device, smi)
-    hinge_launches = phase_hinges(device, smi)
-    shapes_launches = phase_shapes(device, smi)
-    phase_cylinder_stack(device)
-    terrain_launches = phase_terrain(device, smi)
-    scene_launches = phase_reference_scenes(device)
-    phase_plain_path(device)
-    phase_hinges_plain_path(device)
-    phase_shapes_plain_path(device)
-    phase_terrain_plain_path(device)
-    phase_determinism(device)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    measured_by_kernel = timed("kernels", phase_kernels, device)
+    timed("golden", phase_golden, device)
+    main_launches = timed("main", phase_main_path, device, smi)
+    pyramid_launches = timed("pyramid", phase_pyramid, device, smi)
+    hinge_launches = timed("hinges", phase_hinges, device, smi)
+    shapes_launches = timed("shapes", phase_shapes, device, smi)
+    timed("cylinder stack", phase_cylinder_stack, device)
+    terrain_launches = timed("terrain", phase_terrain, device, smi)
+    scene_launches = timed("scenes", phase_reference_scenes, device)
+    measured_ccd, ccd_launches = timed("ccd", phase_ccd, device, smi)
+    measured_by_kernel.update(measured_ccd)
+    timed("ccd scenes", phase_ccd_reference, device)
+    measured_queries, query_launches = timed("queries", phase_queries, device, smi)
+    measured_by_kernel.update(measured_queries)
+    timed("plain path", phase_plain_path, device)
+    timed("hinges plain path", phase_hinges_plain_path, device)
+    timed("shapes plain path", phase_shapes_plain_path, device)
+    timed("terrain plain path", phase_terrain_plain_path, device)
+    timed("ccd plain path", phase_ccd_plain_path, device)
+    timed("determinism", phase_determinism, device)
+    say("time", ", ".join(f"{k} {v} s" for k, v in seconds.items())
+        + f"; {round(sum(seconds.values()), 1)} s in all")
     rows = []
     for name, (route, source, replaces) in REPLACES.items():
         # ``launches``: the path that exercises the kernel most (the terrain
-        # for P, the reference scenes for Q, the mixed shapes for M, N, O;
-        # the hinged boxes for the others).
-        main = {"hull_manifold": terrain_launches,
-                "plane_hull_manifold": scene_launches}.get(
+        # for P, the reference scenes for Q, the mixed shapes for M, N, O,
+        # the swept-CCD terrain for R, the queries for S and T; the hinged
+        # boxes for the others).
+        main = {"hull_manifold": terrain_launches, "plane_hull_manifold": scene_launches,
+                "swept_toi": ccd_launches, "shape_cast": query_launches,
+                "ray_cast": query_launches}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -1933,6 +2599,7 @@ def main():
                          shapes_launches=shapes_launches[name],
                          terrain_launches=terrain_launches[name],
                          scene_launches=scene_launches[name],
+                         ccd_launches=ccd_launches[name], query_launches=query_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

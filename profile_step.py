@@ -1,9 +1,10 @@
 """Where one full step of the port spends its time on a CUDA card.
 
-    python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain] [--out profile.json]
+    python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain|terrain_ccd]
+                            [--out profile.json]
 
 Settles the scene with the smoke's config for 30 steps (40 for ``shapes``
-and ``terrain``),
+and ``terrain``, 2 for ``terrain_ccd``),
 so that it is awake and its contacts are warm: ``pile`` is
 ``cube_pile(10_000)`` with 160,000 contact slots, ``pyramid`` is
 ``box_pyramid(base=100)`` (5,050 boxes, the 2D profile) with 24 slots per
@@ -13,13 +14,18 @@ revolute joints) with 16 slots per body, 160,336, ``shapes`` is
 cones, five layers of 48 x 48) with 16 slots per body, 160,016, and its 20
 shape pairs, ``terrain`` is ``terrain_shapes(10_000, per_row=48)`` (those
 shapes, rocks and round cuboids over a heightfield of 8,192 triangles) with
-24 slots per body, 240,000, its 21 shape pairs and a sweep window of 64.
+24 slots per body, 240,000, its 21 shape pairs and a sweep window of 64,
+and ``terrain_ccd`` is ``terrain_ccd(10_000, per_row=48)`` (that terrain and
+32 bullets fired down into it at 300 m/s, 24 slots per body) with the
+terrain's config and swept CCD, two steps in: the bullets are 2 m above the
+pile and the field, and meet them in the measured steps.
 Then it measures from
 that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
   synchronized after every stage, mean of 3 steps (solver and integration
-  stages summed over the substeps);
+  stages summed over the substeps; ``ccd`` is the swept-CCD pass, Kernel R
+  and its prologue, with ``swept_ccd`` on);
 - ``narrowphase_split_ms``: the narrowphase's manifold kernels (A, M, N, O,
   P, Q)
   on the same state, each the sum of its shape-pair buckets, and the
@@ -47,6 +53,7 @@ from avian_tpu_torch import PhysicsConfig, physics_step, scenes
 from avian_tpu_torch.core.types import ShapeType
 from avian_tpu_torch.geometry.narrowphase import manifold_buckets
 from avian_tpu_torch.pipeline import broadphase as bp_m
+from avian_tpu_torch.pipeline import ccd as ccd_m
 from avian_tpu_torch.pipeline import contacts as np_m
 from avian_tpu_torch.pipeline import integrator as int_m
 from avian_tpu_torch.pipeline import sleeping as sleep_m
@@ -67,6 +74,7 @@ SHAPES_CONFIG = CONFIG.replace(
 _TERRAIN_SHAPES = (0, 1, 2, 4, 5, 8)
 TERRAIN_CONFIG = CONFIG.replace(sap_window=64, shape_pairs=tuple(
     (a, b) for i, a in enumerate(_TERRAIN_SHAPES) for b in _TERRAIN_SHAPES[i:]))
+CCD_BULLETS, CCD_SETTLE_STEPS = 32, 2
 KERNEL_OF = {"box_manifold": "Kernel A", "convex_manifold": "Kernel M",
              "round_manifold": "Kernel N", "plane_patch_manifold": "Kernel O",
              "hull_manifold": "Kernel P", "plane_hull_manifold": "Kernel Q"}
@@ -110,6 +118,9 @@ def stage_ms(world, config):
         if jcon is not None:
             s = xpbd_m.solve_position_constraints(s, jcon, h, config)
             mark("joints")
+    if config.swept_ccd:
+        s, _ = ccd_m.solve_swept_ccd(w2, s, pos, quat, config)
+        mark("ccd")
     s, con = sol_m.solve_restitution(s, con, config)
     mark("restitution")
     stored = sol_m.store_impulses(contacts, con)
@@ -146,8 +157,8 @@ def narrowphase_split_ms(world, config):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("pile", "pyramid", "hinges", "shapes", "terrain"),
-                    default="pile")
+    ap.add_argument("--scene", default="pile",
+                    choices=("pile", "pyramid", "hinges", "shapes", "terrain", "terrain_ccd"))
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -166,6 +177,12 @@ def main():
         config, settle = TERRAIN_CONFIG, SHAPES_SETTLE_STEPS
         world, ids = scenes.terrain_shapes(TERRAIN_N, per_row=TERRAIN_PER_ROW,
                                            max_contacts=TERRAIN_SLOTS, device=device)
+    elif args.scene == "terrain_ccd":
+        config, settle = TERRAIN_CONFIG.replace(swept_ccd=True), CCD_SETTLE_STEPS
+        world, ids, shots = scenes.terrain_ccd(
+            TERRAIN_N, per_row=TERRAIN_PER_ROW, bullets=CCD_BULLETS,
+            max_contacts=24 * (TERRAIN_N + CCD_BULLETS), device=device)
+        ids = ids + shots
     elif args.scene == "pile":
         world, ids = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
     elif args.scene == "pyramid":

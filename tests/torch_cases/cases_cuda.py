@@ -5,6 +5,8 @@ no JAX, so on the card it runs without the suite's conftest:
     python -m pytest tests/torch_cases/cases_cuda.py --noconftest -o addopts="" -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -163,15 +165,19 @@ def test_solve_color_matches_twin_and_is_reproducible(cuda, request, scene, max_
     modes = (kd.WARM, kd.BIAS, kd.RELAX, kd.RESTITUTION)
 
     def run(fn, twin):
-        state, imp = p.s.state.clone(), con.imp.clone()
+        # The twin runs on CPU copies: its overflow colour sums with
+        # index_add_, whose float atomics on the card add in no fixed order.
+        to = (lambda x: x.cpu()) if twin else (lambda x: x)
+        state, imp = to(p.s.state).clone(), to(con.imp).clone()
+        rows = [to(x) for x in (con.data, con.bucket_a, con.bucket_b, con.bucket_valid,
+                                con.relax)]
         for mode in modes:
             if mode == kd.RESTITUTION:
                 before = imp.clone()
             for c in range(max_colors):
                 tail = () if twin else (con.ovf_order, con.ovf_key)
-                fn(mode, c, state, con.data, imp, con.bucket_a, con.bucket_b,
-                   con.bucket_valid, con.relax, *tail, params)
-        return state, imp, before
+                fn(mode, c, state, rows[0], imp, *rows[1:], *tail, params)
+        return state.cpu(), imp.cpu(), before.cpu()
 
     runs = [run(kd.solve_color, False) for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
@@ -181,6 +187,18 @@ def test_solve_color_matches_twin_and_is_reproducible(cuda, request, scene, max_
     if bounce:
         # The restitution pass changed impulses, so its check is not vacuous.
         assert not torch.equal(runs[0][1][..., :4], runs[0][2][..., :4])
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic mode: ``index_add_`` on the card sums in a
+    fixed order."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
 
 
 def _same(got, want, tol=0.0):
@@ -504,7 +522,13 @@ def test_solve_joints_matches_twin_and_is_reproducible(cuda, max_colors):
     """Kernel I through a substep (every color, then the velocities) against
     its twin: the proper colors have one writer a body, the overflow color
     and the damping sum in the kernel's fixed order and in the twin's
-    ``index_add_`` order, hence a tolerance."""
+    ``index_add_`` order, hence a tolerance. The twin runs on the card in
+    PyTorch's deterministic mode, where ``index_add_`` sums in a fixed
+    order (on the card its float atomics add in none). A twin run on CPU
+    copies is no oracle here: the CPU's ``asin``, ``sin``, ``cos`` and
+    ``sqrt`` round differently from libdevice's, which the kernel and the
+    twin on the card share, and one substep of the random joints amplifies
+    that to 4e-5 of the state's scale, past the tolerance."""
     from avian_tpu_torch.kernels import solve_joints as ki
     from avian_tpu_torch.pipeline import xpbd
 
@@ -542,7 +566,8 @@ def test_solve_joints_matches_twin_and_is_reproducible(cuda, max_colors):
     k1 = run(ki.joint_color, ki.joint_velocities, False)
     k2 = run(ki.joint_color, ki.joint_velocities, False)
     assert torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])
-    t = run(ki.joint_color_twin, ki.joint_velocities_twin, True)
+    with deterministic():
+        t = run(ki.joint_color_twin, ki.joint_velocities_twin, True)
     scale = float(t[0].abs().max())
     assert float((k1[0] - t[0]).abs().max()) <= 1e-6 * max(1.0, scale)
     assert float((k1[1] - t[1]).abs().max()) <= 1e-6 * max(1.0, float(t[1].abs().max()))
@@ -766,3 +791,152 @@ def test_terrain_and_hull_stack_steps_launch_p_and_q(cuda, terrain):
     counts = kernels.launches()
     assert counts["plane_hull_manifold"] > 0 and counts["hull_manifold"] > 0, counts
     assert abs(float(stack.bodies.pos[ids[0], 1]) - 0.5) < 0.05
+
+
+# ---- Kernels R, S, T: swept CCD and the casts ---------------------------------
+
+def _grid_to_cpu(grid):
+    from avian_tpu_torch.pipeline import ccd
+
+    return ccd.SweptGrid(type(grid.tab)(*(x.cpu() for x in grid.tab)), grid.swept.cpu(),
+                         grid.k_ok, [(pair, flat.cpu()) for pair, flat in grid.buckets])
+
+
+@pytest.fixture(scope="module")
+def bullets(cuda):
+    """A 300-body terrain_ccd with 8 bullets after 2 steps (the bullets are
+    still in the air), and its swept-CCD grid for a solver state of two
+    steps' delta pose at each body's velocity."""
+    from avian_tpu_torch.pipeline import ccd
+
+    world, _, shots = scenes.terrain_ccd(300, per_row=12, bullets=8, field=17, device=cuda)
+    config = PhysicsConfig(substeps=4, swept_ccd=True, sap_window=64)
+    for _ in range(2):
+        world = physics_step(world, config)
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
+    s = sb_m.prepare(w2.bodies)
+    s.state[:, 6:9] = w2.bodies.lin_vel * (2.0 / 60.0)
+    from avian_tpu_torch.math import quat as quat_m
+
+    s.state[:, 9:13] = quat_m.from_scaled_axis(w2.bodies.ang_vel * (2.0 / 60.0))
+    return ccd.swept_grid(w2, s, pos, quat, config), shots, w2
+
+
+def test_swept_toi_matches_twin_and_is_reproducible(cuda, bullets):
+    """Kernel R over the whole grid against its twin on CPU copies: the
+    linear rows (spheres) bit for bit, the nonlinear rows (spinning
+    capsules, whose rotation at t the kernel takes through the card's
+    sinf/cosf) within 1e-5."""
+    from avian_tpu_torch.pipeline import ccd
+
+    grid, shots, w2 = bullets
+    assert grid.k_ok == 8
+    kernels.reset_launches()
+    got = ccd.grid_tois(grid)
+    assert kernels.launches()["swept_toi"] == len(grid.buckets) >= 5
+    assert torch.equal(got, ccd.grid_tois(grid))
+    want = ccd.grid_tois(_grid_to_cpu(grid), twin=True)
+    got = got.cpu()
+    assert float(got.min()) < 1.0  # some bullet meets something within the sweep
+    body = w2.colliders.body_idx[grid.swept[:grid.k_ok].long()].cpu()
+    nonlinear = w2.bodies.swept_ccd_nonlinear.cpu()[body]
+    _same(got[~nonlinear], want[~nonlinear])
+    _same(got[nonlinear], want[nonlinear], 1e-5)
+
+
+def test_swept_toi_rounds_mark_the_pairs_that_ran_out(cuda, bullets):
+    """The kernel's optional rounds: every pair ran 1 to 8 rounds, and a
+    pair marked as having run out (negative, valid pairs only) ran all 8 and
+    returned a TOI below 1; the TOIs are those of the launch without
+    rounds."""
+    from avian_tpu_torch.kernels import swept_toi as kr
+    from avian_tpu_torch.pipeline import ccd
+
+    grid = bullets[0]
+    m = grid.tab.pos0.shape[0]
+    toi = torch.ones(grid.k_ok * m, device=cuda)
+    rounds = torch.zeros(grid.k_ok * m, dtype=torch.int32, device=cuda)
+    for pair, flat in grid.buckets:
+        kr.swept_toi(pair, flat, grid.swept[:grid.k_ok].contiguous(), m, grid.tab, toi, rounds)
+    assert torch.equal(toi, ccd.grid_tois(grid).reshape(-1))
+    launched = torch.cat([flat for _, flat in grid.buckets]).long()
+    ran = rounds[launched]
+    assert bool(((ran.abs() >= 1) & (ran.abs() <= kr.ROUNDS)).all())
+    assert bool((toi[launched][ran < 0] < 1.0).all())
+    assert bool((ran[ran < 0] == -kr.ROUNDS).all())
+
+
+def test_step_launches_r_on_a_moving_swept_body(cuda):
+    world, _, _ = scenes.terrain_ccd(300, per_row=12, bullets=4, field=17, device=cuda)
+    config = PhysicsConfig(substeps=4, swept_ccd=True, sap_window=64)
+    kernels.reset_launches()
+    world = physics_step(world, config)
+    assert kernels.launches()["swept_toi"] >= 4
+    kernels.reset_launches()
+    physics_step(world, config.replace(swept_ccd=False))
+    assert kernels.launches()["swept_toi"] == 0
+
+
+@pytest.fixture(scope="module")
+def landed(cuda):
+    world, _ = scenes.terrain_shapes(300, per_row=12, field=17, device=cuda)
+    config = PhysicsConfig(substeps=4, sap_window=64)
+    for _ in range(20):
+        world = physics_step(world, config)
+    return world
+
+
+CAST_SHAPES = [(0, (0.3,)), (1, (0.3, 0.15)), (2, (0.3, 0.2, 0.4)), (4, (0.3, 0.25)),
+               (5, (0.35, 0.3)), (8, None)]
+
+
+@pytest.mark.parametrize("shape_type,params", CAST_SHAPES)
+def test_shape_cast_matches_twin_and_is_reproducible(cuda, landed, shape_type, params):
+    """Kernel S on every collider of the landed terrain against its twin on
+    a CPU copy, all within 1e-5 (bit for bit where the card rounds as the
+    CPU does)."""
+    from avian_tpu_torch.queries import QueryFilter, shapecast
+
+    if params is None:  # a rock of the pile, as the query shape
+        rock = int(torch.nonzero(landed.colliders.shape_type == 8)[-1])
+        params = tuple(landed.colliders.params[rock, :7].tolist())
+    args = (shape_type, params, (0.5, 9.0, -1.0), (0.1, 0.2, 0.3, 0.927), (0.05, -1.0, 0.02),
+            20.0, QueryFilter())
+    kernels.reset_launches()
+    got = shapecast.sweep_all(landed, *args)
+    assert kernels.launches()["shape_cast"] >= 3
+    again = shapecast.sweep_all(landed, *args)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    want = shapecast.sweep_all(landed.to("cpu"), *args)
+    for x, y in zip(got, want):
+        _same(x.cpu(), y, 1e-5)
+    assert float(got[0].min()) < shapecast.BIG
+
+
+@pytest.mark.parametrize("solid", [True, False])
+def test_ray_cast_matches_twin_and_is_reproducible(cuda, landed, solid):
+    """Kernel T for 128 rays (96 down through the pile, 32 level through
+    it) on every collider of the landed terrain against its twin on a CPU
+    copy."""
+    from avian_tpu_torch.queries import QueryFilter, raycast
+
+    rng = np.random.default_rng(5)
+    o = np.concatenate([np.stack([rng.uniform(-7, 7, 96), np.full(96, 12.0),
+                                  rng.uniform(-7, 7, 96)], 1),
+                        np.stack([np.full(32, -9.0), rng.uniform(0.2, 3.0, 32),
+                                  rng.uniform(-7, 7, 32)], 1)]).astype(np.float32)
+    d = np.concatenate([np.tile([[0.0, -1.0, 0.0]], (96, 1)), np.tile([[1.0, 0.0, 0.0]], (32, 1))])
+    d = (d + rng.uniform(-0.05, 0.05, d.shape)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o_t, d_t = torch.from_numpy(o), torch.from_numpy(d)
+    kernels.reset_launches()
+    got = raycast.all_hits(landed, o_t.to(cuda), d_t.to(cuda), solid, QueryFilter())
+    assert kernels.launches()["ray_cast"] >= 6
+    again = raycast.all_hits(landed, o_t.to(cuda), d_t.to(cuda), solid, QueryFilter())
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = raycast.all_hits(landed.to("cpu"), o_t, d_t, solid, QueryFilter())
+    hit = want[0] < raycast.BIG
+    assert torch.equal(got[0].cpu() < raycast.BIG, hit) and int(hit.sum()) > 100
+    _same(got[0].cpu()[hit], want[0][hit], 1e-5)
+    _same(got[1].cpu()[hit], want[1][hit], 1e-5)
