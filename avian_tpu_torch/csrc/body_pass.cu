@@ -7,7 +7,10 @@
 // between bodies: bound by bytes. Every sum follows the plain version's
 // order and the file is compiled with -fmad=false, so the results are the
 // plain version's to the bit.
-#include "common.cuh"
+//
+// writeback_2d_kernel is the 2D engine's writeback (dim2/dynamics.py:80 and
+// the force clear of dim2/step.py), d2::writeback_body_2d in dim2.cuh.
+#include "dim2.cuh"
 
 namespace {
 
@@ -168,6 +171,30 @@ __global__ void writeback_bodies_kernel(
   store3(torque_out + i3, v3(0.0f, 0.0f, 0.0f));
 }
 
+__global__ void writeback_2d_kernel(
+    int n, const float* __restrict__ state, const float* __restrict__ pos,
+    const float* __restrict__ angle, const float* __restrict__ com,
+    const float* __restrict__ lin_vel, const float* __restrict__ ang_vel,
+    const unsigned char* __restrict__ active, const unsigned char* __restrict__ sleeping,
+    const int* __restrict__ body_type, float* __restrict__ pos_out, float* __restrict__ angle_out,
+    float* __restrict__ lin_out, float* __restrict__ ang_out, float* __restrict__ force_out,
+    float* __restrict__ torque_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  long i2 = 2 * (long)i;
+  const float* s = state + 6 * (long)i;
+  d2::V2 p;
+  float a;
+  bool moving = d2::writeback_body_2d(body_type[i], active[i], sleeping[i], s,
+                                      d2::load2(pos + i2), angle[i], d2::load2(com + i2), &p, &a);
+  d2::store2(pos_out + i2, p);
+  angle_out[i] = a;
+  d2::store2(lin_out + i2, moving ? d2::load2(s) : d2::load2(lin_vel + i2));
+  ang_out[i] = moving ? s[2] : ang_vel[i];
+  d2::store2(force_out + i2, d2::v2(0.0f, 0.0f));
+  torque_out[i] = 0.0f;
+}
+
 }  // namespace
 
 extern "C" int avian_prepare_bodies(
@@ -202,5 +229,18 @@ extern "C" int avian_writeback_bodies(int n, const float* state, const float* po
   writeback_bodies_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
       n, state, pos, quat, com, lin_vel, ang_vel, active, sleeping, body_type, pos_out, quat_out,
       lin_out, ang_out, force_out, torque_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int avian_writeback_2d(int n, const float* state, const float* pos, const float* angle,
+                                  const float* com, const float* lin_vel, const float* ang_vel,
+                                  const unsigned char* active, const unsigned char* sleeping,
+                                  const int* body_type, float* pos_out, float* angle_out,
+                                  float* lin_out, float* ang_out, float* force_out,
+                                  float* torque_out, void* stream) {
+  const int threads = 256;
+  writeback_2d_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      n, state, pos, angle, com, lin_vel, ang_vel, active, sleeping, body_type, pos_out,
+      angle_out, lin_out, ang_out, force_out, torque_out);
   return (int)cudaGetLastError();
 }

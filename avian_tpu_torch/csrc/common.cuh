@@ -56,3 +56,18 @@ __device__ __forceinline__ V3 sym_mv(const float* s, V3 v) {
 }
 
 __device__ __forceinline__ float signp(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
+
+// CoefficientCombine: the higher rule wins. 0 average, 1 geometric mean,
+// 2 min, 3 multiply, 4 max.
+__device__ __forceinline__ float combine(float a, float b, int ra, int rb) {
+  int rule = ra > rb ? ra : rb;
+  float out = 0.5f * (a + b);
+  if (rule == 1) {
+    float p = a * b;
+    out = sqrtf(p < 0.0f ? 0.0f : p);
+  }
+  if (rule == 2) out = a < b ? a : b;
+  if (rule == 3) out = a * b;
+  if (rule == 4) out = a > b ? a : b;
+  return out;
+}

@@ -37,21 +37,6 @@ __global__ void contact_join_kernel(int c_cap, const long long* __restrict__ ks,
   }
 }
 
-// CoefficientCombine: the higher rule wins. 0 average, 1 geometric mean,
-// 2 min, 3 multiply, 4 max.
-__device__ __forceinline__ float combine(float a, float b, int ra, int rb) {
-  int rule = ra > rb ? ra : rb;
-  float out = 0.5f * (a + b);
-  if (rule == 1) {
-    float p = a * b;
-    out = sqrtf(p < 0.0f ? 0.0f : p);
-  }
-  if (rule == 2) out = a < b ? a : b;
-  if (rule == 3) out = a * b;
-  if (rule == 4) out = a > b ? a : b;
-  return out;
-}
-
 // Body velocity scaled so that it travels at most the collider's speculative
 // margin in dt.
 __device__ __forceinline__ V3 clamped_vel(const float* lin_vel, const float* spec_margin,

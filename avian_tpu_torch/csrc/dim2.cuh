@@ -1,0 +1,862 @@
+// Device code of the 2D engine's kernels U-Z, one function per thread's work.
+//
+// Each function below is the body of one thread of a kernel in
+// grid_pairs_2d.cu (U), manifold_2d.cu (V), contact_rows_2d.cu (W),
+// pack_2d.cu (X), solve_2d.cu (Y) or integrate_2d.cu (Z and its prologue),
+// or of the 2D writeback in body_pass.cu (K); those files hold the
+// __global__ wrappers and the C entry points. Every expression is written
+// in the order of the plain PyTorch versions in kernels/*_2d.py (and the
+// library is built with -fmad=false), so that the kernels agree with them to
+// the bit; the few exceptions are named where they occur. The functions use
+// nothing but float arithmetic and sqrtf/cosf/sinf, so they also compile as
+// host C++ behind a stand-in cuda_runtime.h, for a check without a card.
+#pragma once
+#include "common.cuh"
+
+namespace d2 {
+
+constexpr float kBig = 1e9f;
+constexpr int kVerts = 8;
+constexpr int kSentinel = 0x7fffffff;
+
+struct V2 {
+  float x, y;
+};
+
+__device__ __forceinline__ V2 v2(float x, float y) { return V2{x, y}; }
+__device__ __forceinline__ V2 operator+(V2 a, V2 b) { return v2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ V2 operator-(V2 a, V2 b) { return v2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ V2 operator-(V2 a) { return v2(-a.x, -a.y); }
+__device__ __forceinline__ V2 operator*(V2 a, float s) { return v2(a.x * s, a.y * s); }
+__device__ __forceinline__ float dot2(V2 a, V2 b) { return a.x * b.x + a.y * b.y; }
+__device__ __forceinline__ float norm2(V2 a) { return sqrtf(a.x * a.x + a.y * a.y); }
+__device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+__device__ __forceinline__ V2 load2(const float* p) { return v2(p[0], p[1]); }
+__device__ __forceinline__ void store2(float* p, V2 a) {
+  p[0] = a.x;
+  p[1] = a.y;
+}
+// v rotated by the angle of cosine c and sine s.
+__device__ __forceinline__ V2 rot2(float c, float s, V2 v) {
+  return v2(c * v.x - s * v.y, s * v.x + c * v.y);
+}
+__device__ __forceinline__ int next_vertex(int i, int n) { return i + 1 < n ? i + 1 : 0; }
+
+// ---------------------------------------------------------------------------
+// Kernel V: manifolds of rounded convex polygons (dim2/narrowphase.py:339).
+// ---------------------------------------------------------------------------
+
+struct Poly {
+  V2 v[kVerts];  // world vertices
+  int n;
+  float r;
+};
+
+struct Manifold {
+  V2 normal;
+  V2 pa[2], pb[2];
+  float sep[2];
+  int fid[2];
+  int count;
+};
+
+__device__ __forceinline__ Manifold empty_manifold() {
+  Manifold m;
+  m.normal = v2(0.0f, 1.0f);
+  for (int p = 0; p < 2; ++p) {
+    m.pa[p] = v2(0.0f, 0.0f);
+    m.pb[p] = v2(0.0f, 0.0f);
+    m.sep[p] = kBig;
+    m.fid[p] = 0;
+  }
+  m.count = 0;
+  return m;
+}
+
+__device__ __forceinline__ Manifold flip_manifold(Manifold m) {
+  Manifold f = m;
+  f.normal = -m.normal;
+  for (int p = 0; p < 2; ++p) {
+    f.pa[p] = m.pb[p];
+    f.pb[p] = m.pa[p];
+  }
+  return f;
+}
+
+// normalize(perp(e)), perp(e) = (e.y, -e.x): the outward normal of a CCW edge.
+__device__ __forceinline__ V2 edge_normal(V2 e) {
+  float len = fmaxf(sqrtf(e.y * e.y + e.x * e.x), 1e-9f);
+  return v2(e.y / len, -e.x / len);
+}
+
+// d / max(dist, 1e-9) where dist > 1e-9, else fallback.
+__device__ __forceinline__ V2 unit_or(V2 d, float dist, V2 fallback) {
+  if (!(dist > 1e-9f)) return fallback;
+  float m = fmaxf(dist, 1e-9f);
+  return v2(d.x / m, d.y / m);
+}
+
+__device__ __forceinline__ void load_poly(Poly& p, V2 pos, float c, float s, const float* verts,
+                                          int n, float r) {
+  for (int k = 0; k < kVerts; ++k)
+    p.v[k] = v2(pos.x + (c * verts[2 * k] - s * verts[2 * k + 1]),
+                pos.y + (s * verts[2 * k] + c * verts[2 * k + 1]));
+  p.n = n;
+  p.r = r;
+}
+
+__device__ __forceinline__ Manifold one_point(V2 normal, V2 pa, V2 pb, float sep, int fid) {
+  Manifold m = empty_manifold();
+  m.normal = normal;
+  m.pa[0] = pa;
+  m.pb[0] = pb;
+  m.sep[0] = sep;
+  m.fid[0] = fid;
+  m.count = 1;
+  return m;
+}
+
+__device__ __forceinline__ Manifold circle_circle(V2 pa, float ra, V2 pb, float rb) {
+  V2 d = pb - pa;
+  float dist = norm2(d);
+  V2 n = unit_or(d, dist, v2(1.0f, 0.0f));
+  return one_point(n, pa + n * ra, pb - n * rb, dist - ra - rb, 0);
+}
+
+// Circle of centre p, radius ra against the rounded polygon q (reference
+// _circle_poly :136 over _closest_on_poly :113). Ties in the closest edge and
+// the deepest face go to the first edge.
+__device__ __forceinline__ Manifold circle_poly(V2 p, float ra, const Poly& q) {
+  int best = 0, deepest = 0;
+  float best_d2 = 0.0f, best_fd = 0.0f;
+  V2 closest = v2(0.0f, 0.0f), n_face = v2(0.0f, 0.0f);
+  bool all_in = true;
+  for (int i = 0; i < kVerts; ++i) {
+    bool valid = i < q.n && q.n >= 2;
+    V2 vi = q.v[i];
+    V2 e = q.v[next_vertex(i, q.n)] - vi;
+    V2 rel = p - vi;
+    float t = clamp01(dot2(rel, e) / fmaxf(dot2(e, e), 1e-12f));
+    V2 proj = vi + e * t;
+    V2 dp = p - proj;
+    float d2 = valid ? dot2(dp, dp) : kBig;
+    if (i == 0 || d2 < best_d2) {
+      best = i;
+      best_d2 = d2;
+      closest = proj;
+    }
+    V2 nrm = edge_normal(e);
+    float fd = valid ? dot2(nrm, rel) : -kBig;
+    if (i == 0 || fd > best_fd) {
+      deepest = i;
+      best_fd = fd;
+      n_face = nrm;
+    }
+    all_in = all_in && (!valid || fd <= 0.0f);
+  }
+  bool inside = all_in && q.n >= 3;
+  V2 d = closest - p;
+  float dist = norm2(d);
+  V2 n_out = unit_or(d, dist, -n_face);
+  V2 n = inside ? -n_face : n_out;
+  float sep = inside ? best_fd - ra - q.r : dist - ra - q.r;
+  V2 pb = inside ? p + n * (ra + sep) : closest - n * q.r;
+  (void)deepest;
+  return one_point(n, p + n * ra, pb, sep, best);
+}
+
+// Reference _sat_faces (:170): the face of r that separates i the most.
+__device__ __forceinline__ float sat_faces(const Poly& r, const Poly& i, int& best, V2& normal) {
+  float best_sep = 0.0f;
+  best = 0;
+  normal = v2(0.0f, 0.0f);
+  for (int k = 0; k < kVerts; ++k) {
+    bool valid = k < r.n && r.n >= 2;
+    V2 nrm = edge_normal(r.v[next_vertex(k, r.n)] - r.v[k]);
+    float m = kBig;
+    for (int j = 0; j < kVerts; ++j) {
+      V2 rel = i.v[j] - r.v[k];
+      float d = j < i.n ? nrm.x * rel.x + nrm.y * rel.y : kBig;
+      m = fminf(m, d);
+    }
+    float sep = valid ? m : -kBig;
+    if (k == 0 || sep > best_sep) {
+      best = k;
+      best_sep = sep;
+      normal = nrm;
+    }
+  }
+  return best_sep;
+}
+
+__device__ __forceinline__ Manifold poly_poly(const Poly& a, const Poly& b) {
+  int edge_a, edge_b;
+  V2 n_a, n_b;
+  float sep_a = sat_faces(a, b, edge_a, n_a);
+  float sep_b = sat_faces(b, a, edge_b, n_b);
+  bool flip = sep_b > sep_a + 1e-4f;
+  const Poly& r = flip ? b : a;
+  const Poly& in = flip ? a : b;
+  int ref = flip ? edge_b : edge_a;
+  V2 n = flip ? n_b : n_a;
+
+  int inc = 0;
+  float best_anti = 0.0f;
+  for (int k = 0; k < kVerts; ++k) {
+    bool valid = k < in.n && in.n >= 2;
+    float anti = valid ? dot2(edge_normal(in.v[next_vertex(k, in.n)] - in.v[k]), n) : kBig;
+    if (k == 0 || anti < best_anti) {
+      inc = k;
+      best_anti = anti;
+    }
+  }
+  V2 i0 = in.v[inc];
+  V2 i1 = in.n >= 2 ? in.v[next_vertex(inc, in.n)] : i0;
+  V2 r0 = r.v[ref];
+  V2 r1 = r.v[next_vertex(ref, r.n)];
+
+  // Clip the incident edge to the reference edge's slab (_clip_segment :190).
+  V2 rd = r1 - r0;
+  float tl = fmaxf(norm2(rd), 1e-9f);
+  V2 t = v2(rd.x / tl, rd.y / tl);
+  float length = dot2(t, rd);
+  float a0 = dot2(t, i0 - r0);
+  float a1 = dot2(t, i1 - r0);
+  float da = a1 - a0;
+  bool degen = fabsf(da) <= 1e-9f;
+  float safe = degen ? 1e-9f : da;
+  float s_at0 = (0.0f - a0) / safe;
+  float s_atl = (length - a0) / safe;
+  float s_min = degen ? 0.0f : clamp01(fminf(s_at0, s_atl));
+  float s_max = degen ? 1.0f : clamp01(fmaxf(s_at0, s_atl));
+  V2 di = i1 - i0;
+  V2 cp[2] = {i0 + di * s_min, i0 + di * s_max};
+
+  Manifold m = empty_manifold();
+  int fid = (flip ? 4096 : 0) + ref * 256 + inc * 16;
+  for (int p = 0; p < 2; ++p) {
+    float s_raw = dot2(n, cp[p] - r0);
+    float s = s_raw - r.r - in.r;
+    V2 p_ref = cp[p] - n * (s_raw - r.r);
+    V2 p_inc = cp[p] - n * in.r;
+    m.pa[p] = flip ? p_inc : p_ref;
+    m.pb[p] = flip ? p_ref : p_inc;
+    m.sep[p] = s;
+    m.fid[p] = fid + p;
+  }
+  V2 dc = cp[1] - cp[0];
+  bool dup = dot2(dc, dc) < 1e-10f;
+  if (dup) m.sep[1] = kBig;
+  m.count = dup ? 1 : 2;
+  m.normal = flip ? -n : n;
+  return m;
+}
+
+// Rounded polygon q on the half-space through plane_pos with outward normal
+// plane_n (_poly_plane :285): its two deepest vertices, the first of equals
+// first (a stable sort's order).
+__device__ __forceinline__ Manifold poly_plane(const Poly& q, V2 plane_pos, V2 plane_n) {
+  float d[kVerts];
+  int k0 = 0;
+  for (int i = 0; i < kVerts; ++i) {
+    d[i] = i < q.n ? dot2(plane_n, q.v[i] - plane_pos) - q.r : kBig;
+    if (d[i] < d[k0]) k0 = i;
+  }
+  int k1 = k0 == 0 ? 1 : 0;
+  for (int i = 0; i < kVerts; ++i)
+    if (i != k0 && d[i] < d[k1]) k1 = i;
+  V2 n_ab = -plane_n;
+  Manifold m = empty_manifold();
+  m.normal = n_ab;
+  int ks[2] = {k0, k1};
+  for (int p = 0; p < 2; ++p) {
+    V2 vk = q.v[ks[p]];
+    m.pa[p] = vk + n_ab * q.r;
+    m.pb[p] = vk - plane_n * dot2(plane_n, vk - plane_pos);
+    m.fid[p] = ks[p];
+  }
+  bool two = q.n >= 2 && d[k1] < kBig / 2.0f;
+  m.sep[0] = d[k0];
+  m.sep[1] = two ? d[k1] : kBig;
+  m.count = two ? 2 : 1;
+  return m;
+}
+
+// One pair: the branch of its kind only (the reference selects among all).
+__device__ __forceinline__ Manifold pair_manifold(int ca, int cb, const float* pos,
+                                                  const float* cs, const float* verts,
+                                                  const int* count, const float* radius,
+                                                  const unsigned char* plane) {
+  V2 pa = load2(pos + 2 * ca), pb = load2(pos + 2 * cb);
+  float c_a = cs[2 * ca], s_a = cs[2 * ca + 1], c_b = cs[2 * cb], s_b = cs[2 * cb + 1];
+  const float* la = verts + 2 * kVerts * (long)ca;
+  const float* lb = verts + 2 * kVerts * (long)cb;
+  bool pla = plane[ca] != 0, plb = plane[cb] != 0;
+  Poly a, b;
+  load_poly(a, pa, c_a, s_a, la, count[ca], radius[ca]);
+  load_poly(b, pb, c_b, s_b, lb, count[cb], radius[cb]);
+  if (pla && plb) return empty_manifold();
+  if (plb) return poly_plane(a, pb, rot2(c_b, s_b, load2(lb)));
+  if (pla) return flip_manifold(poly_plane(b, pa, rot2(c_a, s_a, load2(la))));
+  bool circ_a = a.n == 1, circ_b = b.n == 1;
+  if (circ_a && circ_b) return circle_circle(a.v[0], a.r, b.v[0], b.r);
+  if (circ_a) return circle_poly(a.v[0], a.r, b);
+  if (circ_b) return flip_manifold(circle_poly(b.v[0], b.r, a));
+  return poly_poly(a, b);
+}
+
+__device__ __forceinline__ void manifold_2d_pair(int k, const long long* ca, const long long* cb,
+                                                 const float* pos, const float* cs,
+                                                 const float* verts, const int* count,
+                                                 const float* radius, const unsigned char* plane,
+                                                 float* normal, float* point_a, float* point_b,
+                                                 float* separation, int* feature_id,
+                                                 int* n_points) {
+  Manifold m = pair_manifold((int)ca[k], (int)cb[k], pos, cs, verts, count, radius, plane);
+  store2(normal + 2 * (long)k, m.normal);
+  for (int p = 0; p < 2; ++p) {
+    store2(point_a + 4 * (long)k + 2 * p, m.pa[p]);
+    store2(point_b + 4 * (long)k + 2 * p, m.pb[p]);
+    separation[2 * (long)k + p] = m.sep[p];
+    feature_id[2 * (long)k + p] = m.fid[p];
+  }
+  n_points[k] = m.count;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel U: one grid entry's window sweep (dim2/broadphase_impl.py:82-113).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int cell_key2(int x, int y) {
+  return ((x & 0x7FFF) << 15) | (y & 0x7FFF);
+}
+
+// Candidate bits of entry t and its rank in its cell run, capped at w + 1.
+__device__ __forceinline__ unsigned int sweep_entry(int t, int n, int w, const int* skey,
+                                                    const float* sf, const int* si, int& rank) {
+  int key = skey[t];
+  int r = 0;
+  while (r <= w && t - r - 1 >= 0 && skey[t - r - 1] == key) ++r;
+  rank = r;
+  unsigned int mask = 0u;
+  if (key == kSentinel) return mask;
+  const float* af = sf + 4 * (long)t;
+  const int* ai = si + 6 * (long)t;
+  for (int k = 1; k <= w; ++k) {
+    int j = t + k;
+    if (j >= n || skey[j] != key) break;
+    const float* bf = sf + 4 * (long)j;
+    const int* bi = si + 6 * (long)j;
+    bool overlap = bf[0] <= af[2] && af[0] <= bf[2] && bf[1] <= af[3] && af[1] <= bf[3];
+    int canon = cell_key2(ai[0] > bi[0] ? ai[0] : bi[0], ai[1] > bi[1] ? ai[1] : bi[1]);
+    bool ok = overlap && canon == key && ai[2] != bi[2] && (ai[3] & bi[4]) != 0 &&
+              (bi[3] & ai[4]) != 0 && (ai[5] | bi[5]) > 0;
+    if (ok) mask |= 1u << (k - 1);
+  }
+  return mask;
+}
+
+// The global pass's test of candidate (global g_idx[g], collider i).
+__device__ __forceinline__ bool global_candidate(int gi, int i, bool g_valid,
+                                                 const float* aabb_min, const float* aabb_max,
+                                                 const unsigned char* active,
+                                                 const unsigned char* is_global,
+                                                 const unsigned char* dyn, const int* body,
+                                                 const int* members, const int* filt) {
+  bool overlap = aabb_min[2 * gi] <= aabb_max[2 * i] && aabb_min[2 * i] <= aabb_max[2 * gi] &&
+                 aabb_min[2 * gi + 1] <= aabb_max[2 * i + 1] &&
+                 aabb_min[2 * i + 1] <= aabb_max[2 * gi + 1];
+  return g_valid && active[i] && gi != i && (!is_global[i] || i < gi) && overlap &&
+         body[gi] != body[i] && (members[gi] & filt[i]) != 0 && (members[i] & filt[gi]) != 0 &&
+         (dyn[gi] || dyn[i]);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel W: one contact row (dim2/contacts.py:18 after the manifolds).
+// ---------------------------------------------------------------------------
+
+struct RowsIn2 {
+  const unsigned char* valid;
+  const int *ca, *cb;
+  const float *m_pa, *m_pb, *m_sep;
+  const int *m_fid, *m_count;
+  const int* col_body;
+  const float *col_spec, *col_margin, *col_fric, *col_sfric, *col_rest;
+  const int *col_fcomb, *col_rcomb;
+  const unsigned char* col_sensor;
+  const float *b_pos, *b_cs, *b_com, *b_lin_vel;
+  const int* hit;
+  const unsigned char* survives;
+  const int* new_rank;
+  const unsigned char *o_active, *o_touching;
+  const int *o_color, *o_cid, *o_next_cid, *o_fid;
+  const float *o_anchor_a, *o_nimp, *o_timp;
+  const int *o_npoints, *o_body_a, *o_body_b;
+};
+
+struct RowsOut2 {
+  int *body_a, *body_b;
+  unsigned char *touching, *was_touching, *is_sensor;
+  int* num_points;
+  float *anchor_a, *anchor_b, *penetration;
+  int* feature_id;
+  float *nimp, *timp, *friction, *sfriction, *restitution;
+  int *color, *contact_id;
+  unsigned char* evicted;
+  int *ev_cid, *ev_ba, *ev_bb;
+};
+
+struct RowParams2 {
+  float dt, spec_default, tol, dist_thresh;
+  int match_contacts;
+};
+
+__device__ __forceinline__ V2 clamped_vel2(const RowsIn2& in, int body, int collider,
+                                           const RowParams2& p) {
+  V2 v = load2(in.b_lin_vel + 2 * body);
+  float spec = fminf(in.col_spec[collider], p.spec_default);
+  float scale = fminf(spec / fmaxf(norm2(v) * p.dt, 1e-9f), 1.0f);
+  return v * scale;
+}
+
+__device__ __forceinline__ V2 body_com(const RowsIn2& in, int body) {
+  return load2(in.b_pos + 2 * body) +
+         rot2(in.b_cs[2 * body], in.b_cs[2 * body + 1], load2(in.b_com + 2 * body));
+}
+
+__device__ __forceinline__ void contact_row_2d(int c, const RowsIn2& in, const RowParams2& p,
+                                               const RowsOut2& out) {
+  bool valid = in.valid[c] != 0;
+  int ca = in.ca[c], cb = in.cb[c];
+  int ba = in.col_body[ca], bb = in.col_body[cb];
+  float margin = p.dt * norm2(clamped_vel2(in, bb, cb, p) - clamped_vel2(in, ba, ca, p));
+  float keep = fmaxf(margin, p.tol) + in.col_margin[ca] + in.col_margin[cb];
+
+  int count = in.m_count[c];
+  bool pv[2];
+  int order[2], np = 0;
+  for (int l = 0; l < 2; ++l) {
+    pv[l] = valid && l < count && in.m_sep[2 * c + l] < keep;
+    if (pv[l]) order[np++] = l;
+  }
+  int tail = np;
+  for (int l = 0; l < 2; ++l)
+    if (!pv[l]) order[tail++] = l;
+
+  V2 com_a = body_com(in, ba), com_b = body_com(in, bb);
+  int h = in.hit[c];
+  bool matched = h > 0;
+  int os = matched ? h - 1 : 0;
+  int o_np = in.o_npoints[os];
+  for (int i = 0; i < 2; ++i) {
+    int l = order[i];
+    int fid = in.m_fid[2 * c + l];
+    V2 aa = load2(in.m_pa + 2 * (2 * c + l)) - com_a;
+    V2 ab = load2(in.m_pb + 2 * (2 * c + l)) - com_b;
+    store2(out.anchor_a + 2 * (2 * c + i), aa);
+    store2(out.anchor_b + 2 * (2 * c + i), ab);
+    out.penetration[2 * c + i] = -in.m_sep[2 * c + l];
+    out.feature_id[2 * c + i] = fid;
+
+    // Warm start: the old point with the same feature id; if none has it,
+    // the nearest within the match distance; the first among equals.
+    float d2[2];
+    bool fid_m[2], dist_m[2], any_fid = false;
+    for (int j = 0; j < 2; ++j) {
+      bool o_valid = matched && j < o_np;
+      V2 dd = aa - load2(in.o_anchor_a + 2 * (2 * os + j));
+      d2[j] = dd.x * dd.x + dd.y * dd.y;
+      fid_m[j] = o_valid && fid == in.o_fid[2 * os + j];
+      dist_m[j] = o_valid && d2[j] < p.dist_thresh;
+      any_fid = any_fid || fid_m[j];
+    }
+    int best = -1;
+    for (int j = 0; j < 2; ++j) {
+      bool use = any_fid ? fid_m[j] : dist_m[j];
+      if (use && (best < 0 || d2[j] < d2[best])) best = j;
+    }
+    bool has = best >= 0 && p.match_contacts != 0;
+    int src = 2 * os + (best < 0 ? 0 : best);
+    out.nimp[2 * c + i] = has ? in.o_nimp[src] : 0.0f;
+    out.timp[2 * c + i] = has ? in.o_timp[src] : 0.0f;
+  }
+
+  out.body_a[c] = ba;
+  out.body_b[c] = bb;
+  out.num_points[c] = np;
+  out.touching[c] = (np > 0 && valid) ? 1 : 0;
+  out.was_touching[c] = (matched && in.o_touching[os] != 0) ? 1 : 0;
+  out.is_sensor[c] = (in.col_sensor[ca] != 0 || in.col_sensor[cb] != 0) ? 1 : 0;
+  out.color[c] = matched ? in.o_color[os] : -1;
+  out.contact_id[c] =
+      matched ? in.o_cid[os] : (valid ? in.o_next_cid[0] + in.new_rank[c] : 0);
+  out.friction[c] = combine(in.col_fric[ca], in.col_fric[cb], in.col_fcomb[ca], in.col_fcomb[cb]);
+  out.sfriction[c] =
+      combine(in.col_sfric[ca], in.col_sfric[cb], in.col_fcomb[ca], in.col_fcomb[cb]);
+  out.restitution[c] =
+      combine(in.col_rest[ca], in.col_rest[cb], in.col_rcomb[ca], in.col_rcomb[cb]);
+  bool ev = in.o_active[c] != 0 && in.o_touching[c] != 0 && in.survives[c] == 0;
+  out.evicted[c] = ev ? 1 : 0;
+  out.ev_cid[c] = ev ? in.o_cid[c] : 0;
+  out.ev_ba[c] = ev ? in.o_body_a[c] : 0;
+  out.ev_bb[c] = ev ? in.o_body_b[c] : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Packed row layout of Kernels X and Y (dim2/solver.py:25-42).
+// ---------------------------------------------------------------------------
+
+enum {
+  N_ = 0, FRICTION = 2, SF = 3, REST = 4, SOFT = 5, IMA = 8, IMB = 10, IIA = 12, IIB = 13,
+  AA = 14, AB = 18, SEP = 22, NM = 24, TM = 26, NS = 28, PM = 30, SV = 32, D = 33, IMP = 6,
+  STATE = 6
+};
+
+// ---------------------------------------------------------------------------
+// Kernel X: one bucket slot's packed row (dim2/solver.py:87).
+// ---------------------------------------------------------------------------
+
+struct PackIn2 {
+  const long long* buckets;
+  const unsigned char* bucket_valid;
+  const int *body_a, *body_b;
+  const unsigned char *dyn_a, *dyn_b, *solve;
+  const float *normal, *anchor_a, *anchor_b, *penetration;
+  const int* num_points;
+  const float *friction, *sfriction, *restitution, *surface_speed, *nimp, *timp;
+  const int* body_type;
+  const unsigned char* sleeping;
+  const int* dominance;
+  const float *state, *inv_mass, *inv_inertia;
+  const int* cnt;
+};
+
+struct PackOut2 {
+  float* data;
+  float* imp;
+  int *bucket_a, *bucket_b;
+  float* relax;
+};
+
+__device__ __forceinline__ int eff_dominance(const PackIn2& in, int b) {
+  return (in.body_type[b] == 1 && !in.sleeping[b]) ? in.dominance[b] : 127;
+}
+
+__device__ __forceinline__ void pack_slot_2d(int color, int row, int colors, int cap,
+                                             const PackIn2& in, const float* dyn_soft,
+                                             const float* non_dyn_soft, const PackOut2& out) {
+  long g = (long)color * cap + row;
+  int c = (int)in.buckets[g];
+  bool valid = in.bucket_valid[g] != 0;
+  int ba = in.body_a[c], bb = in.body_b[c];
+  int rel = eff_dominance(in, ba) - eff_dominance(in, bb);
+  bool a_static = rel > 0, b_static = rel < 0;
+  V2 ima = a_static ? v2(0.0f, 0.0f) : load2(in.inv_mass + 2 * ba);
+  V2 imb = b_static ? v2(0.0f, 0.0f) : load2(in.inv_mass + 2 * bb);
+  float iia = a_static ? 0.0f : in.inv_inertia[ba];
+  float iib = b_static ? 0.0f : in.inv_inertia[bb];
+  const float* soft = rel != 0 ? non_dyn_soft : dyn_soft;
+
+  V2 n = load2(in.normal + 2 * c);
+  V2 t = v2(n.y, -n.x);
+  float sx = ima.x + imb.x, sy = ima.y + imb.y;
+  float* d = out.data + g * D;
+  d[N_] = n.x;
+  d[N_ + 1] = n.y;
+  d[FRICTION] = in.friction[c];
+  d[SF] = in.sfriction[c];
+  d[REST] = in.restitution[c];
+  for (int k = 0; k < 3; ++k) d[SOFT + k] = soft[k];
+  d[IMA] = ima.x;
+  d[IMA + 1] = ima.y;
+  d[IMB] = imb.x;
+  d[IMB + 1] = imb.y;
+  d[IIA] = iia;
+  d[IIB] = iib;
+  const float* sa = in.state + STATE * (long)ba;
+  const float* sb = in.state + STATE * (long)bb;
+  bool solve = in.solve[c] != 0;
+  for (int p = 0; p < 2; ++p) {
+    V2 r1 = load2(in.anchor_a + 4 * (long)c + 2 * p);
+    V2 r2 = load2(in.anchor_b + 4 * (long)c + 2 * p);
+    store2(d + AA + 2 * p, r1);
+    store2(d + AB + 2 * p, r2);
+    float r1xn = r1.x * n.y - r1.y * n.x, r2xn = r2.x * n.y - r2.y * n.x;
+    float kn = (n.x * (sx * n.x) + n.y * (sy * n.y)) + iia * r1xn * r1xn + iib * r2xn * r2xn;
+    float r1xt = r1.x * t.y - r1.y * t.x, r2xt = r2.x * t.y - r2.y * t.x;
+    float kt = (t.x * (sx * t.x) + t.y * (sy * t.y)) + iia * r1xt * r1xt + iib * r2xt * r2xt;
+    d[NM + p] = kn > 1e-12f ? 1.0f / kn : 0.0f;
+    d[TM + p] = kt > 1e-12f ? 1.0f / kt : 0.0f;
+    V2 dr = r2 - r1;
+    d[SEP + p] = -in.penetration[2 * c + p] - (dr.x * n.x + dr.y * n.y);
+    float vbx = sb[0] + sb[2] * -r2.y, vby = sb[1] + sb[2] * r2.x;
+    float vax = sa[0] + sa[2] * -r1.y, vay = sa[1] + sa[2] * r1.x;
+    d[NS + p] = (vbx - vax) * n.x + (vby - vay) * n.y;
+    d[PM + p] = (valid && solve && p < in.num_points[c]) ? 1.0f : 0.0f;
+  }
+  d[SV] = in.surface_speed[c];
+
+  float* ir = out.imp + g * IMP;
+  ir[0] = in.nimp[2 * c];
+  ir[1] = in.nimp[2 * c + 1];
+  ir[2] = in.timp[2 * c];
+  ir[3] = in.timp[2 * c + 1];
+  ir[4] = 0.0f;
+  ir[5] = 0.0f;
+  out.bucket_a[g] = ba;
+  out.bucket_b[g] = bb;
+  float rlx = 1.0f;
+  if (color == colors - 1) {
+    // 1 / the larger multiplicity of the row's dynamic ends in the last colour.
+    float ma = (valid && in.dyn_a[c]) ? (float)in.cnt[ba] : 1.0f;
+    float mb = (valid && in.dyn_b[c]) ? (float)in.cnt[bb] : 1.0f;
+    rlx = 1.0f / fmaxf(fmaxf(ma, mb), 1.0f);
+  }
+  out.relax[g] = rlx;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel Y: one row of one colour (dim2/solver.py:275-548).
+// ---------------------------------------------------------------------------
+
+enum { kWarm = 0, kBias = 1, kRelax = 2, kRestitution = 3 };
+
+struct SolveParams2 {
+  float h, max_overlap, stiction_t2, warm_coeff, rest_threshold;
+};
+
+struct Deltas2 {
+  float vax, vay, wa, vbx, vby, wb;
+};
+
+__device__ __forceinline__ void apply2(Deltas2& dl, const float* d, float applied, float ux,
+                                       float uy, int i) {
+  float pvx = applied * ux, pvy = applied * uy;
+  float r1x = d[AA + 2 * i], r1y = d[AA + 2 * i + 1];
+  float r2x = d[AB + 2 * i], r2y = d[AB + 2 * i + 1];
+  dl.vax = dl.vax - pvx * d[IMA];
+  dl.vay = dl.vay - pvy * d[IMA + 1];
+  dl.wa = dl.wa - d[IIA] * (r1x * pvy - r1y * pvx);
+  dl.vbx = dl.vbx + pvx * d[IMB];
+  dl.vby = dl.vby + pvy * d[IMB + 1];
+  dl.wb = dl.wb + d[IIB] * (r2x * pvy - r2y * pvx);
+}
+
+__device__ __forceinline__ void rel_vel2(const Deltas2& dl, const float* sa, const float* sb,
+                                         const float* d, int i, float& rvx, float& rvy) {
+  float r1x = d[AA + 2 * i], r1y = d[AA + 2 * i + 1];
+  float r2x = d[AB + 2 * i], r2y = d[AB + 2 * i + 1];
+  float wbt = sb[2] + dl.wb, wat = sa[2] + dl.wa;
+  rvx = ((sb[0] + dl.vbx) + wbt * -r2y) - ((sa[0] + dl.vax) + wat * -r1y);
+  rvy = ((sb[1] + dl.vby) + wbt * r2x) - ((sa[1] + dl.vay) + wat * r1x);
+}
+
+// Deltas of one row into dl and its new impulses into out[6]. In the bias and
+// relax modes the cosine and sine of the delta angles are cosf/sinf here and
+// torch.cos/torch.sin in the plain version.
+__device__ __forceinline__ void solve_row_2d(int mode, const float* d, const float* ir,
+                                             const float* sa, const float* sb, float rlx,
+                                             const SolveParams2& p, Deltas2& dl, float* out) {
+  float nx = d[N_], ny = d[N_ + 1];
+  float tx = ny, ty = -nx;
+  float pm[2] = {d[PM], d[PM + 1]};
+  for (int k = 0; k < IMP; ++k) out[k] = ir[k];
+  dl = Deltas2{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+
+  if (mode == kWarm) {
+    float px = 0.0f, py = 0.0f, cra = 0.0f, crb = 0.0f;
+    for (int i = 0; i < 2; ++i) {
+      float np = ir[i] * pm[i];
+      float tp = ir[2 + i] * pm[i];
+      float pxi = (np * nx + tp * tx) * p.warm_coeff;
+      float pyi = (np * ny + tp * ty) * p.warm_coeff;
+      float ca = d[AA + 2 * i] * pyi - d[AA + 2 * i + 1] * pxi;
+      float cb = d[AB + 2 * i] * pyi - d[AB + 2 * i + 1] * pxi;
+      if (i == 0) {
+        px = pxi;
+        py = pyi;
+        cra = ca;
+        crb = cb;
+      } else {
+        px = px + pxi;
+        py = py + pyi;
+        cra = cra + ca;
+        crb = crb + cb;
+      }
+    }
+    dl.vax = -px * d[IMA];
+    dl.vay = -py * d[IMA + 1];
+    dl.wa = -(d[IIA] * cra);
+    dl.vbx = px * d[IMB];
+    dl.vby = py * d[IMB + 1];
+    dl.wb = d[IIB] * crb;
+    return;
+  }
+
+  if (mode == kRestitution) {
+    float rest = d[REST];
+    float vmask = rest > 0.0f ? 1.0f : 0.0f;
+    for (int i = 0; i < 2; ++i) {
+      float ns = d[NS + i];
+      float active = (ns < -p.rest_threshold && ir[4 + i] > 0.0f) ? 1.0f : 0.0f;
+      float pmi = pm[i] * vmask * active;
+      float rvx, rvy;
+      rel_vel2(dl, sa, sb, d, i, rvx, rvy);
+      float vn = rvx * nx + rvy * ny;
+      float delta = -d[NM + i] * (vn + rest * ns);
+      float acc = ir[i];
+      float new_acc = fmaxf(acc + rlx * delta, 0.0f);
+      float applied = (new_acc - acc) * pmi;
+      out[i] = pmi > 0.0f ? new_acc : acc;
+      out[4 + i] = ir[4 + i] + applied;
+      apply2(dl, d, applied, nx, ny, i);
+    }
+    return;
+  }
+
+  bool use_bias = mode == kBias;
+  float ca = cosf(sa[5]), s_a = sinf(sa[5]);
+  float cb = cosf(sb[5]), s_b = sinf(sb[5]);
+  float dtx = sb[3] - sa[3], dty = sb[4] - sa[4];
+  float soft_bias = d[SOFT], soft_mass = d[SOFT + 1], soft_imp = d[SOFT + 2];
+  for (int i = 0; i < 2; ++i) {
+    float r1x = d[AA + 2 * i], r1y = d[AA + 2 * i + 1];
+    float r2x = d[AB + 2 * i], r2y = d[AB + 2 * i + 1];
+    float dsx = dtx + ((cb * r2x - s_b * r2y) - (ca * r1x - s_a * r1y));
+    float dsy = dty + ((s_b * r2x + cb * r2y) - (s_a * r1x + ca * r1y));
+    float sep = (dsx * nx + dsy * ny) + d[SEP + i];
+    float rvx, rvy;
+    rel_vel2(dl, sa, sb, d, i, rvx, rvy);
+    float vn = rvx * nx + rvy * ny;
+    float m_eff = d[NM + i];
+    float acc = ir[i];
+    float spec = -m_eff * (vn + sep / p.h);
+    float inner;
+    if (use_bias) {
+      float sbias = fmaxf(soft_bias * sep, -p.max_overlap);
+      inner = -m_eff * soft_mass * (vn + sbias) - soft_imp * acc;
+    } else {
+      inner = -m_eff * vn;
+    }
+    float delta = sep > 0.0f ? spec : inner;
+    float new_acc = fmaxf(acc + rlx * delta, 0.0f);
+    float applied = (new_acc - acc) * pm[i];
+    bool on = pm[i] > 0.0f;
+    out[i] = on ? new_acc : acc;
+    out[4 + i] = ir[4 + i] + (on ? new_acc : 0.0f);
+    apply2(dl, d, applied, nx, ny, i);
+  }
+  float sv = d[SV];
+  for (int i = 0; i < 2; ++i) {
+    float rvx, rvy;
+    rel_vel2(dl, sa, sb, d, i, rvx, rvy);
+    float vt = (rvx * tx + rvy * ty) + sv;
+    float delta = d[TM + i] * vt;
+    float acc = ir[2 + i];
+    float mu = vt * vt <= p.stiction_t2 ? d[SF] : d[FRICTION];
+    float limit = mu * out[i];
+    float new_acc = fminf(fmaxf(acc - rlx * delta, -limit), limit);
+    float applied = (new_acc - acc) * pm[i];
+    out[2 + i] = pm[i] > 0.0f ? new_acc : acc;
+    apply2(dl, d, applied, tx, ty, i);
+  }
+}
+
+// Whether an end with these inverse masses and inertia receives deltas.
+__device__ __forceinline__ bool writes2(const float* im, float ii) {
+  return im[0] != 0.0f || im[1] != 0.0f || ii != 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel Z: one body's substep integration (dim2/dynamics.py:141-174).
+// ---------------------------------------------------------------------------
+
+enum { T_LIN_INC = 0, T_ANG_INC = 2, T_LIN_DAMP = 3, T_ANG_DAMP = 4, T_DYN = 5, T_MAX_LIN = 6,
+       T_MAX_ANG = 7, T_COLS = 8 };
+
+__device__ __forceinline__ void integrate_body_2d(int mode, const float* s, const float* t,
+                                                  float h, float* o) {
+  for (int k = 0; k < STATE; ++k) o[k] = s[k];
+  if (mode == 1) {
+    o[3] = s[3] + s[0] * h;
+    o[4] = s[4] + s[1] * h;
+    o[5] = s[5] + s[2] * h;
+    return;
+  }
+  bool dyn = t[T_DYN] > 0.0f;
+  float lx = dyn ? s[0] * t[T_LIN_DAMP] + t[T_LIN_INC] : s[0];
+  float ly = dyn ? s[1] * t[T_LIN_DAMP] + t[T_LIN_INC + 1] : s[1];
+  float w = dyn ? s[2] * t[T_ANG_DAMP] + t[T_ANG_INC] : s[2];
+  float speed = sqrtf(lx * lx + ly * ly);
+  float scale = fminf(t[T_MAX_LIN] / fmaxf(speed, 1e-9f), 1.0f);
+  o[0] = lx * scale;
+  o[1] = ly * scale;
+  float max_ang = t[T_MAX_ANG];
+  o[2] = fminf(fmaxf(w, -max_ang), max_ang);
+}
+
+// Kernel Z's prologue: one body's solver row and table (dim2/dynamics.py
+// prepare :46 and pre_process_velocity_increments :111).
+struct BodyIn2 {
+  int type, locks;
+  bool active, sleeping;
+  V2 lin_vel, force, const_force, gravity;
+  float ang_vel, torque, const_torque, inv_mass, inv_inertia, gravity_scale, lin_damping,
+      ang_damping, max_lin, max_ang;
+};
+
+constexpr int kStatic = 0, kDynamic = 1;
+constexpr int kLockTX = 1, kLockTY = 2, kLockRot = 4;
+
+__device__ __forceinline__ void prepare_body_2d(const BodyIn2& b, float h, float* state,
+                                                float* inv_mass, float* inv_inertia,
+                                                float* solve_mask, float* t) {
+  bool dynamic = b.type == kDynamic;
+  bool moving = b.active && !b.sleeping && b.type != kStatic;
+  bool responds = dynamic && moving;
+  float tx = (b.locks & kLockTX) > 0 ? 0.0f : 1.0f;
+  float ty = (b.locks & kLockTY) > 0 ? 0.0f : 1.0f;
+  float rm = (b.locks & kLockRot) > 0 ? 0.0f : 1.0f;
+  state[0] = moving ? b.lin_vel.x : 0.0f;
+  state[1] = moving ? b.lin_vel.y : 0.0f;
+  state[2] = moving ? b.ang_vel : 0.0f;
+  state[3] = 0.0f;
+  state[4] = 0.0f;
+  state[5] = 0.0f;
+  inv_mass[0] = responds ? b.inv_mass * tx : 0.0f;
+  inv_mass[1] = responds ? b.inv_mass * ty : 0.0f;
+  *inv_inertia = responds ? b.inv_inertia * rm : 0.0f;
+  *solve_mask = responds ? 1.0f : 0.0f;
+  bool d1 = dynamic && b.active;
+  float ax = b.gravity.x * b.gravity_scale + (b.force.x + b.const_force.x) * b.inv_mass;
+  float ay = b.gravity.y * b.gravity_scale + (b.force.y + b.const_force.y) * b.inv_mass;
+  float aw = (b.torque + b.const_torque) * b.inv_inertia;
+  t[T_LIN_INC] = d1 ? ax * tx * h : 0.0f;
+  t[T_LIN_INC + 1] = d1 ? ay * ty * h : 0.0f;
+  t[T_ANG_INC] = d1 ? aw * rm * h : 0.0f;
+  t[T_LIN_DAMP] = 1.0f / (1.0f + h * b.lin_damping);
+  t[T_ANG_DAMP] = 1.0f / (1.0f + h * b.ang_damping);
+  t[T_DYN] = (d1 && !b.sleeping) ? 1.0f : 0.0f;
+  t[T_MAX_LIN] = b.max_lin;
+  t[T_MAX_ANG] = b.max_ang;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel K in 2D: one body's writeback (dim2/dynamics.py:80): the delta pose
+// applied about the centre of mass. Returns whether the body moved.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool writeback_body_2d(int type, bool active, bool sleeping,
+                                                  const float* s, V2 pos, float angle, V2 com,
+                                                  V2* pos_out, float* angle_out) {
+  bool moving = active && !sleeping && type != kStatic;
+  V2 old_com = rot2(cosf(angle), sinf(angle), com);
+  float new_angle = angle + s[5];
+  V2 new_com = rot2(cosf(new_angle), sinf(new_angle), com);
+  V2 np = ((pos + load2(s + 3)) + old_com) - new_com;
+  *pos_out = moving ? np : pos;
+  *angle_out = moving ? new_angle : angle;
+  return moving;
+}
+
+}  // namespace d2

@@ -9,7 +9,8 @@
 // block barrier separates the steps, so the labels are the reference's after
 // exactly 10 rounds whether or not they converged.
 // sleep_update (one block): teleported islands, timers, the island all-ready
-// reduction (integer atomicMin, order-free), sleep flags, zeroed velocities.
+// reduction (integer atomicMin, order-free), sleep flags, zeroed velocities;
+// sleep_update_2d is the same for the 2D engine (dim2/step.py:160).
 // Bound by the latency of dependent integer gathers, not by bytes.
 #include "common.cuh"
 
@@ -114,6 +115,37 @@ __global__ void sleep_update_kernel(
   }
 }
 
+// sleep_update_kernel for the 2D engine: f32[N, 2] linear and f32[N]
+// angular velocities, and no teleport test (2D bodies keep no sleep pose).
+__global__ void sleep_update_2d_kernel(
+    int n, const int* island, const unsigned char* overflow, const unsigned char* sleeping,
+    const unsigned char* active, const int* body_type, const unsigned char* sleep_disabled,
+    const float* lin_vel, const float* ang_vel, const float* sleep_timer, int* all_ready,
+    unsigned char* sleep_out, float* timer_out, float* lin_out, float* ang_out, float lin_t2,
+    float ang_t2, float dt, float time_to_sleep) {
+  // 1. Timers, and the all-ready minimum per island.
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float vx = lin_vel[2 * i], vy = lin_vel[2 * i + 1], w = ang_vel[i];
+    bool below = vx * vx + vy * vy < lin_t2 && w * w < ang_t2 && !sleep_disabled[i];
+    float timer = below ? sleep_timer[i] + dt : 0.0f;
+    timer_out[i] = timer;
+    bool ready = timer >= time_to_sleep && !overflow[i];
+    bool considered = active[i] && body_type[i] != kStatic;
+    if (considered && !ready) atomicMin(all_ready + island[i], 0);
+  }
+  __syncthreads();
+  // 2. Sleep flags, timers of woken bodies, velocities of sleepers.
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    bool considered = active[i] && body_type[i] != kStatic;
+    bool sleep = considered && all_ready[island[i]] > 0 && body_type[i] == kDynamic;
+    if (sleeping[i] && !sleep) timer_out[i] = 0.0f;
+    sleep_out[i] = sleep;
+    lin_out[2 * i] = sleep ? 0.0f : lin_vel[2 * i];
+    lin_out[2 * i + 1] = sleep ? 0.0f : lin_vel[2 * i + 1];
+    ang_out[i] = sleep ? 0.0f : ang_vel[i];
+  }
+}
+
 }  // namespace
 
 extern "C" int avian_island_table(int e2, int n, const int* src, const int* sorted_key,
@@ -143,5 +175,18 @@ extern "C" int avian_sleep_update(
       n, island, overflow, old_island, sleeping, active, body_type, sleep_disabled, pos,
       sleep_pos, quat, sleep_quat, lin_vel, ang_vel, sleep_timer, tele_island, all_ready,
       sleep_out, timer_out, lin_out, ang_out, lin_t2, ang_t2, dt, time_to_sleep);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int avian_sleep_update_2d(
+    int n, const int* island, const unsigned char* overflow, const unsigned char* sleeping,
+    const unsigned char* active, const int* body_type, const unsigned char* sleep_disabled,
+    const float* lin_vel, const float* ang_vel, const float* sleep_timer, int* all_ready,
+    unsigned char* sleep_out, float* timer_out, float* lin_out, float* ang_out, float lin_t2,
+    float ang_t2, float dt, float time_to_sleep, void* stream) {
+  sleep_update_2d_kernel<<<1, kBlock, 0, (cudaStream_t)stream>>>(
+      n, island, overflow, sleeping, active, body_type, sleep_disabled, lin_vel, ang_vel,
+      sleep_timer, all_ready, sleep_out, timer_out, lin_out, ang_out, lin_t2, ang_t2, dt,
+      time_to_sleep);
   return (int)cudaGetLastError();
 }

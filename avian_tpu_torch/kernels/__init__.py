@@ -25,7 +25,19 @@
   half-space;
 - ``swept_toi`` (Kernel R, CUDA): swept-CCD times of impact;
 - ``shape_cast`` (Kernel S, CUDA): shape casts;
-- ``ray_cast`` (Kernel T, CUDA): ray casts.
+- ``ray_cast`` (Kernel T, CUDA): ray casts;
+- ``grid_pairs_2d`` (Kernel U, CUDA): the 2D engine's grid sweep and global
+  test (its compaction is Kernel L's);
+- ``manifold_2d`` (Kernel V, CUDA): the 2D rounded-polygon manifolds;
+- ``contact_rows_2d`` (Kernel W, CUDA): 2D contact persistence;
+- ``pack_2d`` (Kernel X, CUDA): the 2D packed constraint rows;
+- ``solve_2d`` (Kernel Y, CUDA): one colour of the 2D contact solver;
+- ``integrate_2d`` (Kernel Z, CUDA): 2D substep integration;
+- ``prepare_2d`` (Kernel Z's prologue, CUDA): the 2D solver bodies and
+  Z's table;
+- ``writeback_2d`` (Kernel K's 2D pass, CUDA): the 2D writeback and force
+  clear;
+- ``sleep_update_2d`` (Kernel J's 2D pass, CUDA): the 2D sleep update.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -52,6 +64,12 @@ from avian_tpu_torch.kernels import hull_manifold as _pq
 from avian_tpu_torch.kernels import swept_toi as _rr
 from avian_tpu_torch.kernels import shape_cast as _s
 from avian_tpu_torch.kernels import ray_cast as _t
+from avian_tpu_torch.kernels import grid_pairs_2d as _u
+from avian_tpu_torch.kernels import manifold_2d as _v
+from avian_tpu_torch.kernels import contact_rows_2d as _w
+from avian_tpu_torch.kernels import pack_2d as _x
+from avian_tpu_torch.kernels import solve_2d as _y
+from avian_tpu_torch.kernels import integrate_2d as _z
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -74,6 +92,15 @@ WRAPPERS = {
     "swept_toi": (_rr.swept_toi,),
     "shape_cast": (_s.shape_cast,),
     "ray_cast": (_t.ray_cast,),
+    "grid_pairs_2d": (_u.grid_counts_2d,),
+    "manifold_2d": (_v.manifold_2d,),
+    "contact_rows_2d": (_w.contact_rows_2d,),
+    "pack_2d": (_x.pack_2d,),
+    "solve_2d": (_y.solve_2d,),
+    "integrate_2d": (_z.integrate_2d,),
+    "prepare_2d": (_z.prepare_2d,),
+    "writeback_2d": (_k.writeback_2d,),
+    "sleep_update_2d": (_j.sleep_update_2d,),
 }
 
 

@@ -22,8 +22,14 @@ per body at prepare, 150 and 88 at writeback). The world inverse inertia
 the file is compiled without fused multiply-adds, so the kernel agrees with
 the plain version to the bit.
 
-The plain PyTorch versions, ``prepare_bodies_twin`` and
-``writeback_bodies_twin``, run on CPU tensors; on a CUDA tensor the wrappers
+``writeback_2d`` is the same pass for the native 2D engine: it replaces
+``avian_tpu/dim2/dynamics.py::writeback`` (:80) and the force clear of
+``dim2/step.py`` (:100-105), with the new angle's ``cosf``/``sinf`` in the
+kernel (the device code is ``d2::writeback_body_2d`` in ``csrc/dim2.cuh``).
+Its prologue, the 2D ``prepare``, is Kernel Z's (``integrate_2d.prepare_2d``).
+
+The plain PyTorch versions, ``prepare_bodies_twin``, ``writeback_bodies_twin``
+and ``writeback_2d_twin``, run on CPU tensors; on a CUDA tensor the wrappers
 launch the kernels or raise.
 """
 
@@ -216,3 +222,54 @@ def writeback_bodies(bodies, state):
 
 
 writeback_bodies.launches = 0
+
+
+def writeback_2d_twin(bodies, state):
+    """Plain PyTorch version; see ``writeback_2d``."""
+    b = bodies
+
+    def rotate(angle, v):
+        c, s = torch.cos(angle), torch.sin(angle)
+        return torch.stack([c * v[:, 0] - s * v[:, 1], s * v[:, 0] + c * v[:, 1]], -1)
+
+    new_angle = b.angle + state[:, 5]
+    new_pos = b.pos + state[:, 3:5] + rotate(b.angle, b.com) - rotate(new_angle, b.com)
+    moving = moving_mask(b)
+    m1 = moving[:, None]
+    return (torch.where(m1, new_pos, b.pos), torch.where(moving, new_angle, b.angle),
+            torch.where(m1, state[:, 0:2], b.lin_vel), torch.where(moving, state[:, 2], b.ang_vel),
+            torch.zeros_like(b.force), torch.zeros_like(b.torque))
+
+
+def writeback_2d(bodies, state):
+    """``(pos f32[N, 2], angle, lin_vel f32[N, 2], ang_vel, force f32[N, 2],
+    torque)`` of the ``Bodies2D`` ``bodies`` after the step: the delta pose
+    of the 2D solver ``state`` f32[N, 6] applied about the centre of mass of
+    every moving body, its velocities written back, and zeroed
+    accumulators."""
+    dev = bodies.pos.device
+    if dev.type == "cpu":
+        return writeback_2d_twin(bodies, state)
+    if dev.type != "cuda":
+        raise RuntimeError(f"writeback_2d: unsupported device {dev}")
+    from avian_tpu_torch.kernels import build
+
+    n = bodies.capacity
+    b = bodies
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    build.require("writeback_2d", dev, (
+        ("state", state, (n, 6), f32), ("pos", b.pos, (n, 2), f32), ("angle", b.angle, (n,), f32),
+        ("com", b.com, (n, 2), f32), ("lin_vel", b.lin_vel, (n, 2), f32),
+        ("ang_vel", b.ang_vel, (n,), f32), ("active", b.active, (n,), u8),
+        ("sleeping", b.sleeping, (n,), u8), ("body_type", b.body_type, (n,), i32),
+    ))
+    out = [torch.empty(shape, dtype=f32, device=dev) for shape in ((n, 2), (n,)) * 3]
+    if n == 0:
+        return tuple(out)
+    build.launch("avian_writeback_2d", dev, n, state, b.pos, b.angle, b.com, b.lin_vel, b.ang_vel,
+                 b.active, b.sleeping, b.body_type, *out)
+    writeback_2d.launches += 1
+    return tuple(out)
+
+
+writeback_2d.launches = 0

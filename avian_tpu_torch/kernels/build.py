@@ -80,13 +80,24 @@ _SIGNATURES = {
     "avian_island_table": [_I] * 2 + [_P] * 6 + [_P],
     "avian_island_labels": [_I] * 2 + [_P] * 3 + [_P],
     "avian_sleep_update": [_I] + [_P] * 20 + [_F] * 4 + [_P],
+    "avian_sleep_update_2d": [_I] + [_P] * 14 + [_F] * 4 + [_P],
     # Kernel K
     "avian_prepare_bodies": [_I] + [_P] * 31 + [_F] + [_P],
     "avian_writeback_bodies": [_I] + [_P] * 15 + [_P],
+    "avian_writeback_2d": [_I] + [_P] * 15 + [_P],
     # Kernel L
     "avian_pair_counts": [_I] * 4 + [_P] * 16 + [_P],
     "avian_pair_slots": [_I] * 4 + [_P] * 9 + [_P],
     "avian_pair_finish": [_I] * 6 + [_P] * 14 + [_P],
+    # Kernels U-Z of the 2D engine
+    "avian_grid_counts_2d": [_I] * 4 + [_P] * 17 + [_P],
+    "avian_manifold_2d": [_I] + [_P] * 14 + [_P],
+    "avian_contact_rows_2d": [_I] + [_P] * 36 + [_F] * 4 + [_I] + [_P] * 21 + [_P],
+    "avian_pack_count_2d": [_I] + [_P] * 7 + [_P],
+    "avian_pack_rows_2d": [_I] * 2 + [_P] * 24 + [_P] * 6 + [_F] * 6 + [_P],
+    "avian_solve_2d": [_I] * 5 + [_P] * 10 + [_F] * 5 + [_P],
+    "avian_integrate_2d": [_I] * 2 + [_P] * 3 + [_F] + [_P],
+    "avian_prepare_2d": [_I] + [_P] * 23 + [_F] + [_P],
 }
 
 

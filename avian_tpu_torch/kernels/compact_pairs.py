@@ -70,7 +70,7 @@ def joint_keys(joints, n_bodies):
     return torch.sort(key).values.contiguous()
 
 
-def _global_ok(col: Colliders, g_idx, g_valid):
+def global_ok(col: Colliders, g_idx, g_valid):
     """bool[G, M]: the global pass's candidate test."""
     m = col.active.shape[0]
     all_i = torch.arange(m, device=g_idx.device)
@@ -115,7 +115,7 @@ def compact_pairs_twin(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid
     grid_got = slots < total_grid
 
     # Global pairs after the grid region, in (global, collider) order.
-    gl_flat = _global_ok(col, g_idx, g_valid).reshape(-1).long()
+    gl_flat = global_ok(col, g_idx, g_valid).reshape(-1).long()
     gl_ends = torch.cumsum(gl_flat, dim=0)
     total_glob = gl_ends[-1]
     gl_id = torch.clamp(torch.searchsorted(gl_ends, slots - total_grid, right=True),
@@ -180,6 +180,23 @@ def compact_pairs(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid,
                  col.aabb_max, col.active, col.is_global, col.dyn, col.body, col.members,
                  col.filter, g_idx, g_valid, cnt, gflag, window_overflow)
     compact_pairs.launches += 1
+    return place_pairs(bits, cnt, gflag, window_overflow, scol, col.body, g_idx, global_overflow,
+                       jkeys, n_bodies, c_cap)
+
+
+def place_pairs(bits, cnt, gflag, window_overflow, scol, body, g_idx, global_overflow, jkeys,
+                n_bodies, c_cap) -> Pairs:
+    """Steps 2-4 above, from a sweep's candidate ``bits`` i64[E] and their
+    popcounts ``cnt`` i32[E], the global candidates' flags ``gflag``
+    i32[G * M] and the count of window overflows ``window_overflow`` i32[]:
+    the launches of ``pair_slots`` and ``pair_finish`` on CUDA tensors,
+    counted as this kernel's. Kernel U (``grid_pairs_2d``) shares them."""
+    dev = bits.device
+    from avian_tpu_torch.kernels import build
+
+    n_e, m, g_cap, j_n = bits.shape[0], body.shape[0], g_idx.shape[0], jkeys.shape[0]
+    gm = g_cap * m
+    i32, i64, u8 = torch.int32, torch.int64, torch.bool
     ends = torch.cumsum(cnt, dim=0, dtype=i32)
     gl_ends = torch.cumsum(gflag, dim=0, dtype=i32)
     ca_tmp = torch.empty((c_cap,), dtype=i32, device=dev)
@@ -196,7 +213,7 @@ def compact_pairs(bits, rank, skey, scol, w, col: Colliders, g_idx, g_valid,
         dropped=torch.empty((), dtype=i32, device=dev),
     )
     build.launch("avian_pair_finish", dev, c_cap, n_e, gm, m, n_bodies, j_n, ends, gl_ends,
-                 ca_tmp, cb_tmp, col.body, jkeys, window_overflow, global_overflow, *out)
+                 ca_tmp, cb_tmp, body, jkeys, window_overflow, global_overflow, *out)
     compact_pairs.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """Kernel J, ``islands``: island labels and the sleep update.
 
 Replaces ``avian_tpu/pipeline/sleeping.py::compute_islands`` (:33) and
-``update_sleeping`` (:99). Three entry points:
+``update_sleeping`` (:99). Four entry points:
 
 - ``island_table`` (one thread per sorted incidence): the fixed-degree
   neighbour table ``i32[N, 24]`` from the incidences that
@@ -21,12 +21,16 @@ Replaces ``avian_tpu/pipeline/sleeping.py::compute_islands`` (:33) and
   reduction per island (an integer ``atomicMin``, which has no order), the
   sleep flags and the zeroed velocities of sleepers.
 
+``sleep_update_2d`` is ``sleep_update`` for the native 2D engine
+(``avian_tpu/dim2/step.py::_update_sleeping``, :160): a scalar angular
+speed, and no teleport test, since 2D bodies keep no sleep pose.
+
 On the H100 the work is a few integer gathers per body per round, held in
 L2; one block of 1,024 threads keeps the rounds' barriers inside the block,
 so the 10 rounds are one launch. Bound by latency, not bytes.
 
-The plain PyTorch versions, ``island_table_twin``, ``island_labels_twin``
-and ``sleep_update_twin``, run on CPU tensors; on a CUDA tensor the wrappers
+The plain PyTorch versions, ``island_table_twin``, ``island_labels_twin``,
+``sleep_update_twin`` and ``sleep_update_2d_twin``, run on CPU tensors; on a CUDA tensor the wrappers
 launch the kernels or raise.
 """
 
@@ -156,16 +160,7 @@ def sleep_update_twin(bodies, island, overflow, p: SleepParams):
         & ~teleported
     )
     timer = torch.where(below, bodies.sleep_timer + p.dt, 0.0)
-    isl = island.long()
-    ready = (timer >= p.time_to_sleep) & ~overflow
-    considered = bodies.active & (bodies.body_type != types.BodyType.STATIC)
-    all_ready = torch.ones((n,), dtype=torch.int32, device=dev)
-    all_ready.scatter_reduce_(
-        0, isl, torch.where(considered, ready, True).to(torch.int32), reduce="amin"
-    )
-    sleep = considered & (all_ready[isl] > 0) & (bodies.body_type == types.BodyType.DYNAMIC)
-    woke = bodies.sleeping & ~sleep
-    timer = torch.where(woke, 0.0, timer)
+    sleep, timer = _all_asleep(bodies, island, overflow, timer, p)
     z = sleep[:, None]
     return (sleep, timer, torch.where(z, 0.0, bodies.lin_vel),
             torch.where(z, 0.0, bodies.ang_vel))
@@ -215,3 +210,68 @@ def sleep_update(bodies, island, overflow, p: SleepParams):
 
 
 sleep_update.launches = 0
+
+
+def _all_asleep(bodies, island, overflow, timer, p: SleepParams):
+    """(sleep, timer): the island all-ready reduction and the woken bodies'
+    timers, shared by both twins."""
+    n = bodies.capacity
+    isl = island.long()
+    ready = (timer >= p.time_to_sleep) & ~overflow
+    considered = bodies.active & (bodies.body_type != types.BodyType.STATIC)
+    all_ready = torch.ones((n,), dtype=torch.int32, device=timer.device)
+    all_ready.scatter_reduce_(
+        0, isl, torch.where(considered, ready, True).to(torch.int32), reduce="amin"
+    )
+    sleep = considered & (all_ready[isl] > 0) & (bodies.body_type == types.BodyType.DYNAMIC)
+    return sleep, torch.where(bodies.sleeping & ~sleep, 0.0, timer)
+
+
+def sleep_update_2d_twin(bodies, island, overflow, p: SleepParams):
+    """Plain PyTorch version; see ``sleep_update_2d``."""
+    v, w = bodies.lin_vel, bodies.ang_vel
+    below = ((v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] < p.lin_t2) & (w * w < p.ang_t2)
+             & ~bodies.sleep_disabled)
+    timer = torch.where(below, bodies.sleep_timer + p.dt, 0.0)
+    sleep, timer = _all_asleep(bodies, island, overflow, timer, p)
+    return (sleep, timer, torch.where(sleep[:, None], 0.0, v), torch.where(sleep, 0.0, w))
+
+
+def sleep_update_2d(bodies, island, overflow, p: SleepParams):
+    """``(sleeping bool[N], sleep_timer f32[N], lin_vel f32[N, 2], ang_vel
+    f32[N])`` of the ``Bodies2D`` ``bodies`` after this step, by the rules
+    of ``sleep_update`` with a scalar angular speed and no teleport test
+    (reference ``dim2/step.py::_update_sleeping``)."""
+    dev = bodies.pos.device
+    if dev.type == "cpu":
+        return sleep_update_2d_twin(bodies, island, overflow, p)
+    if dev.type != "cuda":
+        raise RuntimeError(f"sleep_update_2d: unsupported device {dev}")
+    from avian_tpu_torch.kernels import build
+
+    n = bodies.capacity
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    b = bodies
+    build.require("sleep_update_2d", dev, (
+        ("island", island, (n,), i32), ("overflow", overflow, (n,), u8),
+        ("sleeping", b.sleeping, (n,), u8), ("active", b.active, (n,), u8),
+        ("body_type", b.body_type, (n,), i32), ("sleep_disabled", b.sleep_disabled, (n,), u8),
+        ("lin_vel", b.lin_vel, (n, 2), f32), ("ang_vel", b.ang_vel, (n,), f32),
+        ("sleep_timer", b.sleep_timer, (n,), f32),
+    ))
+    sleep = torch.empty((n,), dtype=u8, device=dev)
+    timer = torch.empty((n,), dtype=f32, device=dev)
+    lin = torch.empty((n, 2), dtype=f32, device=dev)
+    ang = torch.empty((n,), dtype=f32, device=dev)
+    all_ready = torch.ones((n,), dtype=i32, device=dev)
+    if n == 0:
+        return sleep, timer, lin, ang
+    build.launch("avian_sleep_update_2d", dev, n, island, overflow, b.sleeping, b.active,
+                 b.body_type, b.sleep_disabled, b.lin_vel, b.ang_vel, b.sleep_timer, all_ready,
+                 sleep, timer, lin, ang, float(p.lin_t2), float(p.ang_t2), float(p.dt),
+                 float(p.time_to_sleep))
+    sleep_update_2d.launches += 1
+    return sleep, timer, lin, ang
+
+
+sleep_update_2d.launches = 0

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the twenty kernels (A-T) against its plain PyTorch twin at the main
+the 26 kernels (A-Z) against its plain PyTorch twin at the main
 paths' shapes (the 10,000-cube pile after 60 steps; the base-100 box pyramid
 after 2 steps, when most of its constraints sit in the overflow colour, and
 after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
@@ -28,7 +28,14 @@ terrain (Kernels S and T against their twins), steps the pyramid, the hinged
 boxes, 2,000 mixed shapes, a 2,000-body terrain and a 2,000-body
 ``terrain_ccd`` once more with every kernel replaced by its plain version
 and holds the kernels' trajectories to those, and checks that two runs are
-bitwise equal. Each phase prints one
+bitwise equal. The native 2D engine's phases hold Kernels U-Z to their twins
+at the base-100 2D pyramid's shapes (after 2 and 30 steps, and on a bouncing
+copy) and V on 4,096 random pairs of each kind, step the
+``pyramid2d_native`` golden, drive ``box_pyramid_2d(100)`` for 120 steps
+(its apex held to the reference's curve, ``tests/torch_cases/
+pyramid2d_curve.npz``) and ``many_pyramids_2d(10, 10)`` for 30, both at 24
+contact slots a box, run the 2D pyramid on the plain versions, and rerun it
+bitwise. Each phase prints one
 line; the line before the last is a JSON object with each kernel's launches,
 error, times and bound, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises, and the script exits non-zero without that
@@ -84,8 +91,23 @@ from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, POOL_KERNELS,
                                                   compute_manifolds, manifold_buckets,
                                                   pair_manifold_twin)
 from avian_tpu_torch.math import quat as quat_m
+from avian_tpu_torch.dim2 import broadphase as bp2
+from avian_tpu_torch.dim2 import contacts as nc2
+from avian_tpu_torch.dim2 import dynamics as dyn2
+from avian_tpu_torch.dim2 import physics_step_2d
+from avian_tpu_torch.dim2 import scenes as scenes2d
+from avian_tpu_torch.dim2 import solver as sol2
+from avian_tpu_torch.kernels import contact_rows_2d as kw
+from avian_tpu_torch.kernels import grid_pairs_2d as ku
+from avian_tpu_torch.kernels import integrate_2d as kz
+from avian_tpu_torch.kernels import manifold_2d as kv
+from avian_tpu_torch.kernels import pack_2d as kx
+from avian_tpu_torch.kernels import solve_2d as ky
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
+import random_pairs_2d  # noqa: E402  (Kernel V's seeded random pairs)
+
 N_CUBES = 10_000
 CONTACTS_PER_CUBE = 16
 SETTLE_STEPS = 60
@@ -332,6 +354,22 @@ REPLACES = {
                    "avian_tpu/queries/shapecast.py:59"),
     "ray_cast": ("cuda", "avian_tpu_torch/csrc/ray_cast.cu",
                  "avian_tpu/queries/raycast.py:372"),
+    "grid_pairs_2d": ("cuda", "avian_tpu_torch/csrc/grid_pairs_2d.cu",
+                      "avian_tpu/dim2/broadphase_impl.py:23"),
+    "manifold_2d": ("cuda", "avian_tpu_torch/csrc/manifold_2d.cu",
+                    "avian_tpu/dim2/narrowphase.py:339"),
+    "contact_rows_2d": ("cuda", "avian_tpu_torch/csrc/contact_rows_2d.cu",
+                        "avian_tpu/dim2/contacts.py:18"),
+    "pack_2d": ("cuda", "avian_tpu_torch/csrc/pack_2d.cu", "avian_tpu/dim2/solver.py:87"),
+    "solve_2d": ("cuda", "avian_tpu_torch/csrc/solve_2d.cu", "avian_tpu/dim2/solver.py:314"),
+    "integrate_2d": ("cuda", "avian_tpu_torch/csrc/integrate_2d.cu",
+                     "avian_tpu/dim2/dynamics.py:141"),
+    "prepare_2d": ("cuda", "avian_tpu_torch/csrc/integrate_2d.cu",
+                   "avian_tpu/dim2/dynamics.py:46"),
+    "writeback_2d": ("cuda", "avian_tpu_torch/csrc/body_pass.cu",
+                     "avian_tpu/dim2/dynamics.py:80"),
+    "sleep_update_2d": ("cuda", "avian_tpu_torch/csrc/islands.cu",
+                        "avian_tpu/dim2/step.py:160"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -2547,6 +2585,538 @@ def phase_determinism(device):
                 GOLDEN_CONFIG, GOLDEN_STEPS)
 
 
+# ---- the native 2D engine: Kernels U-Z ------------------------------------
+
+DIM2_BASE = 100
+DIM2_SLOTS_PER_BOX = 24  # the reference's 8 drop rows in the first steps (ROADMAP 3b)
+DIM2_CONFIG = PhysicsConfig(substeps=4, max_colors=8)
+DIM2_KERNEL_STEPS = 30
+DIM2_STEPS, MANY2D_STEPS = 120, 30
+MANY2D_GRID, MANY2D_BASE = 10, 10
+DIM2_REST_Y, DIM2_REST_TOL = 0.5, 0.05
+# The reference's curve, recorded on XLA:CPU by
+# tests/torch_cases/record_pyramid2d_curve.py: the apex box's height and the
+# lowest box's over 60 steps. Bands written down before the first chip run.
+DIM2_CURVE = os.path.join(ROOT, "tests", "torch_cases", "pyramid2d_curve.npz")
+# While the overflow colour drains (steps 1-30) the port on the CPU follows
+# the reference to 3e-5 m; in the rebound after it the apex parts by up to
+# 0.16 m by step 60 on the same arithmetic (the colouring of a few rows
+# differs), so the band widens there.
+DIM2_APEX_BAND_STEPS = 30
+DIM2_APEX_BAND, DIM2_APEX_BAND_LATE, DIM2_LOWEST_BAND = 0.01, 0.3, 0.002
+DIM2_PLAIN_STEPS, DIM2_PLAIN_EXACT_STEPS, DIM2_PLAIN_TIGHT_STEPS = 40, 8, 10
+DIM2_PLAIN_TOL, DIM2_PLAIN_APEX_TOL = 2e-3, 0.05
+DIM2_DETERMINISM_STEPS = 30
+TOL_Y = 1e-5  # the overflow colour's twin sums with index_add_; cosf/sinf in the kernel
+TOL_WRITEBACK = 1e-6  # cosf/sinf of the new angle in the kernel, torch.cos/sin in the twin
+DIM2_RANDOM_PAIRS = 4096
+# V's pair kinds, as kinds of _random_shape: 0 circle, 1-6 polygons, 7 plane.
+DIM2_PAIR_KINDS = {"plane/plane": ((7,), (7,)), "poly/plane": ((1, 2, 3, 4, 5, 6), (7,)),
+                   "plane/poly": ((7,), (1, 2, 3, 4, 5, 6)), "circle/circle": ((0,), (0,)),
+                   "circle/poly": ((0,), (1, 2, 3, 4, 5, 6)),
+                   "poly/circle": ((1, 2, 3, 4, 5, 6), (0,)),
+                   "poly/poly": ((1, 2, 3, 4, 5, 6), (1, 2, 3, 4, 5, 6))}
+# Operations a pair of each kind does in Kernel V (two 8 x 8 SATs, the
+# incident edge and the clip; 8 edge projections; 8 vertex depths).
+V_OPS = {"poly/poly": 1_500, "circle/poly": 250, "poly/plane": 120, "circle/circle": 20,
+         "plane/plane": 0}
+DIM2_KERNELS = ("grid_pairs_2d", "manifold_2d", "contact_rows_2d", "pack_2d", "solve_2d",
+                "integrate_2d", "prepare_2d", "writeback_2d", "sleep_update_2d")
+# Launches of each kernel in one 2D step (F's key join, G, J's labels and
+# L's slots and finish besides).
+DIM2_STEP_LAUNCHES = {
+    "grid_pairs_2d": lambda cfg: 1,
+    "compact_pairs": lambda cfg: 2,
+    "manifold_2d": lambda cfg: 1,
+    "contact_rows_2d": lambda cfg: 1,
+    "pack_2d": lambda cfg: 2,
+    "solve_2d": lambda cfg: (3 * cfg.substeps + cfg.solver.restitution_iterations)
+    * cfg.max_colors,
+    "integrate_2d": lambda cfg: 2 * cfg.substeps,
+    "prepare_2d": lambda cfg: 1,
+    "writeback_2d": lambda cfg: 1,
+    "sleep_update_2d": lambda cfg: 1 if cfg.sleeping_enabled else 0,
+    "contact_rows": lambda cfg: 1,
+    "color_edges": lambda cfg: 5 + 2 * kg.ASSIGN_ROUNDS + 1 + 1,
+    "islands": lambda cfg: 2,
+}
+
+
+def pyramid2d(device, base=None):
+    base = base or DIM2_BASE
+    n = base * (base + 1) // 2 + 1
+    return scenes2d.box_pyramid_2d(base, max_contacts=DIM2_SLOTS_PER_BOX * n, device=device)
+
+
+def many_pyramids2d(device):
+    n = MANY2D_GRID * MANY2D_GRID * MANY2D_BASE * (MANY2D_BASE + 1) // 2 + 1
+    return scenes2d.many_pyramids_2d(MANY2D_GRID, MANY2D_BASE,
+                                     max_contacts=DIM2_SLOTS_PER_BOX * n, device=device)
+
+
+def dim2_stages(world, config):
+    """This step's inputs of every 2D kernel: (world with AABBs, poses,
+    pairs, contacts, solver bodies, Z's table, constraints)."""
+    poses = bp2.collider_poses(world)
+    world = bp2.update_aabbs(world, config, poses)
+    bp = bp2.broad_phase(world, config)
+    contacts = nc2.narrow_phase(world, bp, config, poses)
+    s, table = dyn2.prepare(world.bodies, world.gravity, config.substep_dt)
+    return (world, poses, bp, contacts, s, table,
+            sol2.prepare_constraints(world, contacts, s, config))
+
+
+def v_kinds(plane, count, ca, cb, valid):
+    """The number of valid pairs of each of V's kinds among ``(ca, cb)`` (an
+    empty slot pairs collider 0 with itself)."""
+    ca, cb = ca[valid], cb[valid]
+    pa, pb = plane[ca], plane[cb]
+    circ_a, circ_b = (count[ca] == 1) & ~pa, (count[cb] == 1) & ~pb
+    both = ~pa & ~pb
+    kinds = {"plane/plane": pa & pb, "poly/plane": pa ^ pb,
+             "circle/circle": both & circ_a & circ_b, "circle/poly": both & (circ_a ^ circ_b),
+             "poly/poly": both & ~circ_a & ~circ_b}
+    return {k: int(v.sum()) for k, v in kinds.items()}
+
+
+def v_ops(kinds):
+    return sum(V_OPS[k] * n for k, n in kinds.items())
+
+
+def solve_2d_all_modes(s, con, params):
+    """Kernel Y through every colour in each mode from the same state, and
+    its twin on CPU copies (its overflow colour sums with ``index_add_``,
+    whose float atomics on the card add in no fixed order). Returns (max abs
+    difference, the kernel's impulses before and after restitution)."""
+    state_k, imp_k = s.state.clone(), con.imp.clone()
+    state_t, imp_t = state_k.cpu(), imp_k.cpu()
+    rows_t = [x.cpu() for x in (con.data, con.bucket_a, con.bucket_b, con.bucket_valid,
+                                con.relax)]
+    err = 0.0
+    for mode in (ky.WARM, ky.BIAS, ky.RELAX, ky.RESTITUTION):
+        before = imp_k.clone()
+        for c in range(con.data.shape[0]):
+            ky.solve_2d(mode, c, state_k, con.data, imp_k, con.bucket_a, con.bucket_b,
+                        con.bucket_valid, con.relax, con.ovf_order, con.ovf_key, params)
+            ky.solve_2d_twin(mode, c, state_t, rows_t[0], imp_t, *rows_t[1:], params)
+        err = max(err, float((state_k.cpu() - state_t).abs().max()),
+                  float((imp_k.cpu() - imp_t).abs().max()))
+    return err, before, imp_k
+
+
+def kernels_uvwxyz(world, config):
+    """Kernels U-Z against their twins on ``world``'s step; {name:
+    measurements}, and a note."""
+    out = {}
+    w2, poses, bp, contacts, s, table, con = dim2_stages(world, config)
+    col = w2.colliders
+
+    # --- U: grid sweep and global test (then L's slots and finish) ----------
+    args_u = bp2.grid_pair_inputs(w2, config)
+    got, want = ku.grid_pairs_2d(*args_u), ku.grid_pairs_2d_twin(*args_u)
+    for name, x, y in zip(want._fields, got, want):
+        compare(f"grid_pairs_2d {name}", x, y)
+    skey, scol, sf, si, w, colt, g_idx, g_valid = args_u[:8]
+    args_c = (skey, sf, si, w, colt, g_idx, g_valid)
+    counts = ku.grid_counts_2d(*args_c)
+    for name, x, y in zip(("bits", "cnt", "gflag", "window_overflow"), counts,
+                          ku.grid_counts_2d_twin(*args_c)):
+        compare(f"grid_counts_2d {name}", x, y)
+    out["grid_pairs_2d"] = measured(
+        0.0, lambda: ku.grid_counts_2d(*args_c), lambda: ku.grid_counts_2d_twin(*args_c),
+        nbytes(skey, sf, si, *colt, g_idx, g_valid, *counts),
+        12 * sweep_tests(skey, w) + 16 * g_idx.numel() * col.capacity,
+    )
+
+    # --- V: the step's manifolds ----------------------------------------------
+    args_v = (bp.collider_a.long(), bp.collider_b.long(), poses.pos, poses.cs, col.poly_verts,
+              col.vert_count, col.radius, col.is_plane)
+    man = kv.manifold_2d(*args_v)
+    for name, x, y in zip(kv.Manifold2D._fields, man, kv.manifold_2d_twin(*args_v)):
+        compare(f"manifold_2d {name}", x, y)
+    kinds = v_kinds(col.is_plane, col.vert_count, *args_v[:2], bp.valid)
+    out["manifold_2d"] = measured(
+        0.0, lambda: kv.manifold_2d(*args_v), lambda: kv.manifold_2d_twin(*args_v),
+        nbytes(*args_v[:2], *man) + args_v[0].numel() * 2 * 90, v_ops(kinds),
+    )
+
+    # --- W: contact rows ------------------------------------------------------
+    old = w2.contacts
+    ks, order = torch.sort(torch.cat([old.pair_key, bp.pair_key]), stable=True)
+    hit, survives = kf.contact_join(ks, order, old.capacity)
+    rank = torch.cumsum((bp.valid & (hit == 0)).to(torch.int32), 0, dtype=torch.int32) - 1
+    args_w = (w2.bodies, poses.body_cs, col, old, bp.valid, bp.collider_a, bp.collider_b, man,
+              hit, survives, rank, nc2.row_params(config))
+    rows_k, rows_t = kw.contact_rows_2d(*args_w), kw.contact_rows_2d_twin(*args_w)
+    for name in kw.ROW_COLUMNS:
+        compare(f"contact_rows_2d {name}", rows_k[name], rows_t[name].to(rows_k[name].dtype))
+    c = old.capacity
+    out["contact_rows_2d"] = measured(
+        0.0, lambda: kw.contact_rows_2d(*args_w), lambda: kw.contact_rows_2d_twin(*args_w),
+        nbytes(*rows_k.values(), bp.valid, bp.collider_a, bp.collider_b, *man, hit, survives,
+               rank) + c * (2 * 40 + 2 * 32 + 48), 150 * c,
+    )
+
+    # --- X: packed rows -------------------------------------------------------
+    ba, bb = contacts.body_a.long(), contacts.body_b.long()
+    dyn_a, dyn_b = s.solve_mask[ba] > 0, s.solve_mask[bb] > 0
+    solve = contacts.active & contacts.touching & ~contacts.is_sensor & (dyn_a | dyn_b)
+    args_x = (w2.bodies, contacts, s.state, s.inv_mass, s.inv_inertia, dyn_a, dyn_b, solve,
+              con.buckets, con.bucket_valid, *sol_m.contact_softness(config))
+    packed = kx.pack_2d(*args_x)
+    for name, x, y in zip(kx.Packed2D._fields, packed, kx.pack_2d_twin(*args_x)):
+        compare(f"pack_2d {name}", x, y)
+    slots = con.buckets.numel()
+    out["pack_2d"] = measured(
+        0.0, lambda: kx.pack_2d(*args_x), lambda: kx.pack_2d_twin(*args_x),
+        nbytes(*packed, con.buckets, con.bucket_valid) + slots * 4 * 30, 120 * slots,
+    )
+
+    # --- Z's prologue, Z and Y: one substep's integration and every solver mode
+    h = config.substep_dt
+    b = w2.bodies
+    prep = kz.prepare_2d(b, w2.gravity, h)
+    for name, x, y in zip(("state", "inv_mass", "inv_inertia", "solve_mask", "table"), prep,
+                          kz.prepare_2d_twin(b, w2.gravity, h)):
+        compare(f"prepare_2d {name}", x, y)
+    out["prepare_2d"] = measured(
+        0.0, lambda: kz.prepare_2d(b, w2.gravity, h),
+        lambda: kz.prepare_2d_twin(b, w2.gravity, h),
+        nbytes(b.body_type, b.locked_axes, b.active, b.sleeping, b.lin_vel, b.force,
+               b.const_force, b.ang_vel, b.torque, b.const_torque, b.inv_mass, b.inv_inertia,
+               b.gravity_scale, b.lin_damping, b.ang_damping, b.max_lin_speed, b.max_ang_speed,
+               w2.gravity, *prep), 30 * b.capacity,
+    )
+    for mode in (kz.VELOCITIES, kz.POSITIONS):
+        compare(f"integrate_2d mode {mode}", kz.integrate_2d(s.state, table, h, mode),
+                kz.integrate_2d_twin(s.state, table, h, mode))
+
+    def run_z(fn):
+        fn(fn(s.state, table, h, kz.VELOCITIES), table, h, kz.POSITIONS)
+
+    out["integrate_2d"] = measured(
+        0.0, lambda: run_z(kz.integrate_2d), lambda: run_z(kz.integrate_2d_twin),
+        2 * (2 * nbytes(s.state) + nbytes(table)), 2 * 30 * s.state.shape[0],
+    )
+    params = sol2.solve_params(config)
+    s1 = s.replace(state=kz.integrate_2d(s.state, table, h, kz.VELOCITIES))
+    err_y, _, _ = solve_2d_all_modes(s1, con, params)
+    reruns = [solve_2d_all_modes(s1, con, params)[2] for _ in range(2)]
+    # --- K's 2D writeback and J's 2D sleep update, on the substep's state ----
+    moved = kz.integrate_2d(s1.state, table, h, kz.POSITIONS)
+    wb = kk.writeback_2d(b, moved)
+    err_wb = 0.0
+    for name, x, y in zip(("pos", "angle", "lin_vel", "ang_vel", "force", "torque"), wb,
+                          kk.writeback_2d_twin(b, moved)):
+        err_wb = max(err_wb, compare(f"writeback_2d {name}", x, y, TOL_WRITEBACK))
+    out["writeback_2d"] = measured(
+        err_wb, lambda: kk.writeback_2d(b, moved), lambda: kk.writeback_2d_twin(b, moved),
+        nbytes(moved, b.pos, b.angle, b.com, b.lin_vel, b.ang_vel, b.active, b.sleeping,
+               b.body_type, *wb), 100 * b.capacity,
+    )
+    b_new = b.replace(pos=wb[0], angle=wb[1], lin_vel=wb[2], ang_vel=wb[3])
+    island, overflow = sleep_m.compute_islands(b_new, contacts, w2.joints)
+    lin_t = config.sleep_linear_threshold * config.length_unit
+    sparams = kj.SleepParams(lin_t * lin_t, config.sleep_angular_threshold ** 2, config.dt,
+                             config.time_to_sleep)
+    s_in = (b_new, island, overflow, sparams)
+    slept = kj.sleep_update_2d(*s_in)
+    for name, x, y in zip(("sleeping", "sleep_timer", "lin_vel", "ang_vel"), slept,
+                          kj.sleep_update_2d_twin(*s_in)):
+        compare(f"sleep_update_2d {name}", x, y)
+    out["sleep_update_2d"] = measured(
+        0.0, lambda: kj.sleep_update_2d(*s_in), lambda: kj.sleep_update_2d_twin(*s_in),
+        nbytes(island, overflow, b_new.sleeping, b_new.active, b_new.body_type,
+               b_new.sleep_disabled, b_new.lin_vel, b_new.ang_vel, b_new.sleep_timer, *slept),
+        12 * b.capacity,
+    )
+    compare("solve_2d rerun", reruns[0], reruns[1])
+    if err_y > TOL_Y:
+        raise AssertionError(f"solve_2d: max abs err {err_y} > {TOL_Y}")
+    colors = con.data.shape[0]
+
+    def run_y(twin):
+        st, imp = (s1.state.cpu(), con.imp.cpu()) if twin else (s1.state.clone(), con.imp.clone())
+        rows = [x.cpu() for x in (con.data, con.bucket_a, con.bucket_b, con.bucket_valid,
+                                  con.relax)] if twin else None
+
+        def go():
+            for color in range(colors):
+                if twin:
+                    ky.solve_2d_twin(ky.BIAS, color, st, rows[0], imp, *rows[1:], params)
+                else:
+                    ky.solve_2d(ky.BIAS, color, st, con.data, imp, con.bucket_a, con.bucket_b,
+                                con.bucket_valid, con.relax, con.ovf_order, con.ovf_key,
+                                params)
+        return go
+
+    rows_y = int(con.bucket_valid.sum())
+    out["solve_2d"] = measured(
+        err_y, run_y(False), run_y(True),
+        4 * rows_y * (ky.D + 2 * ky.IMP + 3 + 2 * ky.STATE + 2 * 3), 500 * rows_y,
+    )
+    note = (f"{int(bp.num_pairs)} pairs ({kinds}), {rows_y} rows solved, "
+            f"{int(con.bucket_valid[-1].sum())} of them in the overflow colour")
+    return out, note
+
+
+def random_v_pairs(device):
+    """V against its twin on ``DIM2_RANDOM_PAIRS`` seeded random pairs of
+    each of its kinds, bitwise; returns (label, arguments, output) of each
+    kind's launch."""
+    rng = np.random.default_rng(7)
+    timed = []
+    for seed, (label, (ka_, kb_)) in enumerate(DIM2_PAIR_KINDS.items()):
+        kinds = np.stack([rng.choice(ka_, DIM2_RANDOM_PAIRS), rng.choice(kb_, DIM2_RANDOM_PAIRS)],
+                         -1)
+        ca, cb, t = random_pairs_2d.random_pairs(DIM2_RANDOM_PAIRS, 100 + seed, kinds=kinds,
+                                          device=device)
+        cs = torch.stack([torch.cos(t["angle"]), torch.sin(t["angle"])], -1).contiguous()
+        args = (ca, cb, t["pos"], cs, t["verts"], t["count"], t["radius"], t["plane"])
+        got = kv.manifold_2d(*args)
+        for name, x, y in zip(kv.Manifold2D._fields, got, kv.manifold_2d_twin(*args)):
+            compare(f"manifold_2d {label} {name}", x, y)
+        timed.append((label, args, got))
+    return timed
+
+
+def phase_dim2_kernels(device):
+    """U-Z against their twins at the base-100 2D pyramid's state after
+    ``DIM2_KERNEL_STEPS`` steps (and after 2, most rows in the overflow
+    colour; errors only), its bouncing copy for Y's restitution, and V on
+    4,096 random pairs of each kind. Returns {name: measurements}."""
+    world, _ = pyramid2d(device)
+    early = None
+    for i in range(DIM2_KERNEL_STEPS):
+        world = physics_step_2d(world, DIM2_CONFIG)
+        if i == 1:
+            early = world
+    torch.cuda.synchronize()
+    out, note = kernels_uvwxyz(world, DIM2_CONFIG)
+    say("dim2 kernels", show(f"pyramid2d base {DIM2_BASE} after {DIM2_KERNEL_STEPS} steps",
+                             out) + f" ({note})")
+    for tag, w in (("after 2 steps", early), ("bouncing", bouncing2d(world))):
+        more, note = kernels_uvwxyz(w, DIM2_CONFIG)
+        for name, v in more.items():
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], v["max_abs_err"])
+        say("dim2 kernels", f"[{tag}] U-Z against their twins: " + ", ".join(
+            f"{k} err {v['max_abs_err']:.3g}" for k, v in more.items()) + f" ({note})")
+    parts = []
+    for label, args, got in random_v_pairs(device):
+        kind = {"plane/poly": "poly/plane", "poly/circle": "circle/poly"}.get(label, label)
+        b_ms, b_by = bound(nbytes(*args, *got), V_OPS[kind] * DIM2_RANDOM_PAIRS)
+        parts.append(f"{label} {cuda_ms(lambda: kv.manifold_2d(*args)):.4f} ms "
+                     f"(twin {cuda_ms(lambda: kv.manifold_2d_twin(*args)):.4f}, bound "
+                     f"{b_ms:.5f} {b_by})")
+    say("dim2 kernels", f"manifold_2d on {DIM2_RANDOM_PAIRS} random pairs of each kind, "
+        "bitwise equal to its twin: " + "; ".join(parts))
+    return out
+
+
+def bouncing2d(world):
+    """The 2D world with restitution 0.7 on every collider and every dynamic
+    body awake and moving down at 3 m/s, so that Y's restitution mode acts."""
+    b = world.bodies
+    down = torch.tensor([0.0, -3.0], device=b.lin_vel.device)
+    dyn = (b.body_type == BodyType.DYNAMIC)[:, None]
+    return world.replace(
+        bodies=b.replace(lin_vel=b.lin_vel + down * dyn, sleeping=torch.zeros_like(b.sleeping)),
+        colliders=world.colliders.replace(
+            restitution=torch.full_like(world.colliders.restitution, 0.7)))
+
+
+def phase_dim2_golden(device):
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "pyramid2d_native.npz"))
+    world, _ = scenes2d.box_pyramid_2d(6, device=device)
+    pos, angle = [], []
+    for i in range(GOLDEN_STEPS):
+        world = physics_step_2d(world, GOLDEN_CONFIG)
+        if (i + 1) % GOLDEN_STRIDE == 0:
+            pos.append(world.bodies.pos.cpu().numpy())
+            angle.append(world.bodies.angle.cpu().numpy())
+    drift = float(np.abs(np.stack(pos) - golden["pos"]).max())
+    adrift = float(np.abs(np.stack(angle) - golden["angle"]).max())
+    say("dim2 golden", f"pyramid2d_native {GOLDEN_STEPS} steps at 1/64 s: max drift {drift:.3g} "
+        f"m, angle {adrift:.3g} rad (limit {GOLDEN_TOL})")
+    if not (drift < GOLDEN_TOL and adrift < GOLDEN_TOL):
+        raise AssertionError(f"pyramid2d_native: drift {drift}, {adrift} >= {GOLDEN_TOL}")
+
+
+def drive2d(what, world, ids, config, steps, smi, each_step=None):
+    """``steps`` 2D steps with diagnostics. Fails on a dropped pair or an
+    overflow drop (running maxima), a non-finite state, the lowest box off
+    ``DIM2_REST_Y`` by more than ``DIM2_REST_TOL`` at the end, or launch
+    counts other than the steps imply. Returns the world and the launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    idx = torch.tensor(ids, device=world.bodies.pos.device)
+    max_dropped = max_overflow = max_rows = 0
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        world, diag = physics_step_2d(world, config, return_diagnostics=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        max_dropped = max(max_dropped, int(diag["dropped_pairs"]))
+        max_overflow = max(max_overflow, int(diag["overflow_dropped"]))
+        max_rows = max(max_rows, int(diag["num_overflow"]))
+        if each_step is not None:
+            each_step(i, world, idx)
+    got = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    b = world.bodies
+    for name in ("pos", "angle", "lin_vel", "ang_vel"):
+        if not bool(torch.isfinite(getattr(b, name)).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+    if bool(world.diverged) or max_dropped or max_overflow:
+        raise AssertionError(f"{what}: diverged {bool(world.diverged)}, dropped pairs "
+                             f"{max_dropped}, overflow drops {max_overflow}")
+    expect = {name: steps * n(config) for name, n in DIM2_STEP_LAUNCHES.items()}
+    if {k: got[k] for k in expect} != expect or any(
+            v for k, v in got.items() if k not in expect):
+        raise AssertionError(f"{what}: launches {got} != expected {expect}")
+    lowest = float(b.pos[idx, 1].min())
+    if not abs(lowest - DIM2_REST_Y) <= DIM2_REST_TOL:
+        raise AssertionError(f"{what}: lowest box at {lowest} m, not {DIM2_REST_Y} +- "
+                             f"{DIM2_REST_TOL}")
+    ms = 1e3 * sum(times) / len(times)
+    say(what, f"{len(ids)} bodies, {world.contacts.capacity} contact slots, {steps} steps at "
+        f"{ms:.2f} ms/step (median {1e3 * sorted(times)[len(times) // 2]:.2f}, last "
+        f"{1e3 * times[-1]:.2f}), {1e3 * len(ids) / ms:.0f} body-steps/s; peak "
+        f"{peak / 2**20:.0f} MiB; dropped 0, overflow drops 0, most rows in the overflow "
+        f"colour {max_rows}; lowest box {lowest:.4f} m; end: {int(diag['num_sleeping'])} "
+        f"asleep; launches {got} [{smi}]")
+    return world, got
+
+
+def phase_pyramid2d(device, smi):
+    """The 2D pyramid path: the base-100 pyramid at 24 contact slots a box for
+    ``DIM2_STEPS`` steps, its apex and lowest box held to the reference's
+    curve over the curve's steps, then ``many_pyramids_2d(10, 10)``. Returns
+    the first's launch counts."""
+    curve = np.load(DIM2_CURVE)
+    world, ids = pyramid2d(device)
+    apex_id = int(curve["apex_id"])
+    track = []
+
+    def each_step(i, w, idx):
+        if i < curve["apex"].shape[0]:
+            track.append((float(w.bodies.pos[apex_id, 1]), float(w.bodies.pos[idx, 1].min())))
+
+    world, got = drive2d("pyramid2d", world, ids, DIM2_CONFIG, DIM2_STEPS, smi, each_step)
+    track = np.asarray(track)
+    apex_gap = np.abs(track[:, 0] - curve["apex"])
+    low_gap = np.abs(track[:, 1] - curve["lowest"])
+    early = apex_gap[:DIM2_APEX_BAND_STEPS].max(initial=0.0)
+    late = apex_gap[DIM2_APEX_BAND_STEPS:].max(initial=0.0)
+    say("pyramid2d", f"against the reference's curve over {track.shape[0]} steps: apex within "
+        f"{early:.4f} m in steps 1-{DIM2_APEX_BAND_STEPS} (band {DIM2_APEX_BAND}) and "
+        f"{late:.4f} m after (band {DIM2_APEX_BAND_LATE}), lowest box within "
+        f"{low_gap.max():.4f} m (band {DIM2_LOWEST_BAND}); step: apex port, reference (m): "
+        + "; ".join(f"{i + 1}: {track[i, 0]:.4f}, {curve['apex'][i]:.4f}"
+                    for i in range(4, track.shape[0], 5)))
+    if not (early <= DIM2_APEX_BAND and late <= DIM2_APEX_BAND_LATE
+            and low_gap.max() <= DIM2_LOWEST_BAND):
+        raise AssertionError(f"pyramid2d: off the reference's curve: apex {early}, {late}, "
+                             f"lowest {low_gap.max()}")
+    world, ids = many_pyramids2d(device)
+    drive2d("many_pyramids2d", world, ids, DIM2_CONFIG, MANY2D_STEPS, smi)
+    return got
+
+
+@contextlib.contextmanager
+def plain_versions_2d():
+    """Within the block every wrapper of the 2D step is its plain PyTorch
+    version (F's join, G and J included); no kernel is launched."""
+    def solve_2d_plain(mode, color, state, data, imp, bucket_a, bucket_b, bucket_valid, relax,
+                       ovf_order, ovf_key, params):
+        return ky.solve_2d_twin(mode, color, state, data, imp, bucket_a, bucket_b,
+                                bucket_valid, relax, params)
+
+    swaps = [
+        (ku, "grid_pairs_2d", ku.grid_pairs_2d_twin), (kv, "manifold_2d", kv.manifold_2d_twin),
+        (kw, "contact_rows_2d", kw.contact_rows_2d_twin), (kx, "pack_2d", kx.pack_2d_twin),
+        (ky, "solve_2d", solve_2d_plain), (kz, "integrate_2d", kz.integrate_2d_twin),
+        (kz, "prepare_2d", kz.prepare_2d_twin), (kk, "writeback_2d", kk.writeback_2d_twin),
+        (kj, "sleep_update_2d", kj.sleep_update_2d_twin),
+        (kf, "contact_join", kf.contact_join_twin),
+        (kg, "color_edges", kg.color_edges_twin), (kg, "bucket_edges", kg.bucket_edges_twin),
+        (sleep_m, "run_rank", kr.run_rank_twin),
+        (kj, "island_table", kj.island_table_twin), (kj, "island_labels", kj.island_labels_twin),
+    ]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+def trajectory2d(world, config, steps, idx):
+    frames, overflow = [], []
+    for _ in range(steps):
+        world, diag = physics_step_2d(world, config, return_diagnostics=True)
+        frames.append(world.bodies.pos[idx].clone())
+        overflow.append(int(diag["num_overflow"]))
+    return torch.stack(frames), overflow
+
+
+def phase_dim2_plain_path(device):
+    """The base-100 2D pyramid from its start for ``DIM2_PLAIN_STEPS`` steps
+    on the kernels, then on their plain versions alone (on the card, no
+    kernel launched): the rows in the overflow colour agree for
+    ``DIM2_PLAIN_EXACT_STEPS`` steps, every box within ``DIM2_PLAIN_TOL`` for
+    ``DIM2_PLAIN_TIGHT_STEPS``, the apexes within ``DIM2_PLAIN_APEX_TOL``
+    throughout."""
+    world, ids = pyramid2d(device)
+    idx = torch.tensor(ids, device=device)
+    apex = int(torch.argmax(world.bodies.pos[idx, 1]))
+    on_k, ovf_k = trajectory2d(world, DIM2_CONFIG, DIM2_PLAIN_STEPS, idx)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_versions_2d():
+        on_p, ovf_p = trajectory2d(world, DIM2_CONFIG, DIM2_PLAIN_STEPS, idx)
+    seconds = time.perf_counter() - t0
+    if any(kernels.launches().values()):
+        raise AssertionError(f"dim2 plain path: kernels were launched: {kernels.launches()}")
+    diff = (on_k - on_p).abs().amax(dim=(1, 2))
+    apart = (on_k[:, apex, 1] - on_p[:, apex, 1]).abs()
+    tight = float(diff[:DIM2_PLAIN_TIGHT_STEPS].max())
+    say("dim2 plain path", f"pyramid2d base {DIM2_BASE}, {DIM2_PLAIN_STEPS} steps on the kernels "
+        f"and on their plain versions ({seconds:.1f} s): largest difference of any box in the "
+        f"first {DIM2_PLAIN_TIGHT_STEPS} steps {tight:.3g} m (limit {DIM2_PLAIN_TOL}), of the "
+        f"apexes in all {float(apart.max()):.3g} m (limit {DIM2_PLAIN_APEX_TOL}); step: apex y "
+        f"on kernels, on plain versions, largest difference, overflow rows on kernels, on "
+        f"plain: " + "; ".join(
+            f"{i + 1}: {float(on_k[i, apex, 1]):.4f}, {float(on_p[i, apex, 1]):.4f}, "
+            f"{float(diff[i]):.2g}, {ovf_k[i]}, {ovf_p[i]}"
+            for i in range(4, DIM2_PLAIN_STEPS, 5)))
+    if ovf_k[:DIM2_PLAIN_EXACT_STEPS] != ovf_p[:DIM2_PLAIN_EXACT_STEPS]:
+        raise AssertionError(f"dim2 plain path: overflow rows differ: {ovf_k} against {ovf_p}")
+    if not (tight <= DIM2_PLAIN_TOL and float(apart.max()) <= DIM2_PLAIN_APEX_TOL):
+        raise AssertionError(f"dim2 plain path: boxes {tight} m, apexes {float(apart.max())} m "
+                             "apart")
+
+
+def phase_dim2_determinism(device):
+    finals = []
+    for _ in range(2):
+        world, _ = pyramid2d(device)
+        for _ in range(DIM2_DETERMINISM_STEPS):
+            world = physics_step_2d(world, DIM2_CONFIG)
+        finals.append([getattr(world.bodies, k).cpu() for k in ("pos", "angle", "lin_vel",
+                                                                 "ang_vel")])
+    for x, y in zip(*finals):
+        if not torch.equal(x, y):
+            raise AssertionError("determinism: two runs of pyramid2d differ")
+    say("determinism", f"pyramid2d base {DIM2_BASE} x {DIM2_DETERMINISM_STEPS} steps twice: "
+        "pos, angle, lin_vel, ang_vel bitwise equal")
+
+
 def main():
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -2574,6 +3144,11 @@ def main():
     timed("ccd scenes", phase_ccd_reference, device)
     measured_queries, query_launches = timed("queries", phase_queries, device, smi)
     measured_by_kernel.update(measured_queries)
+    measured_by_kernel.update(timed("dim2 kernels", phase_dim2_kernels, device))
+    timed("dim2 golden", phase_dim2_golden, device)
+    dim2_launches = timed("pyramid2d", phase_pyramid2d, device, smi)
+    timed("dim2 plain path", phase_dim2_plain_path, device)
+    timed("dim2 determinism", phase_dim2_determinism, device)
     timed("plain path", phase_plain_path, device)
     timed("hinges plain path", phase_hinges_plain_path, device)
     timed("shapes plain path", phase_shapes_plain_path, device)
@@ -2586,11 +3161,11 @@ def main():
     for name, (route, source, replaces) in REPLACES.items():
         # ``launches``: the path that exercises the kernel most (the terrain
         # for P, the reference scenes for Q, the mixed shapes for M, N, O,
-        # the swept-CCD terrain for R, the queries for S and T; the hinged
-        # boxes for the others).
+        # the swept-CCD terrain for R, the queries for S and T, the 2D
+        # pyramid for U-Z; the hinged boxes for the others).
         main = {"hull_manifold": terrain_launches, "plane_hull_manifold": scene_launches,
                 "swept_toi": ccd_launches, "shape_cast": query_launches,
-                "ray_cast": query_launches}.get(
+                "ray_cast": query_launches, **dict.fromkeys(DIM2_KERNELS, dim2_launches)}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -2600,6 +3175,7 @@ def main():
                          terrain_launches=terrain_launches[name],
                          scene_launches=scene_launches[name],
                          ccd_launches=ccd_launches[name], query_launches=query_launches[name],
+                         pyramid2d_launches=dim2_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """Where one full step of the port spends its time on a CUDA card.
 
-    python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain|terrain_ccd]
-                            [--out profile.json]
+    python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain|terrain_ccd|
+                                     pyramid2d|many_pyramids2d] [--out profile.json]
 
 Settles the scene with the smoke's config for 30 steps (40 for ``shapes``
 and ``terrain``, 2 for ``terrain_ccd``),
@@ -18,17 +18,23 @@ shapes, rocks and round cuboids over a heightfield of 8,192 triangles) with
 and ``terrain_ccd`` is ``terrain_ccd(10_000, per_row=48)`` (that terrain and
 32 bullets fired down into it at 300 m/s, 24 slots per body) with the
 terrain's config and swept CCD, two steps in: the bullets are 2 m above the
-pile and the field, and meet them in the measured steps.
-Then it measures from
+pile and the field, and meet them in the measured steps. ``pyramid2d`` is
+the native 2D engine's ``box_pyramid_2d(100)`` (5,050 boxes) and
+``many_pyramids2d`` its ``many_pyramids_2d(10, 10)`` (5,500 boxes), both with
+24 slots per body and ``PhysicsConfig(substeps=4, max_colors=8)``, stepped by
+``dim2.physics_step_2d``. Then it measures from
 that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
   synchronized after every stage, mean of 3 steps (solver and integration
   stages summed over the substeps; ``ccd`` is the swept-CCD pass, Kernel R
-  and its prologue, with ``swept_ccd`` on);
-- ``narrowphase_split_ms``: the narrowphase's manifold kernels (A, M, N, O,
-  P, Q)
-  on the same state, each the sum of its shape-pair buckets, and the
+  and its prologue, with ``swept_ccd`` on); for a 2D scene the stages are
+  broadphase (Kernel U with L's slots and finish), narrowphase (V, F's
+  join, W), prepare (Z's prologue, G, X), substeps (Z and Y), restitution
+  (Y), store+writeback (the impulses' store, K's 2D writeback) and sleeping
+  (J's labels and 2D sleep update);
+- ``narrowphase_split_ms`` (3D scenes): the narrowphase's manifold kernels
+  (A, M, N, O, P, Q) on the same state, each the sum of its shape-pair buckets, and the
   bucketing before them, mean of 3; the rest of the stage ``narrowphase``
   is the persistence join and Kernel F;
 - ``step_wall_ms``: 5 whole steps, synchronized around each;
@@ -51,6 +57,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from avian_tpu_torch import PhysicsConfig, physics_step, scenes
 from avian_tpu_torch.core.types import ShapeType
+from avian_tpu_torch.dim2 import broadphase as bp2
+from avian_tpu_torch.dim2 import contacts as nc2
+from avian_tpu_torch.dim2 import dynamics as dyn2
+from avian_tpu_torch.dim2 import physics_step_2d
+from avian_tpu_torch.dim2 import scenes as scenes2d
+from avian_tpu_torch.dim2 import solver as sol2
+from avian_tpu_torch.dim2.step import update_sleeping as update_sleeping_2d
 from avian_tpu_torch.geometry.narrowphase import manifold_buckets
 from avian_tpu_torch.pipeline import broadphase as bp_m
 from avian_tpu_torch.pipeline import ccd as ccd_m
@@ -75,6 +88,7 @@ _TERRAIN_SHAPES = (0, 1, 2, 4, 5, 8)
 TERRAIN_CONFIG = CONFIG.replace(sap_window=64, shape_pairs=tuple(
     (a, b) for i, a in enumerate(_TERRAIN_SHAPES) for b in _TERRAIN_SHAPES[i:]))
 CCD_BULLETS, CCD_SETTLE_STEPS = 32, 2
+CONFIG_2D = PhysicsConfig(substeps=4, max_colors=8)
 KERNEL_OF = {"box_manifold": "Kernel A", "convex_manifold": "Kernel M",
              "round_manifold": "Kernel N", "plane_patch_manifold": "Kernel O",
              "hull_manifold": "Kernel P", "plane_hull_manifold": "Kernel Q"}
@@ -132,6 +146,44 @@ def stage_ms(world, config):
     return out
 
 
+def stage_ms_2d(world, config):
+    """{stage: ms} of one 2D step, staged as ``dim2/step.py::_core``."""
+    out = {}
+    t0 = [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = out.get(name, 0.0) + 1e3 * (now - t0[0])
+        t0[0] = now
+
+    h = config.substep_dt
+    poses = bp2.collider_poses(world)
+    w2 = bp2.update_aabbs(world, config, poses)
+    bp = bp2.broad_phase(w2, config)
+    mark("broadphase")
+    contacts = nc2.narrow_phase(w2, bp, config, poses)
+    mark("narrowphase")
+    s, table = dyn2.prepare(w2.bodies, w2.gravity, h)
+    con = sol2.prepare_constraints(w2, contacts, s, config)
+    mark("prepare")
+    for _ in range(config.substeps):
+        s = dyn2.integrate_velocities(s, table, h)
+        s = sol2.warm_start(s, con, config)
+        s, con = sol2.solve_pass(s, con, True, config)
+        s = dyn2.integrate_positions(s, table, h)
+        s, con = sol2.solve_pass(s, con, False, config)
+    mark("substeps")
+    s, con = sol2.solve_restitution(s, con, config)
+    mark("restitution")
+    stored = sol2.store_impulses(contacts, con)
+    bodies = dyn2.writeback(w2.bodies, s)
+    mark("store+writeback")
+    update_sleeping_2d(bodies, stored, w2.joints, config)
+    mark("sleeping")
+    return out
+
+
 def narrowphase_split_ms(world, config):
     """{kernel: ms} of the manifold launches of one step, each kernel's
     buckets summed, and the bucketing that precedes them."""
@@ -158,7 +210,8 @@ def narrowphase_split_ms(world, config):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="pile",
-                    choices=("pile", "pyramid", "hinges", "shapes", "terrain", "terrain_ccd"))
+                    choices=("pile", "pyramid", "hinges", "shapes", "terrain", "terrain_ccd",
+                             "pyramid2d", "many_pyramids2d"))
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -169,7 +222,16 @@ def main():
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda", 0)
     config, settle = CONFIG, SETTLE_STEPS
-    if args.scene == "shapes":
+    step, stages = physics_step, stage_ms
+    if args.scene in ("pyramid2d", "many_pyramids2d"):
+        config, step, stages = CONFIG_2D, physics_step_2d, stage_ms_2d
+        if args.scene == "pyramid2d":
+            world, ids = scenes2d.box_pyramid_2d(PYRAMID_BASE, max_contacts=PYRAMID_SLOTS,
+                                                 device=device)
+        else:
+            world, ids = scenes2d.many_pyramids_2d(10, 10, max_contacts=24 * 5_501,
+                                                   device=device)
+    elif args.scene == "shapes":
         config, settle = SHAPES_CONFIG, SHAPES_SETTLE_STEPS
         world, ids = scenes.many_shapes(SHAPES_N, per_row=SHAPES_PER_ROW,
                                         max_contacts=16 * (SHAPES_N + 1), device=device)
@@ -191,23 +253,24 @@ def main():
         world, ids = scenes.falling_hinges(
             HINGE_ROWS, HINGE_COLS, max_contacts=16 * (HINGE_ROWS * HINGE_COLS + 1), device=device)
     for _ in range(settle):
-        world = physics_step(world, config)
+        world = step(world, config)
     torch.cuda.synchronize()
 
-    runs = [stage_ms(world, config) for _ in range(3)]
+    runs = [stages(world, config) for _ in range(3)]
     result = {"card": smi, "scene": args.scene, "bodies": len(ids),
               "contact_slots": world.contacts.capacity, "after_steps": settle,
               "stage_ms": {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}}
-    splits = [narrowphase_split_ms(world, config) for _ in range(3)]
-    result["narrowphase_split_ms"] = {k: sum(r[k] for r in splits) / len(splits)
-                                      for k in splits[0]}
+    if step is physics_step:
+        splits = [narrowphase_split_ms(world, config) for _ in range(3)]
+        result["narrowphase_split_ms"] = {k: sum(r[k] for r in splits) / len(splits)
+                                          for k in splits[0]}
 
     walls = []
     w = world
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        w = physics_step(w, config)
+        w = step(w, config)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     result["step_wall_ms"] = walls
@@ -217,7 +280,7 @@ def main():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            w = physics_step(w, config)
+            w = step(w, config)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     kernels = []

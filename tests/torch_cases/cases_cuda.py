@@ -940,3 +940,189 @@ def test_ray_cast_matches_twin_and_is_reproducible(cuda, landed, solid):
     assert torch.equal(got[0].cpu() < raycast.BIG, hit) and int(hit.sum()) > 100
     _same(got[0].cpu()[hit], want[0][hit], 1e-5)
     _same(got[1].cpu()[hit], want[1][hit], 1e-5)
+
+
+# ---- the native 2D engine: Kernels U-Z ------------------------------------
+
+DIM2_CONFIG = PhysicsConfig(substeps=4, max_colors=8)
+
+
+@pytest.fixture(scope="module", params=[2, 12])
+def dim2_pyramid(cuda, request):
+    """A base-40 2D pyramid (820 boxes) at 24 contact slots a box after 2
+    steps (most rows in the overflow colour) and after 12."""
+    from avian_tpu_torch.dim2 import physics_step_2d, scenes as scenes2d
+
+    world, _ = scenes2d.box_pyramid_2d(40, max_contacts=24 * 821, device=cuda)
+    for _ in range(request.param):
+        world = physics_step_2d(world, DIM2_CONFIG)
+    return world
+
+
+def _dim2_stages(world):
+    """This step's inputs of every 2D kernel, on the card."""
+    from avian_tpu_torch.dim2 import broadphase as bp2, contacts as nc2, dynamics as dyn2
+    from avian_tpu_torch.dim2 import solver as sol2
+
+    poses = bp2.collider_poses(world)
+    world = bp2.update_aabbs(world, DIM2_CONFIG, poses)
+    bp = bp2.broad_phase(world, DIM2_CONFIG)
+    contacts = nc2.narrow_phase(world, bp, DIM2_CONFIG, poses)
+    s, table = dyn2.prepare(world.bodies, world.gravity, DIM2_CONFIG.substep_dt)
+    con = sol2.prepare_constraints(world, contacts, s, DIM2_CONFIG)
+    return world, poses, bp, contacts, s, table, con
+
+
+def test_grid_pairs_2d_matches_twin(cuda, dim2_pyramid):
+    from avian_tpu_torch.dim2 import broadphase as bp2
+    from avian_tpu_torch.kernels import grid_pairs_2d as ku
+
+    world = bp2.update_aabbs(dim2_pyramid, DIM2_CONFIG, bp2.collider_poses(dim2_pyramid))
+    args = bp2.grid_pair_inputs(world, DIM2_CONFIG)
+    got, want = ku.grid_pairs_2d(*args), ku.grid_pairs_2d_twin(*args)
+    for x, y in zip(got, want):
+        _same(x, y)
+    assert int(got.num_pairs) > 2000 and int(got.dropped) == 0
+    skey, _, sf, si, w, col, g_idx, g_valid = args[:8]
+    for x, y in zip(ku.grid_counts_2d(skey, sf, si, w, col, g_idx, g_valid),
+                    ku.grid_counts_2d_twin(skey, sf, si, w, col, g_idx, g_valid)):
+        _same(x, y)
+
+
+def test_prepare_2d_writeback_2d_and_sleep_update_2d_match_twins(cuda, dim2_pyramid):
+    """Z's prologue bitwise; K's 2D writeback at 1e-6 (``cosf``/``sinf`` of
+    the new angle in the kernel); J's 2D sleep update bitwise."""
+    from avian_tpu_torch.kernels import body_pass as kk, integrate_2d as kz, islands as kj
+    from avian_tpu_torch.pipeline.sleeping import compute_islands
+
+    world, _, _, contacts, _, _, _ = _dim2_stages(dim2_pyramid)
+    b, h = world.bodies, DIM2_CONFIG.substep_dt
+    got = kz.prepare_2d(b, world.gravity, h)
+    for x, y in zip(got, kz.prepare_2d_twin(b, world.gravity, h)):
+        _same(x, y)
+    moved = kz.integrate_2d(kz.integrate_2d(got[0], got[4], h, kz.VELOCITIES), got[4], h,
+                            kz.POSITIONS)
+    wb = kk.writeback_2d(b, moved)
+    for x, y in zip(wb, kk.writeback_2d_twin(b, moved)):
+        _same(x, y, 1e-6)
+    b = b.replace(pos=wb[0], angle=wb[1], lin_vel=wb[2], ang_vel=wb[3])
+    island, overflow = compute_islands(b, contacts, world.joints)
+    cfg = DIM2_CONFIG
+    lin_t = cfg.sleep_linear_threshold * cfg.length_unit
+    params = kj.SleepParams(lin_t * lin_t, cfg.sleep_angular_threshold ** 2, cfg.dt,
+                            cfg.time_to_sleep)
+    for timer in (b.sleep_timer, torch.full_like(b.sleep_timer, 10.0)):
+        args = (b.replace(sleep_timer=timer), island, overflow, params)
+        for x, y in zip(kj.sleep_update_2d(*args), kj.sleep_update_2d_twin(*args)):
+            _same(x, y)
+
+
+def test_manifold_2d_matches_twin(cuda, dim2_pyramid):
+    """On the step's pairs and on 4,096 random pairs of every kind: bitwise."""
+    from avian_tpu_torch.kernels import manifold_2d as kv
+    from random_pairs_2d import random_pairs
+
+    world, poses, bp, *_ = _dim2_stages(dim2_pyramid)
+    col = world.colliders
+    args = (bp.collider_a.long(), bp.collider_b.long(), poses.pos, poses.cs, col.poly_verts,
+            col.vert_count, col.radius, col.is_plane)
+    for got, want in zip(kv.manifold_2d(*args), kv.manifold_2d_twin(*args)):
+        _same(got, want)
+    ca, cb, t = random_pairs(4096, 3, device=cuda)
+    cs = torch.stack([torch.cos(t["angle"]), torch.sin(t["angle"])], -1).contiguous()
+    args = (ca, cb, t["pos"], cs, t["verts"], t["count"], t["radius"], t["plane"])
+    for got, want in zip(kv.manifold_2d(*args), kv.manifold_2d_twin(*args)):
+        _same(got, want)
+
+
+def test_contact_rows_2d_and_pack_2d_match_twins(cuda, dim2_pyramid):
+    from avian_tpu_torch.dim2 import contacts as nc2
+    from avian_tpu_torch.kernels import contact_rows_2d as kw, manifold_2d as kv, pack_2d as kx
+    from avian_tpu_torch.pipeline.solver import contact_softness
+
+    world, poses, bp, contacts, s, _, con = _dim2_stages(dim2_pyramid)
+    col, old = world.colliders, world.contacts
+    man = kv.manifold_2d(bp.collider_a.long(), bp.collider_b.long(), poses.pos, poses.cs,
+                         col.poly_verts, col.vert_count, col.radius, col.is_plane)
+    ks, order = torch.sort(torch.cat([old.pair_key, bp.pair_key]), stable=True)
+    hit, survives = kf.contact_join(ks, order, old.capacity)
+    rank = torch.cumsum((bp.valid & (hit == 0)).to(torch.int32), 0, dtype=torch.int32) - 1
+    args = (world.bodies, poses.body_cs, col, old, bp.valid, bp.collider_a, bp.collider_b, man,
+            hit, survives, rank, nc2.row_params(DIM2_CONFIG))
+    got, want = kw.contact_rows_2d(*args), kw.contact_rows_2d_twin(*args)
+    for name in kw.ROW_COLUMNS:
+        _same(got[name], want[name].to(got[name].dtype))
+
+    ba, bb = contacts.body_a.long(), contacts.body_b.long()
+    dyn_a, dyn_b = s.solve_mask[ba] > 0, s.solve_mask[bb] > 0
+    solve = contacts.active & contacts.touching & ~contacts.is_sensor & (dyn_a | dyn_b)
+    args = (world.bodies, contacts, s.state, s.inv_mass, s.inv_inertia, dyn_a, dyn_b, solve,
+            con.buckets, con.bucket_valid, *contact_softness(DIM2_CONFIG))
+    for got, want in zip(kx.pack_2d(*args), kx.pack_2d_twin(*args)):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("bounce", [False, True])
+def test_solve_2d_and_integrate_2d_match_twins_and_are_reproducible(cuda, dim2_pyramid, bounce):
+    """One substep and a restitution pass. The twin runs on CPU copies (its
+    overflow colour sums with ``index_add_``); the bias and relax modes take
+    ``cosf``/``sinf`` in the kernel: 1e-5."""
+    from avian_tpu_torch.dim2 import solver as sol2
+    from avian_tpu_torch.kernels import integrate_2d as kz, solve_2d as ky
+
+    world = dim2_pyramid
+    if bounce:
+        b = world.bodies
+        world = world.replace(
+            bodies=b.replace(lin_vel=b.lin_vel + torch.tensor([0.0, -3.0], device=cuda)),
+            colliders=world.colliders.replace(
+                restitution=torch.full_like(world.colliders.restitution, 0.7)))
+    world, _, _, _, s, table, con = _dim2_stages(world)
+    h = DIM2_CONFIG.substep_dt
+    params = sol2.solve_params(DIM2_CONFIG)
+    for mode in (kz.VELOCITIES, kz.POSITIONS):
+        _same(kz.integrate_2d(s.state, table, h, mode), kz.integrate_2d_twin(s.state, table, h, mode))
+
+    def run(twin):
+        to = (lambda x: x.cpu()) if twin else (lambda x: x)
+        state, imp = to(s.state).clone(), to(con.imp).clone()
+        rows = [to(x) for x in (con.data, con.bucket_a, con.bucket_b, con.bucket_valid,
+                                con.relax)]
+        for mode in (ky.WARM, ky.BIAS, ky.RELAX, ky.RESTITUTION):
+            for c in range(DIM2_CONFIG.max_colors):
+                if twin:
+                    ky.solve_2d_twin(mode, c, state, rows[0], imp, *rows[1:], params)
+                else:
+                    ky.solve_2d(mode, c, state, rows[0], imp, *rows[1:], con.ovf_order,
+                                con.ovf_key, params)
+        return state.cpu(), imp.cpu()
+
+    runs = [run(False) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    state, imp = run(True)
+    assert float((runs[0][0] - state).abs().max()) <= 1e-5
+    assert float((runs[0][1] - imp).abs().max()) <= 1e-5
+    if bounce:
+        assert float(imp[..., 4:6].abs().max()) > 0.0
+
+
+def test_dim2_step_launches_u_to_z_and_reruns_equal(cuda):
+    from avian_tpu_torch.dim2 import physics_step_2d, scenes as scenes2d
+
+    runs = []
+    for _ in range(2):
+        world, _ = scenes2d.box_pyramid_2d(20, max_contacts=24 * 211, device=cuda)
+        kernels.reset_launches()
+        for _ in range(3):
+            world = physics_step_2d(world, DIM2_CONFIG)
+        runs.append(world)
+        got = kernels.launches()
+        cfg = DIM2_CONFIG
+        assert got["grid_pairs_2d"] == 3 and got["compact_pairs"] == 2 * 3
+        assert got["manifold_2d"] == 3
+        assert got["contact_rows_2d"] == 3 and got["pack_2d"] == 2 * 3
+        assert got["solve_2d"] == 3 * (3 * cfg.substeps + 1) * cfg.max_colors
+        assert got["integrate_2d"] == 3 * 2 * cfg.substeps
+        assert got["prepare_2d"] == got["writeback_2d"] == got["sleep_update_2d"] == 3
+    for name in ("pos", "angle", "lin_vel", "ang_vel"):
+        assert torch.equal(getattr(runs[0].bodies, name), getattr(runs[1].bodies, name))
