@@ -1,15 +1,18 @@
-// Device code of the 2D engine's kernels U-Z, one function per thread's work.
+// Device code of the 2D engine's kernels U-Z, AA and AB, one function per
+// thread's work.
 //
 // Each function below is the body of one thread of a kernel in
 // grid_pairs_2d.cu (U), manifold_2d.cu (V), contact_rows_2d.cu (W),
-// pack_2d.cu (X), solve_2d.cu (Y) or integrate_2d.cu (Z and its prologue),
-// or of the 2D writeback in body_pass.cu (K); those files hold the
+// pack_2d.cu (X), solve_2d.cu (Y), integrate_2d.cu (Z and its prologue),
+// solve_joints_2d.cu (AA) or swept_toi_2d.cu (AB), or of the 2D writeback
+// in body_pass.cu (K); those files hold the
 // __global__ wrappers and the C entry points. Every expression is written
 // in the order of the plain PyTorch versions in kernels/*_2d.py (and the
 // library is built with -fmad=false), so that the kernels agree with them to
 // the bit; the few exceptions are named where they occur. The functions use
-// nothing but float arithmetic and sqrtf/cosf/sinf, so they also compile as
-// host C++ behind a stand-in cuda_runtime.h, for a check without a card.
+// nothing but float arithmetic and sqrtf/cosf/sinf/atan2f, so they also
+// compile as host C++ behind a stand-in cuda_runtime.h, for a check without
+// a card.
 #pragma once
 #include "common.cuh"
 
@@ -282,19 +285,17 @@ __device__ __forceinline__ Manifold poly_plane(const Poly& q, V2 plane_pos, V2 p
   return m;
 }
 
-// One pair: the branch of its kind only (the reference selects among all).
-__device__ __forceinline__ Manifold pair_manifold(int ca, int cb, const float* pos,
-                                                  const float* cs, const float* verts,
-                                                  const int* count, const float* radius,
-                                                  const unsigned char* plane) {
-  V2 pa = load2(pos + 2 * ca), pb = load2(pos + 2 * cb);
-  float c_a = cs[2 * ca], s_a = cs[2 * ca + 1], c_b = cs[2 * cb], s_b = cs[2 * cb + 1];
-  const float* la = verts + 2 * kVerts * (long)ca;
-  const float* lb = verts + 2 * kVerts * (long)cb;
-  bool pla = plane[ca] != 0, plb = plane[cb] != 0;
+// One pair at the given world poses (positions, cosines and sines of the
+// world angles): the branch of its kind only (the reference selects among
+// all).
+__device__ __forceinline__ Manifold pair_manifold_at(V2 pa, float c_a, float s_a,
+                                                     const float* la, int na, float ra, bool pla,
+                                                     V2 pb, float c_b, float s_b,
+                                                     const float* lb, int nb, float rb,
+                                                     bool plb) {
   Poly a, b;
-  load_poly(a, pa, c_a, s_a, la, count[ca], radius[ca]);
-  load_poly(b, pb, c_b, s_b, lb, count[cb], radius[cb]);
+  load_poly(a, pa, c_a, s_a, la, na, ra);
+  load_poly(b, pb, c_b, s_b, lb, nb, rb);
   if (pla && plb) return empty_manifold();
   if (plb) return poly_plane(a, pb, rot2(c_b, s_b, load2(lb)));
   if (pla) return flip_manifold(poly_plane(b, pa, rot2(c_a, s_a, load2(la))));
@@ -303,6 +304,17 @@ __device__ __forceinline__ Manifold pair_manifold(int ca, int cb, const float* p
   if (circ_a) return circle_poly(a.v[0], a.r, b);
   if (circ_b) return flip_manifold(circle_poly(b.v[0], b.r, a));
   return poly_poly(a, b);
+}
+
+// One pair of colliders at their poses in the tables.
+__device__ __forceinline__ Manifold pair_manifold(int ca, int cb, const float* pos,
+                                                  const float* cs, const float* verts,
+                                                  const int* count, const float* radius,
+                                                  const unsigned char* plane) {
+  return pair_manifold_at(load2(pos + 2 * ca), cs[2 * ca], cs[2 * ca + 1],
+                          verts + 2 * kVerts * (long)ca, count[ca], radius[ca], plane[ca] != 0,
+                          load2(pos + 2 * cb), cs[2 * cb], cs[2 * cb + 1],
+                          verts + 2 * kVerts * (long)cb, count[cb], radius[cb], plane[cb] != 0);
 }
 
 __device__ __forceinline__ void manifold_2d_pair(int k, const long long* ca, const long long* cb,
@@ -857,6 +869,271 @@ __device__ __forceinline__ bool writeback_body_2d(int type, bool active, bool sl
   *pos_out = moving ? np : pos;
   *angle_out = moving ? new_angle : angle;
   return moving;
+}
+
+
+// ---------------------------------------------------------------------------
+// Kernel AA: the 2D XPBD joints (dim2/xpbd.py): one joint's packed row
+// (prepare_joints :71), its increments in one colour (_solve_color :197) and
+// its damping (_joint_damping :313). Row layout of kernels/solve_joints_2d.py.
+// ---------------------------------------------------------------------------
+
+enum {
+  J_R1 = 0, J_R2 = 2, J_CD = 4, J_BASE = 6, J_AXIS = 7, J_COMP = 9, J_LMIN = 13, J_LMAX = 14,
+  J_LEN = 15, J_LDAMP = 16, J_ADAMP = 17, J_IMA = 18, J_IMB = 19, J_IMVA = 20, J_IMVB = 22,
+  J_IIA = 24, J_IIB = 25, JD = 26, J_LAM = 3
+};
+enum { kFixed = 0, kDistance = 1, kRevolute = 2, kPrismatic = 3 };
+
+// torch.clamp(x, min=lo): NaN stays NaN.
+__device__ __forceinline__ float clamp_lo(float x, float lo) { return x < lo ? lo : x; }
+
+struct JointIn2 {
+  const int *body_a, *body_b;
+  const unsigned char* active;
+  const float *anchor_a, *anchor_b, *axis_cs, *reference_angle, *compliance, *limit_min,
+      *limit_max;
+  const unsigned char* limit_enabled;
+  const float *lin_damping, *ang_damping;
+  const float *pos, *angle, *com, *body_cs, *inv_mass, *inv_inertia, *solve_mask;
+};
+
+// One joint's row, whether it is solved and which ends respond. The cosines
+// and sines of the body angles and of the joint's axis angle come in.
+__device__ __forceinline__ void joint_row_2d(int j, const JointIn2& in, float* d,
+                                             unsigned char* mask, unsigned char* dyn_a,
+                                             unsigned char* dyn_b) {
+  int a = in.body_a[j], b = in.body_b[j];
+  bool da = in.solve_mask[a] > 0.0f, db = in.solve_mask[b] > 0.0f;
+  *dyn_a = da;
+  *dyn_b = db;
+  *mask = in.active[j] != 0 && (da || db);
+  float ca = in.body_cs[2 * a], sa = in.body_cs[2 * a + 1];
+  float cb = in.body_cs[2 * b], sb = in.body_cs[2 * b + 1];
+  V2 com_a = load2(in.com + 2 * a), com_b = load2(in.com + 2 * b);
+  V2 wcom_a = rot2(ca, sa, com_a), wcom_b = rot2(cb, sb, com_b);
+  store2(d + J_R1, rot2(ca, sa, load2(in.anchor_a + 2 * j) - com_a));
+  store2(d + J_R2, rot2(cb, sb, load2(in.anchor_b + 2 * j) - com_b));
+  store2(d + J_CD, (load2(in.pos + 2 * b) - load2(in.pos + 2 * a)) + (wcom_b - wcom_a));
+  d[J_BASE] = (in.angle[b] - in.angle[a]) - in.reference_angle[j];
+  store2(d + J_AXIS, rot2(ca, sa, load2(in.axis_cs + 2 * j)));
+  for (int k = 0; k < 4; ++k) d[J_COMP + k] = in.compliance[4 * j + k];
+  d[J_LMIN] = in.limit_min[j];
+  d[J_LMAX] = in.limit_max[j];
+  d[J_LEN] = in.limit_enabled[j] ? 1.0f : 0.0f;
+  d[J_LDAMP] = in.lin_damping[j];
+  d[J_ADAMP] = in.ang_damping[j];
+  V2 ima = load2(in.inv_mass + 2 * a), imb = load2(in.inv_mass + 2 * b);
+  d[J_IMA] = fmaxf(ima.x, ima.y);
+  d[J_IMB] = fmaxf(imb.x, imb.y);
+  store2(d + J_IMVA, ima);
+  store2(d + J_IMVB, imb);
+  d[J_IIA] = in.inv_inertia[a];
+  d[J_IIB] = in.inv_inertia[b];
+}
+
+// _angular_correction (:129): cancel the scalar angle error c_err.
+__device__ __forceinline__ void angular_2d(const float* d, float c_err, float compliance,
+                                           float hh, bool on, float& da, float& db, float& dl) {
+  float iia = d[J_IIA], iib = d[J_IIB];
+  float w_sum = iia + iib;
+  float tilde = compliance / hh;
+  dl = (on && w_sum > 1e-12f) ? -c_err / clamp_lo(w_sum + tilde, 1e-12f) : 0.0f;
+  da = -iia * dl;
+  db = iib * dl;
+}
+
+struct JointInc2 {
+  V2 dp_a, dp_b;
+  float th_a, th_b;
+  V2 tot_pos;
+  float tot_rot;
+};
+
+// One solved joint of the colour: its increments from the delta poses of
+// its ends and its Lagrange totals (lam, 3 floats). The cosines and sines of
+// the delta angles and the revolute limit's atan2 are cosf/sinf/atan2f here
+// and torch.cos/sin/atan2 in the plain version.
+__device__ __forceinline__ JointInc2 joint_increments_2d(const float* d, int t, V2 dp_a,
+                                                         V2 dp_b, float th_a0, float th_b0,
+                                                         const float* lam, float hh) {
+  bool is_distance = t == kDistance, is_revolute = t == kRevolute;
+  bool is_prismatic = t == kPrismatic;
+  V2 acc_dp_a = v2(0.0f, 0.0f), acc_dp_b = v2(0.0f, 0.0f);
+  float acc_th_a = 0.0f, acc_th_b = 0.0f;
+  V2 tot_pos = load2(lam);
+  float tot_rot = lam[2];
+  float lmin = d[J_LMIN], lmax = d[J_LMAX];
+  bool len = d[J_LEN] > 0.0f;
+  float da, db, dl;
+
+  // 1. Angle alignment (fixed, prismatic).
+  bool align = t == kFixed || is_prismatic;
+  float cur = (d[J_BASE] + (th_b0 + acc_th_b)) - (th_a0 + acc_th_a);
+  angular_2d(d, cur, d[J_COMP + 1], hh, align, da, db, dl);
+  acc_th_a = acc_th_a + (align ? da : 0.0f);
+  acc_th_b = acc_th_b + (align ? db : 0.0f);
+  tot_rot = tot_rot + (align ? dl : 0.0f);
+
+  // Revolute angle limit, only where violated.
+  cur = (d[J_BASE] + (th_b0 + acc_th_b)) - (th_a0 + acc_th_a);
+  bool lim = false;
+  float err = 0.0f;
+  if (is_revolute && len) {
+    float wrapped = atan2f(sinf(cur), cosf(cur));
+    lim = wrapped < lmin || wrapped > lmax;
+    err = wrapped - fminf(fmaxf(wrapped, lmin), lmax);
+  }
+  angular_2d(d, err, d[J_COMP + 2], hh, lim, da, db, dl);
+  acc_th_a = acc_th_a + (lim ? da : 0.0f);
+  acc_th_b = acc_th_b + (lim ? db : 0.0f);
+  tot_rot = tot_rot + (lim ? dl : 0.0f);
+
+  // 2. Positional constraint.
+  float ang_a = th_a0 + acc_th_a, ang_b = th_b0 + acc_th_b;
+  float ca = cosf(ang_a), sa = sinf(ang_a), cb = cosf(ang_b), sb = sinf(ang_b);
+  V2 r1 = rot2(ca, sa, load2(d + J_R1)), r2 = rot2(cb, sb, load2(d + J_R2));
+  V2 sep = (((dp_b + acc_dp_b) - (dp_a + acc_dp_a)) + (r2 - r1)) + load2(d + J_CD);
+  float dist = sqrtf(sep.x * sep.x + sep.y * sep.y);
+  float dm = clamp_lo(dist, 1e-9f);
+  V2 dir = v2(sep.x / dm, sep.y / dm);
+  V2 dist_corr = dist < lmin ? (-dir) * (lmin - dist)
+                             : (dist > lmax ? dir * (dist - lmax) : v2(0.0f, 0.0f));
+  V2 axis = rot2(ca, sa, load2(d + J_AXIS));
+  float along = sep.x * axis.x + sep.y * axis.y;
+  V2 perp = sep - axis * along;
+  float along_corr = (len && along < lmin) ? along - lmin
+                                           : ((len && along > lmax) ? along - lmax : 0.0f);
+  V2 pris = perp + axis * along_corr;
+  V2 corr = is_distance ? dist_corr : (is_prismatic ? pris : sep);
+
+  // _positional_correction (:140).
+  float c = sqrtf(corr.x * corr.x + corr.y * corr.y);
+  bool ok = c > 1e-9f;
+  float cm = clamp_lo(c, 1e-9f);
+  V2 n = v2(-corr.x / cm, -corr.y / cm);
+  float r1xn = r1.x * n.y - r1.y * n.x, r2xn = r2.x * n.y - r2.y * n.x;
+  float iia = d[J_IIA], iib = d[J_IIB];
+  float w1 = d[J_IMA] + iia * r1xn * r1xn;
+  float w2 = d[J_IMB] + iib * r2xn * r2xn;
+  float w_sum = w1 + w2;
+  float tilde = d[J_COMP] / hh;
+  float dlp = (ok && w_sum > 1e-12f) ? -c / clamp_lo(w_sum + tilde, 1e-12f) : 0.0f;
+  V2 imp = n * dlp;
+  acc_dp_a = acc_dp_a + v2(imp.x * d[J_IMVA], imp.y * d[J_IMVA + 1]);
+  acc_dp_b = acc_dp_b + v2(-imp.x * d[J_IMVB], -imp.y * d[J_IMVB + 1]);
+  acc_th_a = acc_th_a + iia * (r1.x * imp.y - r1.y * imp.x);
+  acc_th_b = acc_th_b + -iib * (r2.x * imp.y - r2.y * imp.x);
+  tot_pos = tot_pos + imp;
+  return JointInc2{acc_dp_a, acc_dp_b, acc_th_a, acc_th_b, tot_pos, tot_rot};
+}
+
+// One joint's damping increments (lin_a, ang_a, lin_b, ang_b: 3 floats each
+// into out[6]) from the velocities of its ends.
+__device__ __forceinline__ void joint_damping_2d(const float* d, const float* sa,
+                                                 const float* sb, float h, float* out) {
+  float ka = d[J_ADAMP] * h, kl = d[J_LDAMP] * h;
+  ka = ka > 1.0f ? 1.0f : ka;
+  kl = kl > 1.0f ? 1.0f : kl;
+  float delta_omega = (sb[2] - sa[2]) * ka;
+  V2 delta_v = (load2(sb) - load2(sa)) * kl;
+  float w1 = d[J_IMA], w2 = d[J_IMB];
+  float wsum = w1 + w2;
+  float recip = wsum > 1e-12f ? 1.0f / clamp_lo(wsum, 1e-12f) : 0.0f;
+  V2 p = delta_v * recip;
+  store2(out, p * w1);
+  out[2] = d[J_IIA] > 0.0f ? delta_omega : 0.0f;
+  store2(out + 3, (-p) * w2);
+  out[5] = d[J_IIB] > 0.0f ? -delta_omega : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel AB: one pair of the 2D swept CCD (dim2/ccd.py:70-116).
+// ---------------------------------------------------------------------------
+
+constexpr int kToiRounds2 = 8;
+constexpr float kDeeper2 = 0.5f;  // kernels/swept_toi_2d.py::DEEPER
+
+struct SweptTables2 {
+  const float* pos0;    // [M, 2] collider positions at t = 0
+  const float* cs0;     // [M, 2] cosine and sine of the collider angles at t = 0
+  const float* angle0;  // [M]
+  const float* sweep;   // [M, 2] delta position of each collider's body
+  const float* dang;    // [M] delta angle along the sweep (0 in the linear mode)
+  const float* ang;     // [M] angular travel bound
+  const float* inner;   // [M] inner radius
+  const float* verts;   // [M, 8, 2]
+  const int* count;
+  const float* radius;
+  const unsigned char* plane;
+  const int* body_idx;
+  const unsigned char* active;
+  const int* layer_m;  // u32 bit patterns
+  const int* layer_f;
+};
+
+// Collider k's pose at t: its position moved along its sweep, and the cosine
+// and sine of its angle (cosf/sinf only where it turns along the sweep).
+__device__ __forceinline__ void pose_at_2d(const SweptTables2& T, int k, float t, V2& x,
+                                           float& c, float& s) {
+  x = load2(T.pos0 + 2 * k) + load2(T.sweep + 2 * k) * t;
+  float da = T.dang[k];
+  if (da != 0.0f) {
+    float a = T.angle0[k] + da * t;
+    c = cosf(a);
+    s = sinf(a);
+  } else {
+    c = T.cs0[2 * k];
+    s = T.cs0[2 * k + 1];
+  }
+}
+
+// min(TOI, 1) of swept collider i against collider j (1 where the pair is
+// invalid or passes t = 1), and in *ran the rounds it took, negated where a
+// valid pair ran them all without a hit and stayed below t = 1. A pair stops
+// once it has hit or t >= 1. The two departures from the reference are
+// kernels/swept_toi_2d.py's.
+__device__ __forceinline__ float swept_toi_pair_2d(int i, int j, const SweptTables2& T,
+                                                   int* ran) {
+  V2 s_i = load2(T.sweep + 2 * i), s_j = load2(T.sweep + 2 * j);
+  V2 d_rel = s_i - s_j;
+  float dist = sqrtf(d_rel.x * d_rel.x + d_rel.y * d_rel.y);
+  float dm = fmaxf(dist, 1e-9f);
+  V2 dirn = dist > 1e-9f ? v2(d_rel.x / dm, d_rel.y / dm) : v2(1.0f, 0.0f);
+  float ang = T.ang[i] + T.ang[j];
+  // kernels/swept_toi_2d.py::touch_depth
+  float in_i = T.inner[i], in_j = T.inner[j];
+  float deeper = kDeeper2 * fminf(in_i > 0.0f ? in_i : in_j, in_j > 0.0f ? in_j : in_i);
+  const float* vi = T.verts + 2 * kVerts * (long)i;
+  const float* vj = T.verts + 2 * kVerts * (long)j;
+  bool pl_i = T.plane[i] != 0, pl_j = T.plane[j] != 0;
+  float t = 0.0f, goal = 0.0f;
+  bool done = false;
+  int rounds = kToiRounds2;
+  for (int k = 0; k < kToiRounds2; ++k) {
+    V2 xi, xj;
+    float ci, si, cj, sj;
+    pose_at_2d(T, i, t, xi, ci, si);
+    pose_at_2d(T, j, t, xj, cj, sj);
+    Manifold m = pair_manifold_at(xi, ci, si, vi, T.count[i], T.radius[i], pl_i, xj, cj, sj, vj,
+                                  T.count[j], T.radius[j], pl_j);
+    float sep = fminf(m.sep[0], m.sep[1]);
+    if (k == 0) goal = sep <= 1e-4f ? fminf(-deeper, sep - 2e-4f) : 0.0f;
+    float approach = (dirn.x * m.normal.x + dirn.y * m.normal.y) * dist + ang;
+    bool hit = sep < goal + 1e-4f;
+    float step = approach > 1e-6f ? (sep - goal) / fmaxf(approach, 1e-6f) : 2.0f;
+    float new_t = (done || hit) ? t : t + fmaxf(step, 0.0f);
+    t = fminf(new_t, 1.5f);
+    done = done || hit;
+    if (done || t >= 1.0f) {
+      rounds = k + 1;
+      break;
+    }
+  }
+  bool layers_ok = (T.layer_m[i] & T.layer_f[j]) != 0 && (T.layer_m[j] & T.layer_f[i]) != 0;
+  bool valid = j != i && T.active[j] != 0 && T.body_idx[j] != T.body_idx[i] && layers_ok;
+  *ran = (valid && !done && t < 1.0f) ? -rounds : rounds;
+  return valid ? fminf(t, 1.0f) : 1.0f;
 }
 
 }  // namespace d2

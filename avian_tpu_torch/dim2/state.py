@@ -215,9 +215,9 @@ class Contacts2D(_Columns):
 
 @dataclass(frozen=True)
 class Joints2D(_Columns):
-    """2D joint columns; see ``avian_tpu/dim2/state.py::Joints2D``. The
-    port's 2D step does not solve joints yet and refuses a world with an
-    active one."""
+    """2D joint columns; see ``avian_tpu/dim2/state.py::Joints2D``. The 2D
+    step solves them with Kernel AA (``dim2/xpbd.py``) and writes back
+    ``total_lambda`` and ``color``."""
 
     jtype: torch.Tensor
     body_a: torch.Tensor

@@ -37,7 +37,10 @@
   Z's table;
 - ``writeback_2d`` (Kernel K's 2D pass, CUDA): the 2D writeback and force
   clear;
-- ``sleep_update_2d`` (Kernel J's 2D pass, CUDA): the 2D sleep update.
+- ``sleep_update_2d`` (Kernel J's 2D pass, CUDA): the 2D sleep update;
+- ``solve_joints_2d`` (Kernel AA, CUDA): the 2D joint rows of a step and the
+  2D XPBD joint solver of a substep;
+- ``swept_toi_2d`` (Kernel AB, CUDA): the 2D swept-CCD times of impact.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -70,6 +73,8 @@ from avian_tpu_torch.kernels import contact_rows_2d as _w
 from avian_tpu_torch.kernels import pack_2d as _x
 from avian_tpu_torch.kernels import solve_2d as _y
 from avian_tpu_torch.kernels import integrate_2d as _z
+from avian_tpu_torch.kernels import solve_joints_2d as _aa
+from avian_tpu_torch.kernels import swept_toi_2d as _ab
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -101,6 +106,8 @@ WRAPPERS = {
     "prepare_2d": (_z.prepare_2d,),
     "writeback_2d": (_k.writeback_2d,),
     "sleep_update_2d": (_j.sleep_update_2d,),
+    "solve_joints_2d": (_aa.joint_rows_2d, _aa.joint_color_2d, _aa.joint_velocities_2d),
+    "swept_toi_2d": (_ab.swept_toi_2d,),
 }
 
 

@@ -98,6 +98,11 @@ _SIGNATURES = {
     "avian_solve_2d": [_I] * 5 + [_P] * 10 + [_F] * 5 + [_P],
     "avian_integrate_2d": [_I] * 2 + [_P] * 3 + [_F] + [_P],
     "avian_prepare_2d": [_I] + [_P] * 23 + [_F] + [_P],
+    # Kernels AA and AB of the 2D engine
+    "avian_joint_rows_2d": [_I] + [_P] * 24 + [_P],
+    "avian_joint_color_2d": [_I] * 4 + [_P] * 11 + [_F] + [_P],
+    "avian_joint_velocities_2d": [_I] * 2 + [_P] * 9 + [_F] + [_P],
+    "avian_swept_toi_2d": [_I] * 2 + [_P] * 19 + [_P],
 }
 
 

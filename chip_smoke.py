@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the 26 kernels (A-Z) against its plain PyTorch twin at the main
+the 28 kernels (A-Z, AA, AB) against its plain PyTorch twin at the main
 paths' shapes (the 10,000-cube pile after 60 steps; the base-100 box pyramid
 after 2 steps, when most of its constraints sit in the overflow colour, and
 after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
@@ -34,8 +34,14 @@ copy) and V on 4,096 random pairs of each kind, step the
 ``pyramid2d_native`` golden, drive ``box_pyramid_2d(100)`` for 120 steps
 (its apex held to the reference's curve, ``tests/torch_cases/
 pyramid2d_curve.npz``) and ``many_pyramids_2d(10, 10)`` for 30, both at 24
-contact slots a box, run the 2D pyramid on the plain versions, and rerun it
-bitwise. Each phase prints one
+contact slots a box, run the 2D pyramid on the plain versions, hold Kernel
+AA to its twins on ``hinge_blocks_2d(84)`` (10,080 boxes, 7,560 revolute
+joints) and drive it for 120 steps with every hinge's anchors within 2 cm,
+run 8 of its blocks on the plain versions, hold Kernel AB to its twin on
+the whole grid of ``pyramid_ccd_2d(100, 32)`` (the pyramid and 32 swept
+bullets) and drive it for 60 steps with no bullet centre below the ground
+or inside a box, run the five 2D joint examples with their own checks, and
+rerun the 2D pyramid, hinges and bullets bitwise. Each phase prints one
 line; the line before the last is a JSON object with each kernel's launches,
 error, times and bound, and the last line is ``{"ok": true, "device":
 {...}}``. Any failure raises, and the script exits non-zero without that
@@ -43,6 +49,7 @@ line. It takes no arguments, needs a CUDA card and imports nothing of JAX.
 """
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -103,10 +110,17 @@ from avian_tpu_torch.kernels import integrate_2d as kz
 from avian_tpu_torch.kernels import manifold_2d as kv
 from avian_tpu_torch.kernels import pack_2d as kx
 from avian_tpu_torch.kernels import solve_2d as ky
+from avian_tpu_torch.dim2 import ccd as ccd2
+from avian_tpu_torch.dim2 import step as step2
+from avian_tpu_torch.dim2 import xpbd as xpbd2
+from avian_tpu_torch.dim2.builder import SceneBuilder2D
+from avian_tpu_torch.kernels import solve_joints_2d as kaa
+from avian_tpu_torch.kernels import swept_toi_2d as kab
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
 import random_pairs_2d  # noqa: E402  (Kernel V's seeded random pairs)
+import shared_2d  # noqa: E402  (the 2D joint examples, AA's and AB's checks)
 
 N_CUBES = 10_000
 CONTACTS_PER_CUBE = 16
@@ -370,6 +384,10 @@ REPLACES = {
                      "avian_tpu/dim2/dynamics.py:80"),
     "sleep_update_2d": ("cuda", "avian_tpu_torch/csrc/islands.cu",
                         "avian_tpu/dim2/step.py:160"),
+    "solve_joints_2d": ("cuda", "avian_tpu_torch/csrc/solve_joints_2d.cu",
+                        "avian_tpu/dim2/xpbd.py:197"),
+    "swept_toi_2d": ("cuda", "avian_tpu_torch/csrc/swept_toi_2d.cu",
+                     "avian_tpu/dim2/ccd.py:28"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -2942,11 +2960,14 @@ def phase_dim2_golden(device):
         raise AssertionError(f"pyramid2d_native: drift {drift}, {adrift} >= {GOLDEN_TOL}")
 
 
-def drive2d(what, world, ids, config, steps, smi, each_step=None):
+def drive2d(what, world, ids, config, steps, smi, each_step=None, expect=None, vary=(),
+            lowest_band=(DIM2_REST_Y - DIM2_REST_TOL, DIM2_REST_Y + DIM2_REST_TOL)):
     """``steps`` 2D steps with diagnostics. Fails on a dropped pair or an
-    overflow drop (running maxima), a non-finite state, the lowest box off
-    ``DIM2_REST_Y`` by more than ``DIM2_REST_TOL`` at the end, or launch
-    counts other than the steps imply. Returns the world and the launches."""
+    overflow drop (running maxima), a non-finite state, the lowest body
+    outside ``lowest_band`` at the end, or launch counts other than the
+    steps imply (``expect``, per-step counts, by default
+    ``DIM2_STEP_LAUNCHES``; each kernel of ``vary`` at least once). Returns
+    the world, the launches and the mean ms a step."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -2973,22 +2994,22 @@ def drive2d(what, world, ids, config, steps, smi, each_step=None):
     if bool(world.diverged) or max_dropped or max_overflow:
         raise AssertionError(f"{what}: diverged {bool(world.diverged)}, dropped pairs "
                              f"{max_dropped}, overflow drops {max_overflow}")
-    expect = {name: steps * n(config) for name, n in DIM2_STEP_LAUNCHES.items()}
-    if {k: got[k] for k in expect} != expect or any(
-            v for k, v in got.items() if k not in expect):
-        raise AssertionError(f"{what}: launches {got} != expected {expect}")
+    expect = {name: steps * n(config) for name, n in (expect or DIM2_STEP_LAUNCHES).items()}
+    if ({k: got[k] for k in expect} != expect
+            or any(v for k, v in got.items() if k not in expect and k not in vary)
+            or not all(got[k] for k in vary)):
+        raise AssertionError(f"{what}: launches {got} != expected {expect} (and {vary} > 0)")
     lowest = float(b.pos[idx, 1].min())
-    if not abs(lowest - DIM2_REST_Y) <= DIM2_REST_TOL:
-        raise AssertionError(f"{what}: lowest box at {lowest} m, not {DIM2_REST_Y} +- "
-                             f"{DIM2_REST_TOL}")
+    if not lowest_band[0] <= lowest <= lowest_band[1]:
+        raise AssertionError(f"{what}: lowest body at {lowest} m, outside {lowest_band}")
     ms = 1e3 * sum(times) / len(times)
     say(what, f"{len(ids)} bodies, {world.contacts.capacity} contact slots, {steps} steps at "
         f"{ms:.2f} ms/step (median {1e3 * sorted(times)[len(times) // 2]:.2f}, last "
         f"{1e3 * times[-1]:.2f}), {1e3 * len(ids) / ms:.0f} body-steps/s; peak "
         f"{peak / 2**20:.0f} MiB; dropped 0, overflow drops 0, most rows in the overflow "
-        f"colour {max_rows}; lowest box {lowest:.4f} m; end: {int(diag['num_sleeping'])} "
+        f"colour {max_rows}; lowest body {lowest:.4f} m; end: {int(diag['num_sleeping'])} "
         f"asleep; launches {got} [{smi}]")
-    return world, got
+    return world, got, ms
 
 
 def phase_pyramid2d(device, smi):
@@ -3005,7 +3026,7 @@ def phase_pyramid2d(device, smi):
         if i < curve["apex"].shape[0]:
             track.append((float(w.bodies.pos[apex_id, 1]), float(w.bodies.pos[idx, 1].min())))
 
-    world, got = drive2d("pyramid2d", world, ids, DIM2_CONFIG, DIM2_STEPS, smi, each_step)
+    world, got, _ = drive2d("pyramid2d", world, ids, DIM2_CONFIG, DIM2_STEPS, smi, each_step)
     track = np.asarray(track)
     apex_gap = np.abs(track[:, 0] - curve["apex"])
     low_gap = np.abs(track[:, 1] - curve["lowest"])
@@ -3035,12 +3056,28 @@ def plain_versions_2d():
         return ky.solve_2d_twin(mode, color, state, data, imp, bucket_a, bucket_b,
                                 bucket_valid, relax, params)
 
+    def joint_color_2d_plain(color, last, state, data, lam, jtype, body_a, body_b, jcolor, mask,
+                             ovf_order, ovf_key, hh):
+        return kaa.joint_color_2d_twin(color, state, data, lam, jtype, body_a, body_b, jcolor,
+                                       mask, hh)
+
+    def joint_velocities_2d_plain(state, pre, data, body_a, body_b, mask, damp_order, damp_key,
+                                  h):
+        return kaa.joint_velocities_2d_twin(state, pre, data, body_a, body_b, mask, h)
+
+    def swept_toi_2d_plain(swept, tab, n_bodies, rounds=None):
+        return kab.swept_toi_2d_twin(swept, tab, n_bodies)
+
     swaps = [
         (ku, "grid_pairs_2d", ku.grid_pairs_2d_twin), (kv, "manifold_2d", kv.manifold_2d_twin),
         (kw, "contact_rows_2d", kw.contact_rows_2d_twin), (kx, "pack_2d", kx.pack_2d_twin),
         (ky, "solve_2d", solve_2d_plain), (kz, "integrate_2d", kz.integrate_2d_twin),
         (kz, "prepare_2d", kz.prepare_2d_twin), (kk, "writeback_2d", kk.writeback_2d_twin),
         (kj, "sleep_update_2d", kj.sleep_update_2d_twin),
+        (kaa, "joint_rows_2d", kaa.joint_rows_2d_twin),
+        (kaa, "joint_color_2d", joint_color_2d_plain),
+        (kaa, "joint_velocities_2d", joint_velocities_2d_plain),
+        (kab, "swept_toi_2d", swept_toi_2d_plain),
         (kf, "contact_join", kf.contact_join_twin),
         (kg, "color_edges", kg.color_edges_twin), (kg, "bucket_edges", kg.bucket_edges_twin),
         (sleep_m, "run_rank", kr.run_rank_twin),
@@ -3102,19 +3139,386 @@ def phase_dim2_plain_path(device):
                              "apart")
 
 
-def phase_dim2_determinism(device):
+def twice_equal_2d(what, make, config, steps):
+    """Run ``make()`` for ``steps`` 2D steps twice; fail unless the final
+    poses and velocities are bitwise equal."""
     finals = []
     for _ in range(2):
-        world, _ = pyramid2d(device)
-        for _ in range(DIM2_DETERMINISM_STEPS):
-            world = physics_step_2d(world, DIM2_CONFIG)
+        world = make()
+        for _ in range(steps):
+            world = physics_step_2d(world, config)
         finals.append([getattr(world.bodies, k).cpu() for k in ("pos", "angle", "lin_vel",
                                                                  "ang_vel")])
     for x, y in zip(*finals):
         if not torch.equal(x, y):
-            raise AssertionError("determinism: two runs of pyramid2d differ")
-    say("determinism", f"pyramid2d base {DIM2_BASE} x {DIM2_DETERMINISM_STEPS} steps twice: "
-        "pos, angle, lin_vel, ang_vel bitwise equal")
+            raise AssertionError(f"determinism: two runs of {what} differ")
+    say("determinism", f"{what} x {steps} steps twice: pos, angle, lin_vel, ang_vel bitwise "
+        "equal")
+
+
+def phase_dim2_determinism(device):
+    twice_equal_2d(f"pyramid2d base {DIM2_BASE}", lambda: pyramid2d(device)[0], DIM2_CONFIG,
+                   DIM2_DETERMINISM_STEPS)
+    twice_equal_2d(f"hinge_blocks_2d({HINGES2D_DETERMINISM_BLOCKS})",
+                   lambda: hinges2d(device, HINGES2D_DETERMINISM_BLOCKS)[0], HINGES2D_CONFIG,
+                   DIM2_DETERMINISM_STEPS)
+    twice_equal_2d(f"pyramid_ccd_2d({CCD2D_BASE}, {CCD2D_BULLETS})",
+                   lambda: ccd2d_world(device)[0], CCD2D_CONFIG, DIM2_DETERMINISM_STEPS)
+
+
+# ---- the rest of the 2D step: Kernels AA (joints) and AB (swept CCD) -------
+
+# The 2D hinged boxes: hinge_blocks_2d(84), 84 copies of FallingHinges (30
+# rows of 4 boxes) on the 2D engine, 10,080 boxes and 7,560 revolute joints,
+# 16 contact slots a box (the 3D hinges' path), the 2D pyramid's config.
+HINGES2D_BLOCKS, HINGES2D_SLOTS_PER_BOX, HINGES2D_STEPS = 84, 16, 120
+HINGES2D_CONFIG = DIM2_CONFIG
+HINGES2D_KERNEL_STEPS, HINGES2D_OVERFLOW_STEPS = 30, 2
+HINGES2D_PLAIN_BLOCKS, HINGES2D_DETERMINISM_BLOCKS = 8, 8
+HALF2D = 0.25  # the hinged boxes' half extent
+# Kernel AA against its twins: the kernel's cosf/sinf/atan2f against
+# PyTorch's; the twins' shared-body sums are in the kernel's order.
+TOL_AA = 1e-5
+# Operations of one solved joint in a colour (two angle corrections, the
+# positional correction, four cos/sin), of its damping, and of one body's
+# projection.
+AA_JOINT_OPS, AA_DAMP_OPS, AA_BODY_OPS = 150, 20, 10
+# The 2D swept bullets: pyramid_ccd_2d(100, 32), the base-100 2D pyramid and
+# 32 bullets (16 linear circles, 16 nonlinear spinning capsules) fired down
+# at 300 m/s, 24 contact slots a body, the 2D pyramid's config with swept
+# CCD: K = 32 against 5,083 colliders. AB against its twin on the whole grid
+# of step 2; the pairs where neither collider turns along its sweep bit for
+# bit, the rest within TOL_AB (cosf/sinf).
+CCD2D_BASE, CCD2D_BULLETS, CCD2D_STEPS = 100, 32, 60
+CCD2D_CONFIG = DIM2_CONFIG.replace(swept_ccd=True)
+TOL_AB = 1e-5
+# Operations of one round of AB besides its manifold (two poses at t, four
+# cos/sin where a collider turns, the advancement).
+AB_ROUND_OPS = 60
+DIM2_JOINT_LAUNCHES = dict(
+    DIM2_STEP_LAUNCHES,
+    color_edges=lambda cfg: 2 * (5 + 2 * kg.ASSIGN_ROUNDS) + 1 + 1,
+    solve_joints_2d=lambda cfg: 1 + cfg.substeps * (cfg.max_colors + 1),
+)
+
+
+def hinges2d(device, blocks=HINGES2D_BLOCKS):
+    n = blocks * 30 * 4 + 1
+    return scenes2d.hinge_blocks_2d(blocks, max_contacts=HINGES2D_SLOTS_PER_BOX * n,
+                                    device=device)
+
+
+def ccd2d_world(device, base=CCD2D_BASE, bullets=CCD2D_BULLETS):
+    n = base * (base + 1) // 2 + 1 + bullets
+    return scenes2d.pyramid_ccd_2d(base, bullets, max_contacts=DIM2_SLOTS_PER_BOX * n,
+                                   device=device)
+
+
+def anchor_gap_2d(world):
+    """The largest distance between the two world anchors of an active 2D
+    joint, in metres."""
+    b, j = world.bodies, world.joints
+    a, c = j.body_a.long(), j.body_b.long()
+
+    def anchor(body, local):
+        ang = b.angle[body]
+        cs, sn = torch.cos(ang), torch.sin(ang)
+        return b.pos[body] + torch.stack([cs * local[:, 0] - sn * local[:, 1],
+                                          sn * local[:, 0] + cs * local[:, 1]], -1)
+
+    gap = torch.where(j.active, (anchor(a, j.anchor_a) - anchor(c, j.anchor_b)).norm(dim=-1),
+                      0.0)
+    return float(gap.max())
+
+
+def kernel_aa_against_twins(world, config, colors, overflow=False):
+    """Kernel AA against its twins on ``world``'s next step: the rows
+    bitwise; one substep (every colour at ``colors`` colours, the projection,
+    the damping; with ``overflow`` every joint in the last colour) from the
+    step's state after its substeps within ``TOL_AA``; two runs bitwise.
+    Returns (max abs error, the substep's inputs, the joints in the overflow
+    colour)."""
+    p = step2.substepped(world, config)
+    j, s = p.world.joints, p.s
+    axis_cs = torch.stack([torch.cos(j.axis_angle), torch.sin(j.axis_angle)], -1).contiguous()
+    args = (j, p.world.bodies, p.poses.body_cs.contiguous(), axis_cs, s.inv_mass, s.inv_inertia,
+            s.solve_mask)
+    for name, x, y in zip(("data", "mask", "dyn_a", "dyn_b"), kaa.joint_rows_2d(*args),
+                          kaa.joint_rows_2d_twin(*args)):
+        compare(f"joint_rows_2d {name}", x, y)
+    jc = xpbd2.prepare_joints(p.world, s, p.poses, config.replace(max_colors=colors))
+    if overflow:
+        jc = shared_2d.all_in_overflow(jc, colors, s.state.shape[0])
+    h = config.substep_dt
+    runs = [shared_2d.joint_substep(jc, colors, h, False, s.state.clone(), jc.lam.clone())
+            for _ in range(2)]
+    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError("solve_joints_2d: two runs of a substep differ")
+    want = shared_2d.joint_substep(jc, colors, h, True, s.state.clone(), jc.lam.clone())
+    err = max(compare(f"solve_joints_2d state ({colors} colours)", runs[0][0], want[0], TOL_AA),
+              compare(f"solve_joints_2d lam ({colors} colours)", runs[0][1], want[1],
+                      TOL_AA * max(1.0, float(want[1].abs().max()))))
+    return err, (jc, s, h, args), int((jc.color_j == colors - 1).sum())
+
+
+def phase_dim2_joints_kernels(device):
+    """Kernel AA against its twins on ``hinge_blocks_2d(84)`` after
+    ``HINGES2D_KERNEL_STEPS`` steps, and after 2 with every joint in the
+    overflow colour of 2 (a row's joints share its boxes there: the rows of
+    4 are paths, which 2 colours colour properly); its times at the first.
+    Returns {"solve_joints_2d": measurements}."""
+    world, _ = hinges2d(device)
+    early = None
+    for i in range(HINGES2D_KERNEL_STEPS):
+        world = physics_step_2d(world, HINGES2D_CONFIG)
+        if i + 1 == HINGES2D_OVERFLOW_STEPS:
+            early = world
+    torch.cuda.synchronize()
+    colors = HINGES2D_CONFIG.max_colors
+    err, (jc, s, h, rows_args), _ = kernel_aa_against_twins(world, HINGES2D_CONFIG, colors)
+    err2, _, in_overflow = kernel_aa_against_twins(early, HINGES2D_CONFIG, 2, overflow=True)
+    n, active = s.state.shape[0], int((jc.mask > 0).sum())
+    state_k, lam_k = s.state.clone(), jc.lam.clone()
+    state_t, lam_t = s.state.clone(), jc.lam.clone()
+    b_ms, b_by = bound(
+        2 * nbytes(s.state, jc.lam) + nbytes(jc.data, jc.jtype, jc.body_a, jc.body_b, jc.color,
+                                             jc.mask, jc.ovf_order, jc.ovf_key, jc.damp_order,
+                                             jc.damp_key) + 4 * 3 * n,
+        (AA_JOINT_OPS + AA_DAMP_OPS) * active + AA_BODY_OPS * n)
+    r = dict(max_abs_err=max(err, err2),
+             ms=cuda_ms(lambda: shared_2d.joint_substep(jc, colors, h, False, state_k, lam_k)),
+             plain_ms=cuda_ms(lambda: shared_2d.joint_substep(jc, colors, h, True, state_t, lam_t)),
+             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+             rows_ms=cuda_ms(lambda: kaa.joint_rows_2d(*rows_args)))
+    say("dim2 joints kernels", f"hinge_blocks_2d({HINGES2D_BLOCKS}) after "
+        f"{HINGES2D_KERNEL_STEPS} steps: {active} joints solved; rows bitwise; one substep "
+        f"({colors} colours, projection, damping) max abs err {err:.3g}; after "
+        f"{HINGES2D_OVERFLOW_STEPS} steps at 2 colours ({in_overflow} joints in the overflow "
+        f"colour) {err2:.3g} (limit {TOL_AA}); reruns bitwise; substep {r['ms']:.4f} ms, twins "
+        f"{r['plain_ms']:.4f} ms, rows {r['rows_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return {"solve_joints_2d": r}
+
+
+def phase_hinges2d(device, smi):
+    """The 2D hinged boxes at full width through ``physics_step_2d`` for
+    ``HINGES2D_STEPS`` steps: every joint's anchors within
+    ``HINGE_ANCHOR_TOL`` and no box more than 5 cm into the ground (every 10
+    steps), 0 drops, Kernel AA launched ``1 + substeps * (colours + 1)``
+    times a step. Returns the launch counts."""
+    world, ids = hinges2d(device)
+    gaps, lows = [], []
+
+    def each_step(i, w, idx):
+        if (i + 1) % 10:
+            return
+        gaps.append(anchor_gap_2d(w))
+        lows.append(float(w.bodies.pos[idx, 1].min()))
+        if not (gaps[-1] <= HINGE_ANCHOR_TOL and lows[-1] >= HALF2D - 0.05):
+            raise AssertionError(f"hinges2d: step {i + 1}: anchors {gaps[-1]} m apart (limit "
+                                 f"{HINGE_ANCHOR_TOL}), lowest box at {lows[-1]} m")
+
+    world, got, _ = drive2d("hinges2d", world, ids, HINGES2D_CONFIG, HINGES2D_STEPS, smi,
+                            each_step, expect=DIM2_JOINT_LAUNCHES,
+                            lowest_band=(HALF2D - 0.05, 2.0))
+    say("hinges2d", f"{int(world.joints.active.sum())} revolute joints; largest anchor "
+        f"separation {max(gaps):.3g} m (limit {HINGE_ANCHOR_TOL}); every 10 steps: "
+        + ", ".join(f"{g:.2g}" for g in gaps) + "; lowest box every 10 steps: "
+        + ", ".join(f"{y:.3f}" for y in lows))
+    return got
+
+
+def phase_hinges2d_plain_path(device):
+    """``hinge_blocks_2d(8)`` from its start for ``DIM2_PLAIN_STEPS`` steps on
+    the kernels, then on their plain versions alone (no kernel launched):
+    the overflow rows equal for ``DIM2_PLAIN_EXACT_STEPS`` steps, every box
+    within ``DIM2_PLAIN_TOL`` for ``DIM2_PLAIN_TIGHT_STEPS``, the anchors
+    within ``HINGE_ANCHOR_TOL`` on both."""
+    world, ids = hinges2d(device, HINGES2D_PLAIN_BLOCKS)
+    idx = torch.tensor(ids, device=device)
+    on_k, ovf_k = trajectory2d(world, HINGES2D_CONFIG, DIM2_PLAIN_STEPS, idx)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_versions_2d():
+        on_p, ovf_p = trajectory2d(world, HINGES2D_CONFIG, DIM2_PLAIN_STEPS, idx)
+    seconds = time.perf_counter() - t0
+    if any(kernels.launches().values()):
+        raise AssertionError(f"hinges2d plain path: kernels were launched: {kernels.launches()}")
+    diff = (on_k - on_p).abs().amax(dim=(1, 2))
+    tight = float(diff[:DIM2_PLAIN_TIGHT_STEPS].max())
+    say("hinges2d plain path", f"hinge_blocks_2d({HINGES2D_PLAIN_BLOCKS}), {DIM2_PLAIN_STEPS} "
+        f"steps on the kernels and on their plain versions ({seconds:.1f} s): largest "
+        f"difference of any box in the first {DIM2_PLAIN_TIGHT_STEPS} steps {tight:.3g} m "
+        f"(limit {DIM2_PLAIN_TOL}), in all {float(diff.max()):.3g} m; step: largest difference, "
+        "overflow rows on kernels, on plain: " + "; ".join(
+            f"{i + 1}: {float(diff[i]):.2g}, {ovf_k[i]}, {ovf_p[i]}"
+            for i in range(4, DIM2_PLAIN_STEPS, 5)))
+    if ovf_k[:DIM2_PLAIN_EXACT_STEPS] != ovf_p[:DIM2_PLAIN_EXACT_STEPS]:
+        raise AssertionError(f"hinges2d plain path: overflow rows differ: {ovf_k} against "
+                             f"{ovf_p}")
+    if not tight <= DIM2_PLAIN_TOL:
+        raise AssertionError(f"hinges2d plain path: boxes {tight} m apart")
+
+
+def ab_grid(world, config):
+    """(tables, swept colliders, toi, body TOIs, rounds) of Kernel AB on
+    ``world``'s next step's grid."""
+    p = step2.substepped(world, config)
+    tab, swept = ccd2.swept_tables(p.world, p.s, p.poses, config)
+    rounds = torch.zeros((swept.numel() * tab.pos0.shape[0],), dtype=torch.int32,
+                         device=swept.device)
+    toi, body_toi = kab.swept_toi_2d(swept, tab, world.bodies.capacity, rounds)
+    return p, tab, swept, toi, body_toi, rounds
+
+
+def ab_work(tab, swept, rounds, n_bodies):
+    """(bytes, operations) of Kernel AB on a grid: the tables and the swept
+    list read once, the TOIs and body minima written once; each pair's
+    rounds at V's operations for its kind plus ``AB_ROUND_OPS``."""
+    m = tab.pos0.shape[0]
+    ca = swept.long()[:, None].expand(-1, m).reshape(-1)
+    cb = torch.arange(m, device=swept.device)[None, :].expand(swept.numel(), -1).reshape(-1)
+    plane, count = tab.plane, tab.count
+    pa, pb = plane[ca], plane[cb]
+    circ_a, circ_b = (count[ca] == 1) & ~pa, (count[cb] == 1) & ~pb
+    both = ~pa & ~pb
+    kinds = {"plane/plane": pa & pb, "poly/plane": pa ^ pb,
+             "circle/circle": both & circ_a & circ_b, "circle/poly": both & (circ_a ^ circ_b),
+             "poly/poly": both & ~circ_a & ~circ_b}
+    ran = rounds.abs().double()
+    ops = sum(float(ran[mask].sum()) * (V_OPS[k] + AB_ROUND_OPS) for k, mask in kinds.items())
+    return nbytes(swept, *tab) + 4 * rounds.numel() + 4 * n_bodies, ops
+
+
+def phase_ccd2d(device, smi):
+    """The 2D swept bullets at full width: Kernel AB against its twin on the
+    whole grid of step 2, then ``CCD2D_STEPS`` steps through
+    ``physics_step_2d`` with every step gated: no bullet's centre below the
+    ground or inside a box; the ``ccd`` stage timed apart; then what the
+    sweep's repairs did over those steps. Returns ({"swept_toi_2d":
+    measurements}, launch counts)."""
+    world, ids, shots = ccd2d_world(device)
+    start = world
+    world = physics_step_2d(world, CCD2D_CONFIG)
+    p, tab, swept, toi, body_toi, rounds = ab_grid(world, CCD2D_CONFIG)
+    n, m, k_n = world.bodies.capacity, tab.pos0.shape[0], swept.numel()
+    if k_n != CCD2D_BULLETS:
+        raise AssertionError(f"ccd2d: {k_n} swept colliders, not {CCD2D_BULLETS}")
+    again = kab.swept_toi_2d(swept, tab, n)
+    if not (torch.equal(toi, again[0]) and torch.equal(body_toi, again[1])):
+        raise AssertionError("swept_toi_2d: two runs differ")
+    if bool(((rounds < 0) & ~(toi < 1.0)).any()):
+        raise AssertionError("swept_toi_2d: a pair whose rounds ran out returned t >= 1")
+    (want, want_body), twin_ms = once_ms(lambda: kab.swept_toi_2d_twin(swept, tab, n))
+    still = ((tab.dang[swept.long()][:, None] == 0) & (tab.dang[None, :] == 0)).reshape(-1)
+    err = max(compare("swept_toi_2d still pairs", toi[still], want[still]),
+              compare("swept_toi_2d turning pairs", toi[~still], want[~still], TOL_AB),
+              compare("swept_toi_2d body minima", body_toi, want_body, TOL_AB))
+    io, ops = ab_work(tab, swept, rounds, n)
+    b_ms, b_by = bound(io, ops)
+    r = dict(max_abs_err=err, ms=cuda_ms(lambda: kab.swept_toi_2d(swept, tab, n)),
+             plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs=k_n * m,
+             mean_rounds=float(rounds.abs().double().mean()))
+    say("ccd2d", f"Kernel AB on the grid of step 2: {k_n} x {m} pairs ({int(still.sum())} with "
+        f"no turning collider), {r['mean_rounds']:.3f} rounds a pair, {int((rounds < 0).sum())} "
+        f"ran out, {int((toi < 1.0).sum())} pairs below 1; against the twin on the whole grid: "
+        f"max abs err {err:.3g} (still pairs bitwise); kernel {r['ms']:.4f} ms, twin "
+        f"{twin_ms:.3f} ms (one run), bound {b_ms:.5f} ms ({b_by}) [{smi}]")
+
+    ccd_times = []
+    sweep = ccd2.solve_swept_ccd_2d
+
+    def timed_sweep(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(*args)
+        torch.cuda.synchronize()
+        ccd_times.append(time.perf_counter() - t0)
+        return out
+
+    worst = [0, 0]
+
+    def each_step(i, w, idx):
+        pos = w.bodies.pos[shots]
+        worst[0] += int((pos[:, 1] < 0.0).sum())
+        worst[1] += int(shared_2d.inside_polygons(pos, w).sum())
+        if worst[0] or worst[1]:
+            raise AssertionError(f"ccd2d: step {i + 1}: {worst[0]} bullet centres below the "
+                                 f"ground, {worst[1]} inside a box")
+
+    step2.ccd_m.solve_swept_ccd_2d = timed_sweep
+    try:
+        world, got, ms = drive2d("ccd2d", start, ids, CCD2D_CONFIG, CCD2D_STEPS, smi,
+                                 each_step, vary=("swept_toi_2d",),
+                                 lowest_band=(DIM2_REST_Y - DIM2_REST_TOL, 1e9))
+    finally:
+        step2.ccd_m.solve_swept_ccd_2d = sweep
+    ran_out, cut, alone = ccd2d_side_effects(start, shots)
+    say("ccd2d", f"{len(shots)} bullets ({CCD2D_BULLETS // 2} linear circles, "
+        f"{CCD2D_BULLETS // 2} nonlinear spinning capsules), {CCD2D_STEPS} steps: AB launched "
+        f"{got['swept_toi_2d']} times; the ccd stage {1e3 * sum(ccd_times) / len(ccd_times):.3f} "
+        f"ms a step (of {ms:.2f}); no bullet centre below the ground or inside a box in any "
+        f"step; the sweep's repairs (ROADMAP 3b): pairs returning t < 1 without a hit "
+        f"{sum(ran_out)} (most in a step {max(ran_out)}), bullets cut {sum(cut)}, of which with "
+        f"no contact point in the next step {sum(alone)}; a step each: ran out {ran_out}, cut "
+        f"{cut}, cut and no contact after {alone}")
+    return {"swept_toi_2d": r}, got
+
+
+def ccd2d_side_effects(world, shots):
+    """The ``ccd2d`` run's steps again, counting per step the grid's pairs
+    that return t < 1 without a hit (the second repair), the bullets whose
+    delta position AB cut, and of those the ones with no contact point in
+    the next step's narrowphase (stopped short of anything)."""
+    n = world.bodies.capacity
+    ran_out, cut, alone = [], [], []
+    pending = torch.zeros(n, dtype=torch.bool, device=world.device)
+    for step in range(CCD2D_STEPS + 1):
+        p, tab, swept, toi, body_toi, rounds = ab_grid(world, CCD2D_CONFIG)
+        if step:
+            c = p.contacts
+            live = c.active & (c.num_points > 0)
+            touched = torch.zeros(n, dtype=torch.bool, device=world.device)
+            touched[c.body_a[live].long()] = True
+            touched[c.body_b[live].long()] = True
+            alone.append(int((pending & ~touched).sum()))
+        if step == CCD2D_STEPS:
+            break
+        ran_out.append(int((rounds < 0).sum()))
+        pending = body_toi * ccd2.TOI_EPS < 1.0
+        cut.append(int(pending.sum()))
+        world = physics_step_2d(world, CCD2D_CONFIG)
+    return ran_out, cut, alone
+
+
+def phase_dim2_examples(device):
+    """The five 2D joint examples' worlds with their own configs, step counts
+    and checks (``tests/torch_cases/shared_2d.py`` holds them as
+    ``examples/*_2d.py`` have them): the chain alone, and the four that share
+    a config side by side in one world, 20 m apart, each checked at its own
+    step count."""
+    examples = shared_2d.EXAMPLES
+    done = []
+    for config, names in itertools.groupby(sorted(examples, key=lambda n: str(examples[n][1])),
+                                           key=lambda n: str(examples[n][1])):
+        names = list(names)
+        b = SceneBuilder2D()
+        ids = {name: shared_2d.add(name, b, 20.0 * k, 0.0)
+               for k, name in enumerate(names)}
+        n = sum(len(v) for v in ids.values())
+        world = b.finalize(max_bodies=n, max_colliders=n, max_contacts=8 * n,
+                           max_joints=n, device=device)
+        config = PhysicsConfig(**examples[names[0]][1])
+        kernels.reset_launches()
+        for i in range(max(examples[name][2] for name in names)):
+            world = physics_step_2d(world, config)
+            for k, name in enumerate(names):
+                if i + 1 == examples[name][2]:
+                    pos = world.bodies.pos.cpu() - torch.tensor([20.0 * k, 0.0])
+                    shared_2d.check(name, pos, world.bodies.angle.cpu(), ids[name])
+                    done.append(f"{name} {i + 1} steps")
+        if not kernels.launches()["solve_joints_2d"]:
+            raise AssertionError(f"{names}: Kernel AA was not launched")
+    say("dim2 examples", "own checks pass: " + ", ".join(done))
 
 
 def main():
@@ -3148,6 +3552,12 @@ def main():
     timed("dim2 golden", phase_dim2_golden, device)
     dim2_launches = timed("pyramid2d", phase_pyramid2d, device, smi)
     timed("dim2 plain path", phase_dim2_plain_path, device)
+    measured_by_kernel.update(timed("dim2 joints kernels", phase_dim2_joints_kernels, device))
+    hinges2d_launches = timed("hinges2d", phase_hinges2d, device, smi)
+    timed("hinges2d plain path", phase_hinges2d_plain_path, device)
+    measured_ccd2d, ccd2d_launches = timed("ccd2d", phase_ccd2d, device, smi)
+    measured_by_kernel.update(measured_ccd2d)
+    timed("dim2 examples", phase_dim2_examples, device)
     timed("dim2 determinism", phase_dim2_determinism, device)
     timed("plain path", phase_plain_path, device)
     timed("hinges plain path", phase_hinges_plain_path, device)
@@ -3162,10 +3572,12 @@ def main():
         # ``launches``: the path that exercises the kernel most (the terrain
         # for P, the reference scenes for Q, the mixed shapes for M, N, O,
         # the swept-CCD terrain for R, the queries for S and T, the 2D
-        # pyramid for U-Z; the hinged boxes for the others).
+        # pyramid for U-Z, the 2D hinged boxes for AA, the 2D swept bullets
+        # for AB; the hinged boxes for the others).
         main = {"hull_manifold": terrain_launches, "plane_hull_manifold": scene_launches,
                 "swept_toi": ccd_launches, "shape_cast": query_launches,
-                "ray_cast": query_launches, **dict.fromkeys(DIM2_KERNELS, dim2_launches)}.get(
+                "ray_cast": query_launches, **dict.fromkeys(DIM2_KERNELS, dim2_launches),
+                "solve_joints_2d": hinges2d_launches, "swept_toi_2d": ccd2d_launches}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -3176,6 +3588,8 @@ def main():
                          scene_launches=scene_launches[name],
                          ccd_launches=ccd_launches[name], query_launches=query_launches[name],
                          pyramid2d_launches=dim2_launches[name],
+                         hinges2d_launches=hinges2d_launches[name],
+                         ccd2d_launches=ccd2d_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

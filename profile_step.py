@@ -1,7 +1,8 @@
 """Where one full step of the port spends its time on a CUDA card.
 
     python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain|terrain_ccd|
-                                     pyramid2d|many_pyramids2d] [--out profile.json]
+                                     pyramid2d|many_pyramids2d|hinges2d|pyramid_ccd2d]
+                            [--out profile.json]
 
 Settles the scene with the smoke's config for 30 steps (40 for ``shapes``
 and ``terrain``, 2 for ``terrain_ccd``),
@@ -22,7 +23,12 @@ pile and the field, and meet them in the measured steps. ``pyramid2d`` is
 the native 2D engine's ``box_pyramid_2d(100)`` (5,050 boxes) and
 ``many_pyramids2d`` its ``many_pyramids_2d(10, 10)`` (5,500 boxes), both with
 24 slots per body and ``PhysicsConfig(substeps=4, max_colors=8)``, stepped by
-``dim2.physics_step_2d``. Then it measures from
+``dim2.physics_step_2d``; ``hinges2d`` is ``hinge_blocks_2d(84)`` (10,080
+boxes, 7,560 revolute joints) with 16 slots per body and
+``pyramid_ccd2d`` is ``pyramid_ccd_2d(100, 32)`` (the base-100 2D pyramid
+and 32 bullets fired down at 300 m/s, 24 slots per body) with swept CCD, two
+steps in: the bullets are 2 m above the apex and meet the pyramid in the
+measured steps. Then it measures from
 that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
@@ -30,9 +36,10 @@ that state:
   stages summed over the substeps; ``ccd`` is the swept-CCD pass, Kernel R
   and its prologue, with ``swept_ccd`` on); for a 2D scene the stages are
   broadphase (Kernel U with L's slots and finish), narrowphase (V, F's
-  join, W), prepare (Z's prologue, G, X), substeps (Z and Y), restitution
-  (Y), store+writeback (the impulses' store, K's 2D writeback) and sleeping
-  (J's labels and 2D sleep update);
+  join, W), prepare (Z's prologue, G, X), prepare joints (AA's rows, G),
+  substeps (Z and Y), joints (AA's colours and velocities), ccd (the
+  prologue and Kernel AB), restitution (Y), store+writeback (the impulses'
+  store, K's 2D writeback) and sleeping (J's labels and 2D sleep update);
 - ``narrowphase_split_ms`` (3D scenes): the narrowphase's manifold kernels
   (A, M, N, O, P, Q) on the same state, each the sum of its shape-pair buckets, and the
   bucketing before them, mean of 3; the rest of the stage ``narrowphase``
@@ -58,11 +65,13 @@ from torch.profiler import ProfilerActivity, profile
 from avian_tpu_torch import PhysicsConfig, physics_step, scenes
 from avian_tpu_torch.core.types import ShapeType
 from avian_tpu_torch.dim2 import broadphase as bp2
+from avian_tpu_torch.dim2 import ccd as ccd2
 from avian_tpu_torch.dim2 import contacts as nc2
 from avian_tpu_torch.dim2 import dynamics as dyn2
 from avian_tpu_torch.dim2 import physics_step_2d
 from avian_tpu_torch.dim2 import scenes as scenes2d
 from avian_tpu_torch.dim2 import solver as sol2
+from avian_tpu_torch.dim2 import xpbd as xpbd2
 from avian_tpu_torch.dim2.step import update_sleeping as update_sleeping_2d
 from avian_tpu_torch.geometry.narrowphase import manifold_buckets
 from avian_tpu_torch.pipeline import broadphase as bp_m
@@ -167,13 +176,23 @@ def stage_ms_2d(world, config):
     s, table = dyn2.prepare(w2.bodies, w2.gravity, h)
     con = sol2.prepare_constraints(w2, contacts, s, config)
     mark("prepare")
+    jcon = None
+    if bool(w2.joints.active.any()):
+        jcon = xpbd2.prepare_joints(w2, s, poses, config)
+        mark("prepare joints")
     for _ in range(config.substeps):
         s = dyn2.integrate_velocities(s, table, h)
         s = sol2.warm_start(s, con, config)
         s, con = sol2.solve_pass(s, con, True, config)
         s = dyn2.integrate_positions(s, table, h)
         s, con = sol2.solve_pass(s, con, False, config)
-    mark("substeps")
+        mark("substeps")
+        if jcon is not None:
+            s, _ = xpbd2.solve_position_constraints(s, jcon, h, config)
+            mark("joints")
+    if config.swept_ccd:
+        s = ccd2.solve_swept_ccd_2d(w2, s, poses, config)
+        mark("ccd")
     s, con = sol2.solve_restitution(s, con, config)
     mark("restitution")
     stored = sol2.store_impulses(contacts, con)
@@ -211,7 +230,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="pile",
                     choices=("pile", "pyramid", "hinges", "shapes", "terrain", "terrain_ccd",
-                             "pyramid2d", "many_pyramids2d"))
+                             "pyramid2d", "many_pyramids2d", "hinges2d", "pyramid_ccd2d"))
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -223,11 +242,19 @@ def main():
     device = torch.device("cuda", 0)
     config, settle = CONFIG, SETTLE_STEPS
     step, stages = physics_step, stage_ms
-    if args.scene in ("pyramid2d", "many_pyramids2d"):
+    if args.scene in ("pyramid2d", "many_pyramids2d", "hinges2d", "pyramid_ccd2d"):
         config, step, stages = CONFIG_2D, physics_step_2d, stage_ms_2d
         if args.scene == "pyramid2d":
             world, ids = scenes2d.box_pyramid_2d(PYRAMID_BASE, max_contacts=PYRAMID_SLOTS,
                                                  device=device)
+        elif args.scene == "hinges2d":
+            world, ids = scenes2d.hinge_blocks_2d(84, max_contacts=16 * 10_081, device=device)
+        elif args.scene == "pyramid_ccd2d":
+            config, settle = CONFIG_2D.replace(swept_ccd=True), CCD_SETTLE_STEPS
+            world, ids, shots = scenes2d.pyramid_ccd_2d(
+                PYRAMID_BASE, CCD_BULLETS, max_contacts=PYRAMID_SLOTS + 24 * CCD_BULLETS,
+                device=device)
+            ids = ids + shots
         else:
             world, ids = scenes2d.many_pyramids_2d(10, 10, max_contacts=24 * 5_501,
                                                    device=device)

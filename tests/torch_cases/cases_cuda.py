@@ -1126,3 +1126,90 @@ def test_dim2_step_launches_u_to_z_and_reruns_equal(cuda):
         assert got["prepare_2d"] == got["writeback_2d"] == got["sleep_update_2d"] == 3
     for name in ("pos", "angle", "lin_vel", "ang_vel"):
         assert torch.equal(getattr(runs[0].bodies, name), getattr(runs[1].bodies, name))
+
+
+@pytest.mark.parametrize("colors", [8, 2])
+def test_solve_joints_2d_matches_twins_and_is_reproducible(cuda, colors):
+    """Kernel AA on ``hinge_blocks_2d(4)`` after 5 steps: the rows bitwise
+    (the cosines come in); one substep of every colour, the projection and
+    the damping against the twins within 1e-5 (``cosf``/``sinf``/``atan2f``
+    in the kernel; the twins' shared-body sums are in the kernel's order);
+    at 2 colours every joint is put in the overflow colour, where a row's
+    joints share its boxes. Two runs bitwise equal."""
+    from avian_tpu_torch.dim2 import physics_step_2d, scenes as scenes2d, xpbd as xpbd2
+    from avian_tpu_torch.dim2 import step as step2
+    from avian_tpu_torch.kernels import solve_joints_2d as kaa
+    from shared_2d import all_in_overflow, joint_substep
+
+    config = DIM2_CONFIG.replace(max_colors=colors)
+    world, _ = scenes2d.hinge_blocks_2d(4, max_contacts=16 * 481, device=cuda)
+    for _ in range(5):
+        world = physics_step_2d(world, config)
+    p = step2.substepped(world, config)
+    j, s = p.world.joints, p.s
+    axis_cs = torch.stack([torch.cos(j.axis_angle), torch.sin(j.axis_angle)], -1).contiguous()
+    args = (j, p.world.bodies, p.poses.body_cs, axis_cs, s.inv_mass, s.inv_inertia, s.solve_mask)
+    for x, y in zip(kaa.joint_rows_2d(*args), kaa.joint_rows_2d_twin(*args)):
+        _same(x, y)
+    jc = xpbd2.prepare_joints(p.world, s, p.poses, config)
+    if colors == 2:
+        jc = all_in_overflow(jc, colors, s.state.shape[0])
+    h = config.substep_dt
+    runs = [joint_substep(jc, colors, h, False, s.state.clone(), jc.lam.clone())
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    want = joint_substep(jc, colors, h, True, s.state.clone(), jc.lam.clone())
+    _same(runs[0][0], want[0], 1e-5)
+    _same(runs[0][1], want[1], 1e-5 * max(1.0, float(want[1].abs().max())))
+    if colors == 2:
+        ends = torch.cat([jc.body_a, jc.body_b])[torch.cat([jc.color_j, jc.color_j]) == 1]
+        assert ends.numel() > torch.unique(ends).numel()
+
+
+def test_swept_toi_2d_matches_twin_and_is_reproducible(cuda):
+    """Kernel AB on ``pyramid_ccd_2d(20, 8)``'s grid of step 3: pairs where
+    neither collider turns along its sweep bitwise, the rest within 1e-5
+    (``cosf``/``sinf`` in the kernel), the body minima likewise; a rerun
+    bitwise; a pair whose rounds ran out returned t < 1."""
+    from avian_tpu_torch.dim2 import ccd as ccd2, physics_step_2d, scenes as scenes2d
+    from avian_tpu_torch.dim2 import step as step2
+    from avian_tpu_torch.kernels import swept_toi_2d as kab
+
+    config = DIM2_CONFIG.replace(swept_ccd=True)
+    world, _, shots = scenes2d.pyramid_ccd_2d(20, 8, max_contacts=24 * 219, device=cuda)
+    for _ in range(2):
+        world = physics_step_2d(world, config)
+    p = step2.substepped(world, config)
+    tab, swept = ccd2.swept_tables(p.world, p.s, p.poses, config)
+    assert swept.numel() == len(shots)
+    n = world.bodies.capacity
+    rounds = torch.zeros((swept.numel() * tab.pos0.shape[0],), dtype=torch.int32, device=cuda)
+    toi, body_toi = kab.swept_toi_2d(swept, tab, n, rounds)
+    again = kab.swept_toi_2d(swept, tab, n)
+    assert torch.equal(toi, again[0]) and torch.equal(body_toi, again[1])
+    want, want_body = kab.swept_toi_2d_twin(swept, tab, n)
+    still = ((tab.dang[swept.long()][:, None] == 0) & (tab.dang[None, :] == 0)).reshape(-1)
+    _same(toi[still], want[still])
+    _same(toi, want, 1e-5)
+    _same(body_toi, want_body, 1e-5)
+    assert bool((toi[rounds < 0] < 1.0).all()) and int((toi < 1.0).sum()) > 0
+
+
+def test_dim2_step_launches_aa_and_ab(cuda):
+    from avian_tpu_torch.dim2 import physics_step_2d, scenes as scenes2d
+
+    cfg = DIM2_CONFIG
+    world, _ = scenes2d.hinge_blocks_2d(2, max_contacts=16 * 241, device=cuda)
+    kernels.reset_launches()
+    for _ in range(3):
+        world = physics_step_2d(world, cfg)
+    got = kernels.launches()
+    assert got["solve_joints_2d"] == 3 * (1 + cfg.substeps * (cfg.max_colors + 1))
+    assert got["swept_toi_2d"] == 0
+    cfg = cfg.replace(swept_ccd=True)
+    world, _, _ = scenes2d.pyramid_ccd_2d(10, 4, max_contacts=24 * 60, device=cuda)
+    kernels.reset_launches()
+    for _ in range(3):
+        world = physics_step_2d(world, cfg)
+    got = kernels.launches()
+    assert got["swept_toi_2d"] == 3 and got["solve_joints_2d"] == 0
