@@ -1,10 +1,11 @@
-// Device code of the 2D engine's kernels U-Z, AA and AB, one function per
+// Device code of the 2D engine's kernels U-Z and AA-AE, one function per
 // thread's work.
 //
 // Each function below is the body of one thread of a kernel in
 // grid_pairs_2d.cu (U), manifold_2d.cu (V), contact_rows_2d.cu (W),
 // pack_2d.cu (X), solve_2d.cu (Y), integrate_2d.cu (Z and its prologue),
-// solve_joints_2d.cu (AA) or swept_toi_2d.cu (AB), or of the 2D writeback
+// solve_joints_2d.cu (AA), swept_toi_2d.cu (AB), ray_cast_2d.cu (AC),
+// point_2d.cu (AD) or shape_cast_2d.cu (AE), or of the 2D writeback
 // in body_pass.cu (K); those files hold the
 // __global__ wrappers and the C entry points. Every expression is written
 // in the order of the plain PyTorch versions in kernels/*_2d.py (and the
@@ -126,13 +127,20 @@ __device__ __forceinline__ Manifold circle_circle(V2 pa, float ra, V2 pb, float 
   return one_point(n, pa + n * ra, pb - n * rb, dist - ra - rb, 0);
 }
 
-// Circle of centre p, radius ra against the rounded polygon q (reference
-// _circle_poly :136 over _closest_on_poly :113). Ties in the closest edge and
-// the deepest face go to the first edge.
-__device__ __forceinline__ Manifold circle_poly(V2 p, float ra, const Poly& q) {
-  int best = 0, deepest = 0;
-  float best_d2 = 0.0f, best_fd = 0.0f;
-  V2 closest = v2(0.0f, 0.0f), n_face = v2(0.0f, 0.0f);
+// Reference _closest_on_poly (:113): the point of q's core polygon closest
+// to p (on its boundary), whether p is inside it (3 or more vertices), and
+// the face whose line p is deepest behind (normal and depth). Ties in the
+// closest edge and the deepest face go to the first edge.
+struct Closest {
+  V2 closest, n_face;
+  float face_d;
+  bool inside;
+  int edge;
+};
+
+__device__ __forceinline__ Closest closest_on_poly(V2 p, const Poly& q) {
+  Closest c{v2(0.0f, 0.0f), v2(0.0f, 0.0f), 0.0f, false, 0};
+  float best_d2 = 0.0f;
   bool all_in = true;
   for (int i = 0; i < kVerts; ++i) {
     bool valid = i < q.n && q.n >= 2;
@@ -144,28 +152,33 @@ __device__ __forceinline__ Manifold circle_poly(V2 p, float ra, const Poly& q) {
     V2 dp = p - proj;
     float d2 = valid ? dot2(dp, dp) : kBig;
     if (i == 0 || d2 < best_d2) {
-      best = i;
+      c.edge = i;
       best_d2 = d2;
-      closest = proj;
+      c.closest = proj;
     }
     V2 nrm = edge_normal(e);
     float fd = valid ? dot2(nrm, rel) : -kBig;
-    if (i == 0 || fd > best_fd) {
-      deepest = i;
-      best_fd = fd;
-      n_face = nrm;
+    if (i == 0 || fd > c.face_d) {
+      c.face_d = fd;
+      c.n_face = nrm;
     }
     all_in = all_in && (!valid || fd <= 0.0f);
   }
-  bool inside = all_in && q.n >= 3;
-  V2 d = closest - p;
+  c.inside = all_in && q.n >= 3;
+  return c;
+}
+
+// Circle of centre p, radius ra against the rounded polygon q (reference
+// _circle_poly :136).
+__device__ __forceinline__ Manifold circle_poly(V2 p, float ra, const Poly& q) {
+  Closest c = closest_on_poly(p, q);
+  V2 d = c.closest - p;
   float dist = norm2(d);
-  V2 n_out = unit_or(d, dist, -n_face);
-  V2 n = inside ? -n_face : n_out;
-  float sep = inside ? best_fd - ra - q.r : dist - ra - q.r;
-  V2 pb = inside ? p + n * (ra + sep) : closest - n * q.r;
-  (void)deepest;
-  return one_point(n, p + n * ra, pb, sep, best);
+  V2 n_out = unit_or(d, dist, -c.n_face);
+  V2 n = c.inside ? -c.n_face : n_out;
+  float sep = c.inside ? c.face_d - ra - q.r : dist - ra - q.r;
+  V2 pb = c.inside ? p + n * (ra + sep) : c.closest - n * q.r;
+  return one_point(n, p + n * ra, pb, sep, c.edge);
 }
 
 // Reference _sat_faces (:170): the face of r that separates i the most.
@@ -1134,6 +1147,254 @@ __device__ __forceinline__ float swept_toi_pair_2d(int i, int j, const SweptTabl
   bool valid = j != i && T.active[j] != 0 && T.body_idx[j] != T.body_idx[i] && layers_ok;
   *ran = (valid && !done && t < 1.0f) ? -rounds : rounds;
   return valid ? fminf(t, 1.0f) : 1.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The 2D queries (dim2/queries.py): Kernels AC (rays), AD (points) and AE
+// (shape casts). A miss or a far collider is 1e30 there (the queries' _BIG).
+// ---------------------------------------------------------------------------
+
+constexpr float kFar = 1e30f;
+
+// Collider j's world polygon (vertices at its pose), radius and count.
+__device__ __forceinline__ void load_collider(Poly& q, int j, const float* pos, const float* cs,
+                                              const float* verts, const int* count,
+                                              const float* radius) {
+  load_poly(q, load2(pos + 2 * j), cs[2 * j], cs[2 * j + 1], verts + 2 * kVerts * (long)j,
+            count[j], radius[j]);
+}
+
+// A half-space's world outward normal: its local normal (vertex 0) turned.
+__device__ __forceinline__ V2 plane_normal(int j, const float* cs, const float* verts) {
+  return rot2(cs[2 * j], cs[2 * j + 1], load2(verts + 2 * kVerts * (long)j));
+}
+
+__device__ __forceinline__ V2 normalized(V2 v) {
+  float m = fmaxf(norm2(v), 1e-9f);
+  return v2(v.x / m, v.y / m);
+}
+
+struct Slab {
+  float enter, exit;
+  V2 n_enter;
+  bool ok;
+};
+
+// Reference _slab (:143): where a ray enters and leaves the region behind k
+// face lines (outward normals pn, points pp), the entering face's normal
+// (the first of equals) and whether the interval is not empty.
+__device__ __forceinline__ Slab slab(V2 o, V2 d, const V2* pn, const V2* pp, const bool* valid,
+                                     int k_n) {
+  float best = 0.0f, x = kFar;
+  int kb = 0;
+  bool parallel_out = false, any = false;
+  for (int k = 0; k < k_n; ++k) {
+    float denom = pn[k].x * d.x + pn[k].y * d.y;
+    float num = pn[k].x * (pp[k].x - o.x) + pn[k].y * (pp[k].y - o.y);
+    float t = num / (fabsf(denom) > 1e-12f ? denom : 1e-12f);
+    float te = (valid[k] && denom < -1e-12f) ? t : -kFar;
+    if (k == 0 || te > best) {
+      best = te;
+      kb = k;
+    }
+    x = fminf(x, (valid[k] && denom > 1e-12f) ? t : kFar);
+    parallel_out = parallel_out || (valid[k] && fabsf(denom) <= 1e-12f && num < 0.0f);
+    any = any || valid[k];
+  }
+  Slab s;
+  s.enter = fmaxf(best, -kFar);
+  s.exit = x;
+  s.n_enter = pn[kb];
+  s.ok = s.enter <= x + 1e-9f && !parallel_out && any;
+  return s;
+}
+
+// Kernel AC: the first hit of the ray (o, unit d) on collider q, a rounded
+// polygon (reference _ray_rounded_poly :164): the union of its core polygon
+// (3 or more vertices), one disk a vertex and one rectangle an edge (the edge
+// swept outward by the radius) is convex, so the ray's interval is [least
+// entry, greatest exit]. Returns t (kFar on a miss) and the normal in *n.
+// The exit normal of a hollow ray cast from inside is the reference's
+// approximation (:232-246), kept as it is.
+__device__ __forceinline__ float ray_rounded_poly(V2 o, V2 d, const Poly& q, bool solid, V2* n) {
+  V2 v1[kVerts], n_out[kVerts], n_disk[kVerts];
+  float elen[kVerts], e_disk[kVerts], x_disk[kVerts];
+  bool edge_ok[kVerts], core_valid[kVerts], disk_ok[kVerts];
+  for (int i = 0; i < kVerts; ++i) {
+    v1[i] = q.v[next_vertex(i, q.n)];
+    V2 e = v1[i] - q.v[i];
+    elen[i] = sqrtf(e.x * e.x + e.y * e.y);
+    edge_ok[i] = i < q.n && q.n >= 2 && elen[i] > 1e-9f;
+    core_valid[i] = i < q.n && q.n >= 3 && elen[i] > 1e-9f;
+    n_out[i] = edge_normal(e);
+    V2 oc = o - q.v[i];
+    float b = oc.x * d.x + oc.y * d.y;
+    float c = (oc.x * oc.x + oc.y * oc.y) - q.r * q.r;
+    float disc = b * b - c;
+    disk_ok[i] = i < q.n && disc >= 0.0f && q.r > 1e-12f;
+    float sq = sqrtf(fmaxf(disc, 0.0f));
+    e_disk[i] = -b - sq;
+    x_disk[i] = -b + sq;
+    n_disk[i] = normalized((o + d * e_disk[i]) - q.v[i]);
+  }
+  Slab core = slab(o, d, n_out, q.v, core_valid, kVerts);
+  bool ok_core = core.ok && q.n >= 3;
+
+  // The union, in the reference's order: core, disks, rectangles.
+  float t_in = kFar, t_out = -kFar;
+  V2 n_in = core.n_enter;
+  bool any_valid = false;
+  auto take = [&](int k, bool valid, float enter, float exit, V2 normal) {
+    float te = valid ? enter : kFar;
+    if (k == 0 || te < t_in) {
+      t_in = te;
+      n_in = normal;
+    }
+    t_out = fmaxf(t_out, valid ? exit : -kFar);
+    any_valid = any_valid || valid;
+  };
+  take(0, ok_core, core.enter, core.exit, core.n_enter);
+  for (int i = 0; i < kVerts; ++i) take(1 + i, disk_ok[i], e_disk[i], x_disk[i], n_disk[i]);
+  for (int i = 0; i < kVerts; ++i) {
+    float l = fmaxf(elen[i], 1e-9f);
+    V2 e = v1[i] - q.v[i];
+    V2 th = v2(e.x / l, e.y / l);
+    V2 pn[4] = {n_out[i], -n_out[i], -th, th};
+    V2 pp[4] = {q.v[i] + n_out[i] * q.r, q.v[i], q.v[i], v1[i]};
+    bool all[4] = {true, true, true, true};
+    Slab r = slab(o, d, pn, pp, all, 4);
+    take(1 + kVerts + i, r.ok && edge_ok[i], r.enter, r.exit, r.n_enter);
+  }
+
+  // The exit normal (:232-246): the farthest disk's, where a disk's exit is
+  // the union's, else the face's whose line the exit point is deepest past.
+  V2 exit_pt = o + d * t_out;
+  float xd_best = 0.0f, fd_best = 0.0f;
+  int jx = 0, jf = 0;
+  for (int i = 0; i < kVerts; ++i) {
+    float xd = disk_ok[i] ? x_disk[i] : -kFar;
+    if (i == 0 || xd > xd_best) {
+      xd_best = xd;
+      jx = i;
+    }
+    V2 rel = exit_pt - q.v[i];
+    float fd = (core_valid[i] || edge_ok[i]) ? n_out[i].x * rel.x + n_out[i].y * rel.y : -kFar;
+    if (i == 0 || fd > fd_best) {
+      fd_best = fd;
+      jf = i;
+    }
+  }
+  bool disk_exit_wins = xd_best >= t_out - 1e-6f;
+  V2 n_exit = (disk_exit_wins && q.r > 1e-12f) ? normalized(exit_pt - q.v[jx]) : n_out[jf];
+
+  bool inside = any_valid && t_in <= 0.0f && t_out >= 0.0f;
+  bool hit_front = any_valid && t_in >= 0.0f;
+  float t;
+  if (solid) {
+    t = inside ? 0.0f : (hit_front ? t_in : kFar);
+    *n = inside ? -d : n_in;
+  } else {
+    t = inside ? (t_out >= 0.0f ? t_out : kFar) : (hit_front ? t_in : kFar);
+    *n = inside ? n_exit : n_in;
+  }
+  return t < kFar ? t : kFar;
+}
+
+// Kernel AC on a half-space through pp with outward normal pn (:262-272).
+__device__ __forceinline__ float ray_plane(V2 o, V2 d, V2 pp, V2 pn, bool solid, V2* n) {
+  float denom = d.x * pn.x + d.y * pn.y;
+  float o_side = (o.x - pp.x) * pn.x + (o.y - pp.y) * pn.y;
+  float t_pl = -o_side / (fabsf(denom) > 1e-12f ? denom : 1e-12f);
+  bool inside = o_side <= 0.0f;
+  float t;
+  if (inside)
+    t = solid ? 0.0f : (denom > 1e-12f ? t_pl : kFar);
+  else
+    t = denom < -1e-12f ? t_pl : kFar;
+  *n = (inside && solid) ? -d : pn;
+  return t < kFar ? t : kFar;
+}
+
+// Kernel AD: the signed distance from p to collider j's rounded surface and
+// the surface point closest to it (reference _point_one :356).
+__device__ __forceinline__ float point_one(V2 p, const Poly& q, bool plane, V2 pp, V2 pn,
+                                           V2* surf) {
+  if (plane) {
+    float d = (p.x - pp.x) * pn.x + (p.y - pp.y) * pn.y;
+    *surf = p - pn * d;
+    return d;
+  }
+  Closest c = closest_on_poly(p, q);
+  V2 out = p - c.closest;
+  float dist_core = c.inside ? c.face_d : norm2(out);
+  V2 u_raw = c.inside ? c.closest - p : out;
+  V2 u = norm2(u_raw) > 1e-9f ? normalized(u_raw) : c.n_face;
+  *surf = c.closest + u * q.r;
+  return dist_core - q.r;
+}
+
+// Kernel AE's query: the shape (local vertices, count, radius) and its cast.
+struct Query2 {
+  V2 origin;
+  float c, s;  // cosine and sine of the shape's angle
+  V2 dir;      // unit direction
+  float max_distance, max_distance_1;  // and max_distance + 1
+  const float* verts;
+  int n;
+  float r;
+};
+
+struct Cast2 {
+  float t, sep;
+  V2 pa, pb, normal;
+  bool hit;
+  int count, rounds;
+};
+
+// Kernel AE: conservative advancement of the query shape along its cast
+// against collider j over at most `rounds` rounds of V's manifold (reference
+// _sweep_all :500-544, _CAST_ITERS = 24); with 0 rounds, the manifold at the
+// origin (_manifold_vs_all :447). A collider stops once it has hit, or once
+// t is capped at max_distance + 1 past max_distance, after which no round
+// changes what it returns. The manifold's normal points from the shape to
+// the collider.
+__device__ __forceinline__ Cast2 shape_cast_one(int j, const Query2& q, int rounds,
+                                                const float* pos, const float* cs,
+                                                const float* verts, const int* count,
+                                                const float* radius, const unsigned char* plane) {
+  V2 pj = load2(pos + 2 * j);
+  float cj = cs[2 * j], sj = cs[2 * j + 1];
+  const float* vj = verts + 2 * kVerts * (long)j;
+  bool plj = plane[j] != 0;
+  float t = 0.0f;
+  bool done = false;
+  int ran = 0;
+  for (int k = 0; k < rounds; ++k) {
+    if (done || (t >= q.max_distance_1 && q.max_distance_1 > q.max_distance)) break;
+    ++ran;
+    Manifold m = pair_manifold_at(q.origin + q.dir * t, q.c, q.s, q.verts, q.n, q.r, false, pj,
+                                  cj, sj, vj, count[j], radius[j], plj);
+    float sep = fminf(m.sep[0], m.sep[1]);
+    float approach = q.dir.x * m.normal.x + q.dir.y * m.normal.y;
+    bool hit_now = sep < 1e-4f;
+    float step = approach > 1e-6f ? sep / fmaxf(approach, 1e-6f) : kFar;
+    float new_t = (done || hit_now) ? t : t + fmaxf(step, 0.0f);
+    t = fminf(new_t, q.max_distance_1);
+    done = done || hit_now;
+  }
+  Manifold m = pair_manifold_at(q.origin + q.dir * t, q.c, q.s, q.verts, q.n, q.r, false, pj, cj,
+                                sj, vj, count[j], radius[j], plj);
+  int pi = m.sep[1] < m.sep[0] ? 1 : 0;
+  Cast2 out;
+  out.t = t;
+  out.sep = fminf(m.sep[0], m.sep[1]);
+  out.pa = m.pa[pi];
+  out.pb = m.pb[pi];
+  out.normal = m.normal;
+  out.hit = done && t <= q.max_distance;
+  out.count = m.count;
+  out.rounds = ran;
+  return out;
 }
 
 }  // namespace d2

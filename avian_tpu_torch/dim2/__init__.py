@@ -11,16 +11,18 @@ joints, AB the swept CCD's times of impact) beside the 3D port's colouring
 twins run. Entry points build on the card unless ``device="cpu"`` is
 passed. It steps every world the reference's 2D step steps: joints of the
 four 2D types, ``config.swept_ccd``, collision ``hooks`` and
-``custom_joints`` (``dim2.custom``); ``dim2.forces`` is the forces API. The
-2D queries and the character controller are not ported yet.
+``custom_joints`` (``dim2.custom``); ``dim2.forces`` is the forces API.
+``dim2.queries`` casts rays (Kernel AC), projects points (AD) and casts
+shapes (AE) into a 2D world, with intersections, filters and predicates;
+``dim2.character`` is the kinematic move-and-slide controller on them.
 """
 
-from avian_tpu_torch.dim2 import custom, forces, scenes
+from avian_tpu_torch.dim2 import character, custom, forces, queries, scenes
 from avian_tpu_torch.dim2.builder import SceneBuilder2D
 from avian_tpu_torch.dim2.state import Bodies2D, Colliders2D, Contacts2D, Joints2D, World2D
 from avian_tpu_torch.dim2.step import physics_step_2d, rollout_2d
 
 __all__ = [
     "SceneBuilder2D", "Bodies2D", "Colliders2D", "Contacts2D", "Joints2D", "World2D",
-    "physics_step_2d", "rollout_2d", "scenes", "forces", "custom",
+    "physics_step_2d", "rollout_2d", "scenes", "forces", "custom", "queries", "character",
 ]

@@ -40,7 +40,11 @@
 - ``sleep_update_2d`` (Kernel J's 2D pass, CUDA): the 2D sleep update;
 - ``solve_joints_2d`` (Kernel AA, CUDA): the 2D joint rows of a step and the
   2D XPBD joint solver of a substep;
-- ``swept_toi_2d`` (Kernel AB, CUDA): the 2D swept-CCD times of impact.
+- ``swept_toi_2d`` (Kernel AB, CUDA): the 2D swept-CCD times of impact;
+- ``ray_cast_2d`` (Kernel AC, CUDA): the 2D ray casts;
+- ``point_2d`` (Kernel AD, CUDA): the 2D point projections;
+- ``shape_cast_2d`` (Kernel AE, CUDA): the 2D shape casts and query
+  manifolds.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -75,6 +79,9 @@ from avian_tpu_torch.kernels import solve_2d as _y
 from avian_tpu_torch.kernels import integrate_2d as _z
 from avian_tpu_torch.kernels import solve_joints_2d as _aa
 from avian_tpu_torch.kernels import swept_toi_2d as _ab
+from avian_tpu_torch.kernels import ray_cast_2d as _ac
+from avian_tpu_torch.kernels import point_2d as _ad
+from avian_tpu_torch.kernels import shape_cast_2d as _ae
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -108,6 +115,9 @@ WRAPPERS = {
     "sleep_update_2d": (_j.sleep_update_2d,),
     "solve_joints_2d": (_aa.joint_rows_2d, _aa.joint_color_2d, _aa.joint_velocities_2d),
     "swept_toi_2d": (_ab.swept_toi_2d,),
+    "ray_cast_2d": (_ac.ray_cast_2d,),
+    "point_2d": (_ad.point_2d,),
+    "shape_cast_2d": (_ae.shape_cast_2d,),
 }
 
 

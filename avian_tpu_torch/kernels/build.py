@@ -103,6 +103,10 @@ _SIGNATURES = {
     "avian_joint_color_2d": [_I] * 4 + [_P] * 11 + [_F] + [_P],
     "avian_joint_velocities_2d": [_I] * 2 + [_P] * 9 + [_F] + [_P],
     "avian_swept_toi_2d": [_I] * 2 + [_P] * 19 + [_P],
+    # Kernels AC, AD and AE of the 2D queries
+    "avian_ray_cast_2d": [_I, _I, _P, _I] + [_P] * 8 + [_P],
+    "avian_point_2d": [_I, _I] + [_P] * 9 + [_P],
+    "avian_shape_cast_2d": [_I, _I] + [_P] * 18 + [_P],
 }
 
 

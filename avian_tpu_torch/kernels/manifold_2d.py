@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from avian_tpu_torch.kernels.contact_rows import first_argmax
+from avian_tpu_torch.math.vec import sqrt_rn
 
 BIG = 1e9
 V = 8  # vertices a collider
@@ -60,7 +61,7 @@ def _take(x, idx):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _world(pos, cs, verts):
+def world_verts(pos, cs, verts):
     """World vertices [K, V, 2] of local ``verts`` under (pos, cos, sin)."""
     c, s = cs[:, 0:1], cs[:, 1:2]
     vx, vy = verts[..., 0], verts[..., 1]
@@ -81,8 +82,27 @@ def _edge_normals(e):
     return torch.stack([ey / length, -ex / length], -1)
 
 
-def _dot(a, b):
+def dot2(a, b):
+    """Dot product of 2-vectors along the last axis, ``x * x' + y * y'``."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
+def normalize(v):
+    """``v / max(|v|, 1e-9)`` with a correctly rounded length (reference
+    ``_normalize``, ``dim2/narrowphase.py:70``)."""
+    return v / torch.clamp(sqrt_rn(dot2(v, v)), min=1e-9)[..., None]
+
+
+def in_chunks(fn, rows, m, chunk=1 << 16):
+    """``fn`` on slices of ``rows`` [C, ...] of at most ``chunk // m`` rows
+    each, so that a slice holds at most ``chunk`` (row, collider) pairs of M
+    = ``m`` colliders; returns ``fn``'s outputs [C, M] and [C, M, 2], each
+    concatenated over the slices."""
+    step = max(1, chunk // max(m, 1))
+    outs = [fn(rows[k:k + step]) for k in range(0, rows.shape[0], step)]
+    if not outs:
+        return rows.new_zeros((0, m)), rows.new_zeros((0, m, 2))
+    return tuple(torch.cat(o) for o in zip(*outs))
 
 
 def _gather_v(v, idx):
@@ -90,7 +110,7 @@ def _gather_v(v, idx):
     return torch.gather(v, 1, idx[..., None].expand(-1, -1, 2))
 
 
-def _closest_on_poly(p, v, count):
+def closest_on_poly(p, v, count):
     """Reference ``_closest_on_poly`` (:113) for K points p [K, 2] and
     polygons v [K, V, 2]: (closest [K, 2], inside [K], face normal [K, 2],
     face depth [K], closest edge [K])."""
@@ -98,14 +118,14 @@ def _closest_on_poly(p, v, count):
     e = _gather_v(v, _next(count)) - v
     valid = (idx < count[:, None]) & (count[:, None] >= 2)
     rel = p[:, None, :] - v
-    t = _dot(rel, e) / torch.clamp(_dot(e, e), min=1e-12)
+    t = dot2(rel, e) / torch.clamp(dot2(e, e), min=1e-12)
     t = torch.clamp(t, 0.0, 1.0)
     proj = v + t[..., None] * e
     dp = p[:, None, :] - proj
-    d2 = torch.where(valid, _dot(dp, dp), BIG)
+    d2 = torch.where(valid, dot2(dp, dp), BIG)
     best = first_argmin(d2)
     n_out = _edge_normals(e)
-    face_d = torch.where(valid, _dot(n_out, rel), -BIG)
+    face_d = torch.where(valid, dot2(n_out, rel), -BIG)
     deepest = first_argmax(face_d)
     inside = torch.where(valid, face_d <= 0.0, True).all(-1) & (count >= 3)
     return (_take(proj, best), inside, _take(n_out, deepest), _take(face_d, deepest), best)
@@ -142,7 +162,7 @@ def _circle_circle(pa, ra, pb, rb):
 def _circle_poly(pa, ra, vb, count_b, rb):
     """Circle (centre ``pa``, radius ``ra``) against the rounded polygon of
     world vertices ``vb``; the normal points from the circle to the polygon."""
-    closest, inside, n_face, face_d, edge = _closest_on_poly(pa, vb, count_b)
+    closest, inside, n_face, face_d, edge = closest_on_poly(pa, vb, count_b)
     d = closest - pa
     dist = norm2(d)
     n_out = _unit_or(d, dist, -n_face)
@@ -189,7 +209,7 @@ def _poly_poly(va, count_a, ra, vb, count_b, rb):
     idx = torch.arange(V, device=va.device)[None, :]
     n_i = _edge_normals(_gather_v(vi, _next(count_i)) - vi)
     valid_i = (idx < count_i[:, None]) & (count_i[:, None] >= 2)
-    anti = torch.where(valid_i, _dot(n_i, n[:, None, :]), BIG)
+    anti = torch.where(valid_i, dot2(n_i, n[:, None, :]), BIG)
     inc = first_argmin(anti)
     nxt_i = _next(count_i)
     i0 = _take(vi, inc)
@@ -202,9 +222,9 @@ def _poly_poly(va, count_a, ra, vb, count_b, rb):
     rd = r1 - r0
     tl = torch.clamp(norm2(rd), min=1e-9)
     t = rd / tl[:, None]
-    length = _dot(t, rd)
-    a0 = _dot(t, i0 - r0)
-    a1 = _dot(t, i1 - r0)
+    length = dot2(t, rd)
+    a0 = dot2(t, i0 - r0)
+    a1 = dot2(t, i1 - r0)
     da = a1 - a0
     degen = torch.abs(da) <= 1e-9
     safe = torch.where(degen, 1e-9, da)
@@ -217,7 +237,7 @@ def _poly_poly(va, count_a, ra, vb, count_b, rb):
     cp1 = i0 + s_max[:, None] * di
 
     def mk(cp):
-        s_raw = _dot(n, cp - r0)
+        s_raw = dot2(n, cp - r0)
         s = s_raw - r_r - r_i
         p_ref = cp - n * (s_raw - r_r)[:, None]
         p_inc = cp - n * r_i[:, None]
@@ -226,7 +246,7 @@ def _poly_poly(va, count_a, ra, vb, count_b, rb):
     s0, pr0, pi0 = mk(cp0)
     s1, pr1, pi1 = mk(cp1)
     dc = cp1 - cp0
-    dup = _dot(dc, dc) < 1e-10
+    dup = dot2(dc, dc) < 1e-10
     count = torch.where(dup, 1, 2).to(torch.int32)
     fid = (flip.to(torch.int32) * 4096 + ref.to(torch.int32) * 256 + inc.to(torch.int32) * 16)
     return (
@@ -244,7 +264,7 @@ def _poly_plane(v, count, radius, plane_pos, plane_n):
     ``plane_pos`` with outward normal ``plane_n``; normal a -> b = -plane_n."""
     idx = torch.arange(V, device=v.device)[None, :]
     rel = v - plane_pos[:, None, :]
-    d = torch.where(idx < count[:, None], _dot(plane_n[:, None, :], rel) - radius[:, None], BIG)
+    d = torch.where(idx < count[:, None], dot2(plane_n[:, None, :], rel) - radius[:, None], BIG)
     k0 = first_argmin(d)
     d_rest = torch.where(idx == k0[:, None], float("inf"), d)
     k1 = first_argmin(d_rest)
@@ -253,7 +273,7 @@ def _poly_plane(v, count, radius, plane_pos, plane_n):
     def surf(k):
         vk = _take(v, k)
         pa = vk + n_ab * radius[:, None]
-        pb = vk - plane_n * _dot(plane_n, vk - plane_pos)[:, None]
+        pb = vk - plane_n * dot2(plane_n, vk - plane_pos)[:, None]
         return pa, pb
 
     pa0, pb0 = surf(k0)
@@ -265,7 +285,8 @@ def _poly_plane(v, count, radius, plane_pos, plane_n):
             torch.stack([k0, k1], 1).to(torch.int32), torch.where(two, 2, 1).to(torch.int32))
 
 
-def _rotate(cs, v):
+def rotate_cs(cs, v):
+    """``v`` [K, 2] turned by the angles of cosines and sines ``cs`` [K, 2]."""
     c, s = cs[:, 0], cs[:, 1]
     return torch.stack([c * v[:, 0] - s * v[:, 1], s * v[:, 0] + c * v[:, 1]], -1)
 
@@ -277,11 +298,11 @@ def manifold_2d_twin(ca, cb, pos, cs, verts, count, radius, plane) -> Manifold2D
     la, lb = verts[ca], verts[cb]
     na, nb, ra, rb = count[ca], count[cb], radius[ca], radius[cb]
     pla, plb = plane[ca], plane[cb]
-    va, vb = _world(pa, csa, la), _world(pb, csb, lb)
+    va, vb = world_verts(pa, csa, la), world_verts(pb, csb, lb)
     # A 1-vertex polygon is a circle, centred on its (possibly offset) vertex;
     # a plane's local normal is its vertex 0.
     ctr_a, ctr_b = va[:, 0], vb[:, 0]
-    nrm_a, nrm_b = _rotate(csa, la[:, 0]), _rotate(csb, lb[:, 0])
+    nrm_a, nrm_b = rotate_cs(csa, la[:, 0]), rotate_cs(csb, lb[:, 0])
     circ_a = (na == 1) & ~pla
     circ_b = (nb == 1) & ~plb
     both_poly = ~pla & ~plb

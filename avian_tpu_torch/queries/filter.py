@@ -32,3 +32,17 @@ def collider_query_mask(colliders, qfilter: QueryFilter) -> torch.Tensor:
     if isinstance(excluded, torch.Tensor):
         return ok & ~excluded.to(device=ok.device, dtype=torch.bool)
     return ok & (not excluded)
+
+
+def with_predicate(world, qfilter, predicate) -> QueryFilter:
+    """``qfilter`` (or the default filter) with every collider that
+    ``predicate(world, collider_ids) -> bool[M]`` rejects excluded (reference
+    ``predicate.py::_with_predicate``; the 2D module's is the same)."""
+    qfilter = qfilter if qfilter is not None else QueryFilter()
+    m = world.colliders.capacity
+    ids = torch.arange(m, dtype=torch.int32, device=world.device)
+    keep = torch.as_tensor(predicate(world, ids), dtype=torch.bool, device=world.device)
+    excluded = qfilter.excluded
+    if not isinstance(excluded, torch.Tensor):
+        excluded = torch.full((m,), bool(excluded), device=world.device)
+    return QueryFilter(mask=qfilter.mask, excluded=excluded.to(torch.bool) | ~keep)

@@ -1,35 +1,23 @@
 """Predicate query variants (port of ``avian_tpu/queries/predicate.py``,
 ``SpatialQuery::cast_ray_predicate`` et al.): a user function evaluated over
 every collider slot at once, ``predicate(world, collider_ids) -> bool[M]``
-(True = eligible), folded into the query's exclusion mask."""
+(True = eligible), folded into the query's exclusion mask
+(``filter.with_predicate``)."""
 
-import torch
-
-from avian_tpu_torch.queries.filter import QueryFilter
+from avian_tpu_torch.queries.filter import QueryFilter, with_predicate
 from avian_tpu_torch.queries.raycast import BIG, cast_ray
 from avian_tpu_torch.queries.shapecast import cast_shape
-
-
-def _with_predicate(world, qfilter, predicate):
-    qfilter = qfilter if qfilter is not None else QueryFilter()
-    m = world.colliders.capacity
-    ids = torch.arange(m, dtype=torch.int32, device=world.device)
-    keep = torch.as_tensor(predicate(world, ids), dtype=torch.bool, device=world.device)
-    excluded = qfilter.excluded
-    if not isinstance(excluded, torch.Tensor):
-        excluded = torch.full((m,), bool(excluded), device=world.device)
-    return QueryFilter(mask=qfilter.mask, excluded=excluded.to(torch.bool) | ~keep)
 
 
 def cast_ray_predicate(world, origin, direction, predicate, max_distance=BIG, solid=True,
                        qfilter: QueryFilter = None):
     """First ray hit among the colliders passing ``predicate``."""
     return cast_ray(world, origin, direction, max_distance, solid,
-                    _with_predicate(world, qfilter, predicate))
+                    with_predicate(world, qfilter, predicate))
 
 
 def cast_shape_predicate(world, shape_type, params, origin, rotation, direction, predicate,
                          max_distance=BIG, qfilter: QueryFilter = None, **kw):
     """First shape-cast hit among the colliders passing ``predicate``."""
     return cast_shape(world, shape_type, params, origin, rotation, direction, max_distance,
-                      qfilter=_with_predicate(world, qfilter, predicate), **kw)
+                      qfilter=with_predicate(world, qfilter, predicate), **kw)

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the 28 kernels (A-Z, AA, AB) against its plain PyTorch twin at the main
+the 31 kernels (A-Z, AA-AE) against its plain PyTorch twin at the main
 paths' shapes (the 10,000-cube pile after 60 steps; the base-100 box pyramid
 after 2 steps, when most of its constraints sit in the overflow colour, and
 after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
@@ -40,11 +40,18 @@ joints) and drive it for 120 steps with every hinge's anchors within 2 cm,
 run 8 of its blocks on the plain versions, hold Kernel AB to its twin on
 the whole grid of ``pyramid_ccd_2d(100, 32)`` (the pyramid and 32 swept
 bullets) and drive it for 60 steps with no bullet centre below the ground
-or inside a box, run the five 2D joint examples with their own checks, and
-rerun the 2D pyramid, hinges and bullets bitwise. Each phase prints one
-line; the line before the last is a JSON object with each kernel's launches,
-error, times and bound, and the last line is ``{"ok": true, "device":
-{...}}``. Any failure raises, and the script exits non-zero without that
+or inside a box, run the five 2D joint examples with their own checks, make
+the 2D queries a user makes on ``box_pyramid_2d(100)`` (rays, points, shape
+casts and intersections; Kernels AC, AD and AE counted over those calls,
+then held to their twins on 1,024 rays both ways, 1,024 points and five
+casts, and rerun bitwise), drive a capsule with ``move_and_slide`` for 120
+frames across ``many_pyramids_2d(10, 10)``'s floor into a pyramid (never
+below the floor or inside a box, rerun bitwise, and equal to the same frames
+on the plain versions), run ``examples/native_2d_showcase.py``'s checks up
+to its render, and rerun the 2D pyramid, hinges and bullets bitwise. Each
+phase prints one line; the line before the last is a JSON object with each
+kernel's launches, error, times and bound, and the last line is ``{"ok":
+true, "device": {...}}``. Any failure raises, and the script exits non-zero without that
 line. It takes no arguments, needs a CUDA card and imports nothing of JAX.
 """
 
@@ -116,6 +123,12 @@ from avian_tpu_torch.dim2 import xpbd as xpbd2
 from avian_tpu_torch.dim2.builder import SceneBuilder2D
 from avian_tpu_torch.kernels import solve_joints_2d as kaa
 from avian_tpu_torch.kernels import swept_toi_2d as kab
+from avian_tpu_torch.dim2 import character as char2d
+from avian_tpu_torch.dim2 import forces as forces2d
+from avian_tpu_torch.dim2 import queries as q2d
+from avian_tpu_torch.kernels import point_2d as kad
+from avian_tpu_torch.kernels import ray_cast_2d as kac
+from avian_tpu_torch.kernels import shape_cast_2d as kae
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
@@ -388,6 +401,11 @@ REPLACES = {
                         "avian_tpu/dim2/xpbd.py:197"),
     "swept_toi_2d": ("cuda", "avian_tpu_torch/csrc/swept_toi_2d.cu",
                      "avian_tpu/dim2/ccd.py:28"),
+    "ray_cast_2d": ("cuda", "avian_tpu_torch/csrc/ray_cast_2d.cu",
+                    "avian_tpu/dim2/queries.py:164"),
+    "point_2d": ("cuda", "avian_tpu_torch/csrc/point_2d.cu", "avian_tpu/dim2/queries.py:356"),
+    "shape_cast_2d": ("cuda", "avian_tpu_torch/csrc/shape_cast_2d.cu",
+                      "avian_tpu/dim2/queries.py:500"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -3521,6 +3539,453 @@ def phase_dim2_examples(device):
     say("dim2 examples", "own checks pass: " + ", ".join(done))
 
 
+# ---- the 2D queries and the character: Kernels AC, AD and AE ---------------
+
+# The query path at full width: box_pyramid_2d(100) (5,051 colliders) at 24
+# contact slots a box after DIM2_KERNEL_STEPS steps. QUERY2D_RAYS seeded rays
+# (half down onto the pyramid, a quarter level through it and a quarter from
+# inside seeded boxes, in seeded directions) solid and hollow, as many points
+# over it, and the five query shapes cast down onto it and intersected with
+# it, and placed over box 1. Each kernel against its twin on the same inputs
+# within TOL_Q2D; the twins follow the kernels' operations, so the errors
+# are expected to be 0.
+QUERY2D_RAYS, QUERY2D_MAX_DISTANCE, TOL_Q2D = 1024, 150.0, 1e-5
+QUERY2D_SHAPES = (
+    ("circle", lambda dev: q2d.shape_circle(0.4, device=dev)),
+    ("capsule", lambda dev: q2d.shape_capsule(0.3, 1.0, device=dev)),
+    ("rectangle", lambda dev: q2d.shape_rect(0.6, 0.3, device=dev)),
+    ("rounded rectangle", lambda dev: q2d.shape_rect(0.5, 0.3, 0.1, device=dev)),
+    ("6-gon", lambda dev: q2d.shape_polygon(
+        [(0.5 * math.cos(a * math.pi / 3), 0.5 * math.sin(a * math.pi / 3)) for a in range(6)],
+        device=dev)),
+)
+# The arithmetic operations (adds, multiplies, divides, square roots, mins
+# and maxes; comparisons and selects not counted) that one ray needs on one
+# collider in AC, by the collider's own vertex count n and radius r:
+# AC_VERTEX_OPS per vertex (its world position), AC_EDGE_OPS per edge where
+# n >= 2 (its length and normal, its rectangle's four faces, the exit face),
+# AC_CORE_OPS per edge where n >= 3 (the core's face), AC_DISK_OPS per vertex
+# where r > 0 (its disk), AC_PAIR_OPS once (the exit point and normal), and
+# AC_PLANE_OPS on a half-space. Of one point on one collider in AD:
+# AD_VERTEX_OPS per vertex (its world position and its edge's projection),
+# AD_PAIR_OPS once (distance and surface point), AD_PLANE_OPS on a
+# half-space. Of one round of AE besides V's manifold: AE_ROUND_OPS.
+AC_VERTEX_OPS, AC_EDGE_OPS, AC_CORE_OPS, AC_DISK_OPS, AC_PAIR_OPS, AC_PLANE_OPS = (
+    8, 67, 10, 29, 15, 16)
+AD_VERTEX_OPS, AD_PAIR_OPS, AD_PLANE_OPS, AE_ROUND_OPS = 41, 24, 15, 20
+QUERY2D_INSIDE_JITTER = 0.3  # how far an inside ray's origin is from its box's centre
+COLLIDER_ROW_BYTES = 89  # position, cosine and sine, 8 vertices, count, radius, flag
+# The controller: a capsule (r 0.4, segment 1 m, upright) moved by
+# move_and_slide at 60 Hz for 120 frames across many_pyramids_2d(10, 10)'s
+# floor from between two pyramids into the next, at 3 m/s and 1 m/s down
+# into the floor; every frame's lowest point at most CONTROLLER_GROUND_TOL
+# below the floor and the capsule at most skin + CONTROLLER_BOX_TOL inside a
+# box, by AD and by AE's manifolds; the frames on the plain versions within
+# TOL_CONTROLLER (expected 0: AE is bitwise, and the sums are the same
+# torch calls in both runs).
+CONTROLLER_FRAMES, CONTROLLER_DT = 120, 1.0 / 60.0
+CONTROLLER_START, CONTROLLER_VELOCITY = (-8.4, 0.91), (3.0, -1.0)
+CONTROLLER_RADIUS, CONTROLLER_HALF = 0.4, 0.5
+CONTROLLER_GROUND_TOL, CONTROLLER_BOX_TOL, TOL_CONTROLLER = 0.02, 0.01, 1e-5
+CONTROLLER_CONFIG = char2d.MoveAndSlideConfig2D()
+Q2D_KERNELS = ("ray_cast_2d", "point_2d", "shape_cast_2d")
+
+
+def query2d_inputs(seed, centres):
+    """(rays f32[R, 4] of unit directions, points f32[R, 2]) over the base-100
+    2D pyramid (x within 52 m of 0, up to 101 m high), on the CPU: the first
+    half of the rays down from above it, the next quarter level from its
+    left, the last quarter from within ``QUERY2D_INSIDE_JITTER`` of the
+    centres of seeded boxes of ``centres`` f32[B, 2] in any direction."""
+    rng = np.random.default_rng(seed)
+    n = QUERY2D_RAYS
+    down, level = n // 2, n // 4
+    inside = n - down - level
+    boxes = centres[rng.choice(np.arange(1, centres.shape[0]), inside, replace=False)]
+    o = np.concatenate([np.stack([rng.uniform(-52, 52, down), np.full(down, 110.0)], 1),
+                        np.stack([np.full(level, -60.0), rng.uniform(0.2, 100, level)], 1),
+                        boxes + rng.uniform(-QUERY2D_INSIDE_JITTER, QUERY2D_INSIDE_JITTER,
+                                            (inside, 2))])
+    a = rng.uniform(0.0, 2.0 * np.pi, inside)
+    d = np.concatenate([np.tile([[0.0, -1.0]], (down, 1)), np.tile([[1.0, 0.0]], (level, 1))])
+    d = d + rng.uniform(-0.05, 0.05, d.shape)
+    d = np.concatenate([d, np.stack([np.cos(a), np.sin(a)], 1)])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p = np.stack([rng.uniform(-52, 52, n), rng.uniform(-1, 101, n)], 1)
+    return (torch.from_numpy(np.concatenate([o, d], 1).astype(np.float32)),
+            torch.from_numpy(p.astype(np.float32)))
+
+
+def ae_ops(tables, shape, ran):
+    """Operations of one AE launch: each collider's rounds and final
+    manifold at V's operations for the pair's kind, plus ``AE_ROUND_OPS`` a
+    round."""
+    plane, count = tables[5], tables[3]
+    circle = int(shape[1]) == 1
+    kinds = {"poly/plane": plane,
+             "circle/circle" if circle else "circle/poly": ~plane & (count == 1),
+             "circle/poly" if circle else "poly/poly": ~plane & (count > 1)}
+    n = ran.double() + 1.0
+    return sum(float(n[mask].sum()) * (V_OPS[k] + AE_ROUND_OPS) for k, mask in kinds.items())
+
+
+def ac_ops(tables, r_n):
+    """Operations of one AC launch of ``r_n`` rays, from each collider's
+    own vertex count and radius (see ``AC_VERTEX_OPS``)."""
+    n, radius, plane = tables[3].double(), tables[4], tables[5]
+    per = (n * AC_VERTEX_OPS + torch.where(n >= 2, n * AC_EDGE_OPS, 0.0)
+           + torch.where(n >= 3, n * AC_CORE_OPS, 0.0)
+           + torch.where(radius > 1e-12, n * AC_DISK_OPS, 0.0) + AC_PAIR_OPS)
+    return r_n * float(torch.where(plane, float(AC_PLANE_OPS), per).sum())
+
+
+def ad_ops(tables, p_n):
+    """Operations of one AD launch of ``p_n`` points (see ``AD_VERTEX_OPS``)."""
+    n, plane = tables[3].double(), tables[5]
+    per = n * AD_VERTEX_OPS + AD_PAIR_OPS
+    return p_n * float(torch.where(plane, float(AD_PLANE_OPS), per).sum())
+
+
+def kernels_ac_ad_ae(world, rays, points, casts, overlaps):
+    """AC, AD and AE against their twins and rerun: AC on every ray solid and
+    hollow, AD on every point, AE on each cast (24 rounds) and on its
+    manifold at its origin (0 rounds), and on the manifolds ``overlaps`` of
+    the shapes placed over a box (0 rounds). Returns ({name: measurements},
+    AE's mean rounds a collider)."""
+    tables = q2d.collider_tables(world)
+    m = tables[0].shape[0]
+    out, err = {}, {}
+    for solid in (True, False):
+        got = kac.ray_cast_2d(rays, solid, *tables)
+        if not all(torch.equal(a, b) for a, b in zip(got, kac.ray_cast_2d(rays, solid, *tables))):
+            raise AssertionError("ray_cast_2d: two runs differ")
+        want = kac.ray_cast_2d_twin(rays, solid, *tables)
+        err["ray_cast_2d"] = max(err.get("ray_cast_2d", 0.0), *(
+            compare(f"ray_cast_2d {name} (solid={solid})", a, b, TOL_Q2D)
+            for name, a, b in zip(("t", "normal"), got, want)))
+    got = kad.point_2d(points, *tables)
+    if not all(torch.equal(a, b) for a, b in zip(got, kad.point_2d(points, *tables))):
+        raise AssertionError("point_2d: two runs differ")
+    want = kad.point_2d_twin(points, *tables)
+    err["point_2d"] = max(compare(f"point_2d {name}", a, b, TOL_Q2D)
+                          for name, a, b in zip(("distance", "point"), got, want))
+    rounds = []
+    for name, shape, query in casts:
+        for n_rounds in (kae.ROUNDS, 0):
+            ran = torch.zeros((m,), dtype=torch.int32, device=world.device)
+            got = kae.shape_cast_2d(query, *shape, *tables, rounds=n_rounds, ran=ran)
+            again = kae.shape_cast_2d(query, *shape, *tables, rounds=n_rounds)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"shape_cast_2d: two runs of the {name} differ")
+            want = kae.shape_cast_2d_twin(query, *shape, *tables, n_rounds)
+            err["shape_cast_2d"] = max(err.get("shape_cast_2d", 0.0), *(
+                compare(f"shape_cast_2d {name} {field} ({n_rounds} rounds)", a, b, TOL_Q2D)
+                for field, a, b in zip(kae.Cast2D._fields, got, want)))
+            if n_rounds:
+                rounds.append((name, shape, query, ran))
+    for name, shape, query in overlaps:
+        got = kae.shape_cast_2d(query, *shape, *tables, rounds=0)
+        if not all(torch.equal(a, b) for a, b in zip(got, kae.shape_cast_2d(
+                query, *shape, *tables, rounds=0))):
+            raise AssertionError(f"shape_cast_2d: two runs of the {name} over box 1 differ")
+        want = kae.shape_cast_2d_twin(query, *shape, *tables, 0)
+        err["shape_cast_2d"] = max(err["shape_cast_2d"], *(
+            compare(f"shape_cast_2d {name} over box 1 {field}", a, b, TOL_Q2D)
+            for field, a, b in zip(kae.Cast2D._fields, got, want)))
+
+    r_n, p_n = rays.shape[0], points.shape[0]
+    io = 16 * r_n + COLLIDER_ROW_BYTES * m + 12 * r_n * m
+    b_ms, b_by = bound(io, ac_ops(tables, r_n))
+    out["ray_cast_2d"] = dict(
+        max_abs_err=err["ray_cast_2d"], ms=cuda_ms(lambda: kac.ray_cast_2d(rays, True, *tables)),
+        plain_ms=once_ms(lambda: kac.ray_cast_2d_twin(rays, True, *tables))[1],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, rays=r_n)
+    io = 8 * p_n + COLLIDER_ROW_BYTES * m + 12 * p_n * m
+    b_ms, b_by = bound(io, ad_ops(tables, p_n))
+    out["point_2d"] = dict(
+        max_abs_err=err["point_2d"], ms=cuda_ms(lambda: kad.point_2d(points, *tables)),
+        plain_ms=once_ms(lambda: kad.point_2d_twin(points, *tables))[1],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, points=p_n)
+    # AE's times: one 24-round cast of the rectangle (polygon pairs, the most
+    # operations a round).
+    name, shape, query, ran = rounds[2]
+    b_ms, b_by = bound(4 * 8 + 64 + 8 + (COLLIDER_ROW_BYTES + 37) * m, ae_ops(tables, shape, ran))
+    out["shape_cast_2d"] = dict(
+        max_abs_err=err["shape_cast_2d"],
+        ms=cuda_ms(lambda: kae.shape_cast_2d(query, *shape, *tables)),
+        plain_ms=once_ms(lambda: kae.shape_cast_2d_twin(query, *shape, *tables, kae.ROUNDS))[1],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, cast=name,
+        mean_rounds=float(ran.double().mean()),
+        manifold_ms=cuda_ms(lambda: kae.shape_cast_2d(query, *shape, *tables, rounds=0)))
+    mean_rounds = {n: round(float(r.double().mean()), 4) for n, _, _, r in rounds}
+    return out, mean_rounds
+
+
+def phase_dim2_queries(device, smi):
+    """The 2D query path on ``box_pyramid_2d(100)`` after ``DIM2_KERNEL_STEPS``
+    steps, as a user calls it: ``cast_ray`` and ``ray_hits(4)`` solid and
+    hollow, ``all_ray_hits`` with ``QUERY2D_RAYS`` rays solid and hollow,
+    ``project_point`` solid and hollow, ``point_intersections``,
+    ``all_point_hits`` with as many points, and ``cast_shape``,
+    ``shape_hits(4)`` and ``shape_intersections`` of each of the five query
+    shapes from above the pyramid, straight down: the launch counts are
+    those of these calls alone (AC 6, AD 4, AE 15). Then each kernel against
+    its twin (``kernels_ac_ad_ae``) and the times. Returns ({name:
+    measurements}, launch counts)."""
+    world, _ = pyramid2d(device)
+    for _ in range(DIM2_KERNEL_STEPS):
+        world = physics_step_2d(world, DIM2_CONFIG)
+    rays, points = query2d_inputs(21, world.bodies.pos.cpu().numpy())
+    rays, points = rays.to(device), points.to(device)
+    rng = np.random.default_rng(22)
+    shapes = [(name, make(device)) for name, make in QUERY2D_SHAPES]
+    casts = [(name, shape, (float(rng.uniform(-40, 40)), 120.0), float(rng.uniform(-1, 1)),
+              (float(rng.uniform(-0.05, 0.05)), -1.0)) for name, shape in shapes]
+    above, down = (0.3, 110.0), (0.0, -1.0)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    one = [(q2d.cast_ray(world, above, down, QUERY2D_MAX_DISTANCE, solid),
+            q2d.ray_hits(world, above, down, 4, QUERY2D_MAX_DISTANCE, solid))
+           for solid in (True, False)]
+    t_s, n_s = q2d.all_ray_hits(world, rays[:, :2], rays[:, 2:], True)
+    t_h, _ = q2d.all_ray_hits(world, rays[:, :2], rays[:, 2:], False)
+    inside_box = tuple(float(v) for v in world.bodies.pos[1].tolist())
+    proj = [q2d.project_point(world, inside_box, solid) for solid in (True, False)]
+    holding = q2d.point_intersections(world, inside_box, 4)
+    dist, _ = q2d.all_point_hits(world, points)
+    cast_results = [(q2d.cast_shape(world, shape, origin, angle, d, QUERY2D_MAX_DISTANCE),
+                     q2d.shape_hits(world, shape, origin, angle, d, QUERY2D_MAX_DISTANCE, 4),
+                     q2d.shape_intersections(world, shape, inside_box, angle, 8))
+                    for _, shape, origin, angle, d in casts]
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    want = dict.fromkeys(kernels.launches(), 0)
+    want.update(ray_cast_2d=6, point_2d=4, shape_cast_2d=3 * len(casts))
+    if got != want:
+        raise AssertionError(f"dim2 queries: launches {got}, expected {want}")
+
+    texts = []
+    for solid, (hit, many) in zip((True, False), one):
+        if not (bool(hit.hit) and int(hit.collider) == int(many.collider[0])):
+            raise AssertionError(f"dim2 queries: the ray down (solid={solid}) hit nothing or "
+                                 "its two calls disagree")
+        texts.append(f"ray down (solid={solid}) {float(hit.distance):.3f} m to "
+                     f"{int(hit.collider)}, {int(many.hit.sum())} hits")
+    if not (bool(proj[0]["is_inside"]) and float(proj[0]["distance"]) < 0.0
+            and int(holding[0]) == 1 and bool(proj[1]["hit"])
+            and abs(float(proj[1]["distance"])) <= 0.5 + 1e-3):
+        raise AssertionError(f"dim2 queries: a point inside box 1 is not: {proj}, {holding}")
+    for (name, *_), (hit, many, over) in zip(casts, cast_results):
+        if not (bool(hit.hit) and int(hit.collider) == int(many.collider[0])
+                and float(hit.distance) > 0.0 and 1 in over.tolist()):
+            raise AssertionError(f"dim2 queries: the {name} cast hit nothing, its two calls "
+                                 f"disagree or it does not overlap box 1")
+        texts.append(f"{name} {float(hit.distance):.3f} m to {int(hit.collider)}, "
+                     f"{int(many.hit.sum())} hits, overlaps {int((over >= 0).sum())} at box 1")
+    down_rays, inside = QUERY2D_RAYS // 2, slice(QUERY2D_RAYS * 3 // 4, None)
+    if not (bool((t_s[:down_rays] < q2d.BIG).any(1).all())
+            and bool((t_h[:down_rays] < q2d.BIG).any(1).all())):
+        raise AssertionError("dim2 queries: a ray down onto the pyramid hit nothing")
+    if not (bool((t_s[inside] == 0.0).any(1).all())
+            and bool(((t_h[inside] > 0.0) & (t_h[inside] < q2d.BIG)).any(1).all())):
+        raise AssertionError("dim2 queries: a ray from inside a box did not start in it "
+                             "(solid) or find no way out of it (hollow)")
+    if not bool(torch.isfinite(dist).all()):
+        raise AssertionError("dim2 queries: non-finite point distances")
+
+    queries = [(name, shape, q2d.cast_query(world, origin, angle, d, QUERY2D_MAX_DISTANCE))
+               for name, shape, origin, angle, d in casts]
+    overlaps = [(name, shape, q2d.cast_query(world, inside_box, angle, (0.0, 0.0), 0.0))
+                for name, shape, _, angle, _ in casts]
+    out, mean_rounds = kernels_ac_ad_ae(world, rays, points, queries, overlaps)
+    say("dim2 queries", f"box_pyramid_2d({DIM2_BASE}) after {DIM2_KERNEL_STEPS} steps, "
+        f"{world.colliders.capacity} colliders: " + "; ".join(texts)
+        + f"; {QUERY2D_RAYS} rays in one launch each way, {int((t_s < q2d.BIG).sum())} "
+        f"(ray, collider) hits solid; {QUERY2D_RAYS} points, {int((dist < 0).sum())} inside a "
+        f"collider; launches of these calls: {dict((k, got[k]) for k in Q2D_KERNELS)}; "
+        f"against the twins (AC on every ray both ways, {QUERY2D_RAYS // 4} of them from inside "
+        f"boxes, AD on every point, AE on the five casts at 24 rounds and 0 and on the five "
+        f"shapes over box 1), reruns bitwise; AE's mean rounds a collider {mean_rounds}; "
+        + show("times", out) + f" [{smi}]")
+    return out, got
+
+
+def capsule_samples(pos, k=9):
+    """f32[F * k, 2]: k points along the upright capsule's segment at each
+    frame's position ``pos`` f32[F, 2]."""
+    s = torch.linspace(-CONTROLLER_HALF, CONTROLLER_HALF, k, device=pos.device)
+    pts = pos[:, None, :] + torch.stack([torch.zeros_like(s), s], -1)[None]
+    return pts.reshape(-1, 2)
+
+
+def controller_frames(world, shape):
+    """``CONTROLLER_FRAMES`` frames of ``move_and_slide``: (positions f32[F,
+    2], velocities f32[F, 2], last normals f32[F, 2]), on the device."""
+    pos = torch.tensor(CONTROLLER_START, device=world.device)
+    vel = torch.tensor(CONTROLLER_VELOCITY, device=world.device)
+    frames = []
+    for _ in range(CONTROLLER_FRAMES):
+        pos, v, n = char2d.move_and_slide(world, shape, pos, vel, CONTROLLER_DT,
+                                          config=CONTROLLER_CONFIG)
+        frames.append(torch.stack([pos, v, n]))
+    return torch.stack(frames).unbind(1)
+
+
+@contextlib.contextmanager
+def plain_shape_casts_2d():
+    """Within the block Kernel AE (all the controller launches) is its plain
+    version."""
+    def shape_cast_2d_plain(query, q_verts, q_count, q_radius, pos, cs, verts, count, radius,
+                            plane, rounds=kae.ROUNDS, ran=None):
+        return kae.shape_cast_2d_twin(query, q_verts, q_count, q_radius, pos, cs, verts, count,
+                                      radius, plane, rounds)
+
+    kept = kae.shape_cast_2d
+    kae.shape_cast_2d = shape_cast_2d_plain
+    try:
+        yield
+    finally:
+        kae.shape_cast_2d = kept
+
+
+def phase_controller_2d(device, smi):
+    """The character controller at full width: ``many_pyramids_2d(10, 10)``
+    (5,501 colliders) after ``DIM2_KERNEL_STEPS`` steps, a capsule driven by
+    ``move_and_slide`` for ``CONTROLLER_FRAMES`` frames at 60 Hz across the
+    floor into a pyramid (8 launches of AE a frame: two depenetrations of 2
+    rounds, 4 slides); then each frame checked: the lowest point at most
+    ``CONTROLLER_GROUND_TOL`` below the floor, and neither AD (points along
+    the capsule's segment) nor AE's manifolds (``shape_intersections``, its
+    separations) finding it more than ``skin + CONTROLLER_BOX_TOL`` inside a
+    box; the frames rerun bitwise, and run on the plain versions within
+    ``TOL_CONTROLLER``. Returns the launch counts."""
+    world, _ = many_pyramids2d(device)
+    for _ in range(DIM2_KERNEL_STEPS):
+        world = physics_step_2d(world, DIM2_CONFIG)
+    shape = q2d.shape_capsule(CONTROLLER_RADIUS, 2 * CONTROLLER_HALF, device=device)
+    # The face the capsule walks into: the first hit of a ray along the floor.
+    face = CONTROLLER_START[0] + float(q2d.cast_ray(world, (CONTROLLER_START[0], 0.3),
+                                                    (1.0, 0.0)).distance)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pos, vel, normal = controller_frames(world, shape)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = kernels.launches()
+    want = dict.fromkeys(got, 0)
+    want["shape_cast_2d"] = 8 * CONTROLLER_FRAMES
+    if got != want:
+        raise AssertionError(f"controller2d: launches {got}, expected {want}")
+
+    ground = float((pos[:, 1] - CONTROLLER_HALF - CONTROLLER_RADIUS).min())
+    boxes = ~world.colliders.is_plane & world.colliders.active
+    dist, _ = q2d.all_point_hits(world, capsule_samples(pos))
+    ad_depth = float((CONTROLLER_RADIUS - dist[:, boxes].amin(1)).max())
+    ae_depth, overlapping = 0.0, 0
+    for p in pos:
+        m = q2d.manifold_vs_all(world, shape, p)
+        ae_depth = max(ae_depth, float(-m.sep[boxes].min()))
+        overlapping += int((q2d.shape_intersections(world, shape, p, 0.0, 8) >= 0).sum())
+    limit = CONTROLLER_CONFIG.skin_width + CONTROLLER_BOX_TOL
+    x_end = float(pos[-1, 0])
+    if not (ground >= -CONTROLLER_GROUND_TOL and ad_depth <= limit and ae_depth <= limit):
+        raise AssertionError(f"controller2d: lowest point {ground} m from the floor, "
+                             f"{ad_depth} m (AD) and {ae_depth} m (AE) into a box")
+    stop = face - CONTROLLER_RADIUS - CONTROLLER_CONFIG.skin_width
+    if not abs(x_end - stop) <= 0.01:
+        raise AssertionError(f"controller2d: the capsule ended at x = {x_end}, not at the "
+                             f"pyramid's face ({face}) less its radius and the skin")
+    again = controller_frames(world, shape)
+    if not all(torch.equal(a, b) for a, b in zip((pos, vel, normal), again)):
+        raise AssertionError("controller2d: two runs of the frames differ")
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with plain_shape_casts_2d():
+        plain = controller_frames(world, shape)
+    plain_s = time.perf_counter() - t1
+    if any(kernels.launches().values()):
+        raise AssertionError(f"controller2d: kernels launched on the plain versions: "
+                             f"{kernels.launches()}")
+    apart = max(float((a - b).abs().max()) for a, b in zip((pos, vel, normal), plain))
+    if not apart <= TOL_CONTROLLER:
+        raise AssertionError(f"controller2d: the plain run parts by {apart}")
+    blocked = int((normal.abs().sum(1) > 0).sum())
+    say("controller2d", f"many_pyramids_2d({MANY2D_GRID}, {MANY2D_BASE}) after "
+        f"{DIM2_KERNEL_STEPS} steps, {world.colliders.capacity} colliders: a capsule, "
+        f"{CONTROLLER_FRAMES} frames of move_and_slide at 60 Hz from x {CONTROLLER_START[0]} "
+        f"at {CONTROLLER_VELOCITY} m/s: {1e3 * seconds / CONTROLLER_FRAMES:.2f} ms a frame, "
+        f"AE launched {got['shape_cast_2d']} times; ends at x {x_end:.4f} (the pyramid's face "
+        f"{face:.4f} less the radius and the skin: {stop:.4f}), blocked in {blocked} frames; "
+        f"lowest point {ground:.4f} m "
+        f"from the floor (limit -{CONTROLLER_GROUND_TOL}); deepest into a box {ad_depth:.4f} m "
+        f"by AD, {ae_depth:.4f} m by AE (limit {limit}), {overlapping} overlaps found by "
+        f"shape_intersections; rerun bitwise; the plain versions ({plain_s:.1f} s) within "
+        f"{apart:.3g} (limit {TOL_CONTROLLER}) [{smi}]")
+    return got
+
+
+def phase_dim2_showcase(device):
+    """``examples/native_2d_showcase.py``'s world and checks, up to its
+    render: a mixed 2D pile settles in 240 steps, a kicked circle moves, a ray
+    and its predicate variant, a probe cast onto the pile, and a capsule
+    walked into a wall by ``move_and_slide`` (from clear of the pile)."""
+    cfg = PhysicsConfig(substeps=4, max_colors=4)
+    b = SceneBuilder2D()
+    ground = b.add_body(body_type=BodyType.STATIC)
+    b.half_space(ground, normal=(0.0, 1.0))
+    wall = b.add_body(pos=(6.0, 2.0), body_type=BodyType.STATIC)
+    b.box(wall, 0.5, 2.0)
+    drops = []
+    for kind, pos in (("circle", (0.0, 1.0)), ("box", (0.1, 2.2)), ("capsule", (-0.1, 3.6)),
+                      ("pentagon", (0.05, 5.0))):
+        body = b.add_body(pos=pos)
+        {"circle": lambda: b.circle(body, 0.45), "box": lambda: b.box(body, 0.45, 0.45),
+         "capsule": lambda: b.capsule(body, 0.25, 0.8),
+         "pentagon": lambda: b.regular_polygon(body, 0.5, 5)}[kind]()
+        drops.append(body)
+    world = b.finalize(device=device)
+    for _ in range(240):
+        world = physics_step_2d(world, cfg)
+    pos = world.bodies.pos.cpu()
+    if not (bool(torch.isfinite(pos).all()) and bool((pos[drops, 1] > 0.1).all())
+            and bool((pos[drops, 1] < 4.0).all())):
+        raise AssertionError(f"dim2 showcase: the pile did not settle: {pos[drops]}")
+    world = forces2d.apply_linear_impulse(world, drops[0], (3.0, 0.0))
+    for _ in range(30):
+        world = physics_step_2d(world, cfg)
+    if not float(world.bodies.pos[drops[0], 0]) > float(pos[drops[0], 0]) + 0.2:
+        raise AssertionError("dim2 showcase: the kicked circle did not move")
+    hit = q2d.cast_ray(world, (0.0, 10.0), (0.0, -1.0))
+    ground_hit = q2d.cast_ray_predicate(world, (0.0, 10.0), (0.0, -1.0),
+                                        predicate=lambda w, ids: w.colliders.is_plane[ids])
+    probe = q2d.cast_shape(world, q2d.shape_circle(0.3, device=device), (0.0, 10.0), 0.0,
+                           (0.0, -1.0), 20.0)
+    if not (bool(hit.hit) and float(hit.distance) < 10.0 + 1e-3
+            and int(ground_hit.collider) == 0 and abs(float(ground_hit.distance) - 10.0) < 1e-3
+            and bool(probe.hit) and float(probe.distance) < float(ground_hit.distance)):
+        raise AssertionError(f"dim2 showcase: queries {hit}, {ground_hit}, {probe}")
+    # The example starts the character at x 2.5, where its pentagon comes to
+    # rest or not by chaos: the reference compiled one IEEE operation at a
+    # time rests it at x 2.75 and fails the example's own check (ROADMAP 3b).
+    # The character starts 1 m right of the pile's rightmost body where that
+    # is further right.
+    start = max(2.5, float(world.bodies.pos[drops, 0].max()) + 1.0)
+    shape = q2d.shape_capsule(0.4, 1.0, device=device)
+    cpos = torch.tensor([start, 0.91], device=device)
+    for _ in range(30):
+        cpos, _, _ = char2d.move_and_slide(world, shape, cpos, (2.0, -0.5), 1.0 / 15)
+    cp = cpos.tolist()
+    if not (cp[1] > 0.85 and 4.0 < cp[0] <= 5.5 - 0.4 + 0.03):
+        raise AssertionError(f"dim2 showcase: the character ended at {cp}")
+    say("dim2 showcase", f"native_2d_showcase's checks pass up to its render: pile settled "
+        f"(highest {float(pos[drops, 1].max()):.3f} m), kicked circle moved, ray "
+        f"{float(hit.distance):.3f} m, ground {float(ground_hit.distance):.3f} m, probe "
+        f"{float(probe.distance):.3f} m, character from x {start:.3f} to ({cp[0]:.3f}, "
+        f"{cp[1]:.3f})")
+
+
 def main():
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -3558,6 +4023,10 @@ def main():
     measured_ccd2d, ccd2d_launches = timed("ccd2d", phase_ccd2d, device, smi)
     measured_by_kernel.update(measured_ccd2d)
     timed("dim2 examples", phase_dim2_examples, device)
+    measured_q2d, q2d_launches = timed("dim2 queries", phase_dim2_queries, device, smi)
+    measured_by_kernel.update(measured_q2d)
+    controller_launches = timed("controller2d", phase_controller_2d, device, smi)
+    timed("dim2 showcase", phase_dim2_showcase, device)
     timed("dim2 determinism", phase_dim2_determinism, device)
     timed("plain path", phase_plain_path, device)
     timed("hinges plain path", phase_hinges_plain_path, device)
@@ -3573,11 +4042,13 @@ def main():
         # for P, the reference scenes for Q, the mixed shapes for M, N, O,
         # the swept-CCD terrain for R, the queries for S and T, the 2D
         # pyramid for U-Z, the 2D hinged boxes for AA, the 2D swept bullets
-        # for AB; the hinged boxes for the others).
+        # for AB, the 2D queries for AC, AD and AE; the hinged boxes for the
+        # others).
         main = {"hull_manifold": terrain_launches, "plane_hull_manifold": scene_launches,
                 "swept_toi": ccd_launches, "shape_cast": query_launches,
                 "ray_cast": query_launches, **dict.fromkeys(DIM2_KERNELS, dim2_launches),
-                "solve_joints_2d": hinges2d_launches, "swept_toi_2d": ccd2d_launches}.get(
+                "solve_joints_2d": hinges2d_launches, "swept_toi_2d": ccd2d_launches,
+                **dict.fromkeys(Q2D_KERNELS, q2d_launches)}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -3590,6 +4061,8 @@ def main():
                          pyramid2d_launches=dim2_launches[name],
                          hinges2d_launches=hinges2d_launches[name],
                          ccd2d_launches=ccd2d_launches[name],
+                         queries2d_launches=q2d_launches[name],
+                         controller2d_launches=controller_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -13,8 +13,15 @@ rows it had no room for after every step, reference and port side by side), at
 
 The JAX side runs jitted at ``max_colors=6``: a base-6 pyramid's boxes have
 at most six dynamic neighbours, so five proper colors and the overflow color
-are all used, and one compile of the reference covers each scene."""
+are all used, and one compile of the reference covers each scene. Each
+reference function is traced and compiled in a thread as the module loads,
+while the port steps (``_warm``). The port runs under
+``torch.inference_mode`` (it keeps no autograd state; the results are the
+same bit for bit), and each small scene's 60 steps run once (``_stand``):
+the settled states the other cases start from are its steps."""
 
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import sys
@@ -39,7 +46,7 @@ from avian_tpu_torch.pipeline import solver as tsol
 from avian_tpu_torch.pipeline import solver_body as tsb
 
 from port_common import (as_numpy, assert_packed_rows_close, assert_worlds_equal,
-                         pile_configs, settled_pyramid, to_jax, to_torch)
+                         pile_configs, to_jax, to_torch)
 
 MAX_COLORS = 6
 STEP_TOL = 1e-4
@@ -47,6 +54,82 @@ PACK_TOL = 1e-6
 LOCKED_2D = ttypes.LOCK_TZ | ttypes.LOCK_RX | ttypes.LOCK_RY
 
 _J_STEP = jax.jit(partial(j_step, return_diagnostics=True), static_argnums=1)
+STAND_STEPS = 60
+SAG_SLOTS_PER_BOX = 24
+SAG_TOL = 1e-3
+
+
+@partial(jax.jit, static_argnums=1)
+def _ref_prepare(world, config):
+    w2 = jbp.update_aabbs(world, config)
+    contacts = jcontacts.narrow_phase(w2, jbp.broad_phase(w2, config), config)
+    s = jsb.prepare(w2.bodies)
+    return w2, contacts, s, jsol.prepare_constraints(w2, contacts, s, config)
+
+
+def _warm():
+    """Run each reference function once, in the order the cases need them,
+    on a world of the shapes they pass (so that its trace and compile are
+    cached): {name: future}, run one after the other in a thread while the
+    port steps. A case waits for its function's future before it calls it."""
+    jcfg6, _ = pile_configs(max_colors=MAX_COLORS)
+    jcfg, _ = pile_configs()
+
+    def start(scene, **kw):
+        template, _ = getattr(jscenes, scene)(**{k: v for k, v in kw.items()
+                                                 if k != "max_contacts"})
+        world, _ = getattr(scenes, scene)(device="cpu", **kw)
+        return to_jax(world, template)
+
+    n20 = 20 * 21 // 2 + 1
+    jobs = {
+        "pyramid": lambda: _J_STEP(start("box_pyramid", base=6), jcfg6),
+        "many": lambda: _J_STEP(start("many_pyramids", grid=2, base=3), jcfg6),
+        "prepare": lambda: _ref_prepare(start("box_pyramid", base=6), jcfg6),
+        "sag": lambda: _J_STEP(start("box_pyramid", base=20,
+                                     max_contacts=SAG_SLOTS_PER_BOX * n20), jcfg),
+    }
+    pool = ThreadPoolExecutor(1)
+    return {name: pool.submit(lambda job=job: jax.block_until_ready(job()))
+            for name, job in jobs.items()}
+
+
+_WARM = _warm() if __name__ != "__main__" else {}
+
+
+def _ready(name):
+    if name in _WARM:
+        _WARM[name].result()
+
+
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    with torch.inference_mode():
+        yield
+
+
+@functools.cache
+def _stand(scene):
+    """``scene`` ("pyramid2d", "pyramid3d": ``box_pyramid(6)``; "many2d":
+    ``many_pyramids(2, 3)``) from its start under ``pile_configs()`` for
+    ``STAND_STEPS`` steps: (the worlds, the start first, then one a step; the
+    most pairs or overflow rows a step dropped; the ids, of "many2d" the
+    lower pyramids'; the JAX template). ``physics_step`` leaves its input
+    world as it was, so every case may start from any of the worlds."""
+    _, tcfg = pile_configs()
+    if scene == "many2d":
+        template, _ = jscenes.many_pyramids(2, 3)
+        world, ids = scenes.many_pyramids(2, 3, device="cpu")
+        ids = [i for k, i in enumerate(ids) if (k // 6) % 2 == 0]
+    else:
+        template, _ = jscenes.box_pyramid(6, dim3_depth=scene == "pyramid3d")
+        world, ids = scenes.box_pyramid(6, dim3_depth=scene == "pyramid3d", device="cpu")
+    worlds, worst = [world], 0
+    for _ in range(STAND_STEPS):
+        world, diag = physics_step(world, tcfg, return_diagnostics=True)
+        worlds.append(world)
+        worst = max(worst, int(diag["dropped_pairs"]), int(diag["overflow_dropped"]))
+    return worlds, worst, ids, template
 
 
 @pytest.mark.parametrize(
@@ -79,7 +162,8 @@ def test_add_body_2d_locks_the_plane_and_turns_about_z():
                                atol=1e-7)
 
 
-def _assert_step_matches(tw, template):
+def _assert_step_matches(tw, template, ready):
+    _ready(ready)
     jcfg, tcfg = pile_configs(max_colors=MAX_COLORS)
     jw, jd = _J_STEP(to_jax(tw, template), jcfg)
     pw, pd = physics_step(tw, tcfg, return_diagnostics=True)
@@ -106,16 +190,15 @@ def _assert_step_matches(tw, template):
 
 @pytest.mark.parametrize("dim3_depth", [False, True], ids=["2d", "3d"])
 def test_one_step_from_the_start_and_one_settled_match_reference(dim3_depth):
-    tw, template = settled_pyramid(steps=0, dim3_depth=dim3_depth)
-    pw, pd = _assert_step_matches(tw, template)
+    worlds, _, _, template = _stand("pyramid3d" if dim3_depth else "pyramid2d")
+    pw, pd = _assert_step_matches(worlds[0], template, "pyramid")
     # Every contact appears in the first step; few get a proper color.
     first_overflow = int(pd["num_overflow"])
     assert int(pd["num_touching"]) > 21 and first_overflow > 10
     if not dim3_depth:
         assert float(pw.bodies.pos[:, 2].abs().max()) == 0.0      # Z stays locked
         assert float(pw.bodies.ang_vel[:, :2].abs().max()) == 0.0
-    tw, template = settled_pyramid(steps=12, dim3_depth=dim3_depth)
-    _, pd = _assert_step_matches(tw, template)
+    _, pd = _assert_step_matches(worlds[12], template, "pyramid")
     # The carried colors have settled; with 5 proper colors a few boxes with
     # six neighbours keep one contact in the overflow color.
     assert int(pd["num_overflow"]) <= first_overflow // 2
@@ -124,24 +207,18 @@ def test_one_step_from_the_start_and_one_settled_match_reference(dim3_depth):
 def test_many_pyramids_step_matches_reference():
     template, _ = jscenes.many_pyramids(2, 3)
     tw, _ = scenes.many_pyramids(2, 3, device="cpu")
-    pw, _ = _assert_step_matches(tw, template)
-    _assert_step_matches(pw, template)
-
-
-@partial(jax.jit, static_argnums=1)
-def _ref_prepare(world, config):
-    w2 = jbp.update_aabbs(world, config)
-    contacts = jcontacts.narrow_phase(w2, jbp.broad_phase(w2, config), config)
-    s = jsb.prepare(w2.bodies)
-    return w2, contacts, s, jsol.prepare_constraints(w2, contacts, s, config)
+    pw, _ = _assert_step_matches(tw, template, "many")
+    _assert_step_matches(pw, template, "many")
 
 
 def test_packing_with_locked_axes_matches_reference():
     """Kernel H's plain version on the 2D-profile pyramid: two locked
     rotation axes zero rows and columns of the inverse inertia, the locked
     translation axis zeroes an inverse mass component."""
-    tw, template = settled_pyramid(steps=8)
+    worlds, _, _, template = _stand("pyramid2d")
+    tw = worlds[8]
     jcfg, tcfg = pile_configs(max_colors=MAX_COLORS)
+    _ready("prepare")
     jw2, jcontacts_, js, rc = _ref_prepare(to_jax(tw, template), jcfg)
     w2 = to_torch(jw2)
     contacts = TContacts.from_numpy(jax.tree.map(np.asarray, jcontacts_),
@@ -180,17 +257,8 @@ def test_sixty_steps_stand(scene):
     upper pyramids start 1 m above the lower ones and land on them after 27
     steps; its ground row must stay in place under that blow, within 0.3 m
     sideways."""
-    _, tcfg = pile_configs()
-    if scene == "many2d":
-        world, ids = scenes.many_pyramids(2, 3, device="cpu")
-        ids = [i for k, i in enumerate(ids) if (k // 6) % 2 == 0]
-    else:
-        world, ids = scenes.box_pyramid(6, dim3_depth=scene == "pyramid3d", device="cpu")
-    start = world.bodies.pos.clone()
-    worst = 0
-    for _ in range(60):
-        world, diag = physics_step(world, tcfg, return_diagnostics=True)
-        worst = max(worst, int(diag["dropped_pairs"]), int(diag["overflow_dropped"]))
+    worlds, worst, ids, _ = _stand(scene)
+    start, world = worlds[0].bodies.pos, worlds[-1]
     moved = (world.bodies.pos - start)[torch.tensor(ids)].abs()
     assert worst == 0
     assert bool(torch.isfinite(world.bodies.pos).all()) and not bool(world.diverged)
@@ -198,10 +266,6 @@ def test_sixty_steps_stand(scene):
     assert float(moved[:, 1].max()) <= 0.05, moved.max(0)
     if scene != "many2d":
         assert bool(world.bodies.sleeping[1:].all())  # at rest, and asleep
-
-
-SAG_SLOTS_PER_BOX = 24
-SAG_TOL = 1e-3
 
 
 def sag_series(base, steps, slots_per_box=SAG_SLOTS_PER_BOX):
@@ -218,6 +282,7 @@ def sag_series(base, steps, slots_per_box=SAG_SLOTS_PER_BOX):
     start = tw.bodies.pos.numpy().copy()
     apex = ids[int(np.argmax(start[ids, 1]))]
     rows = []
+    _ready("sag")
     for _ in range(steps):
         jw, jd = _J_STEP(jw, jcfg)
         tw, td = physics_step(tw, tcfg, return_diagnostics=True)
