@@ -15,6 +15,12 @@
 // (queries/shapecast.py) operation by operation (-fmad=false, IEEE sqrt and
 // division).
 //
+// Overlap mode (`overlap` != 0, for avian_tpu/queries/intersect.py::
+// shape_intersections :27, `one` :45) runs no round: one manifold of the query
+// shape at its origin against the collider, and the flag count > 0 and
+// smallest separation < 0 into hit_out, nothing else written. It is one more
+// use of the same instances, so it adds nothing to the build.
+//
 // The query (20 floats): origin (3), rotation (4), unit direction (3), the
 // shape's params padded to 8 lanes (a CONVEX query shape indexes the world's
 // vertex pool through lanes 0 and 1), max_distance and max_distance + 1 (both
@@ -36,7 +42,7 @@ __device__ void cast_manifold(bool swap, V3 qp, Q4 qq, const float* qprm, V3 cp,
 }
 
 template <int TA, int TB>
-__global__ void shape_cast_kernel(int n, int st, const int* __restrict__ cols,
+__global__ void shape_cast_kernel(int n, int st, int overlap, const int* __restrict__ cols,
                                   const float* __restrict__ query, const float* __restrict__ pos,
                                   const float* __restrict__ quat,
                                   const float* __restrict__ params,
@@ -64,7 +70,7 @@ __global__ void shape_cast_kernel(int n, int st, const int* __restrict__ cols,
   int ran = kCastRounds;
   Out m;
 #pragma unroll 1
-  for (int k = 0; k < kCastRounds; ++k) {
+  for (int k = 0; k < (overlap ? 0 : kCastRounds); ++k) {
     cast_manifold<TA, TB>(swap, o + d * t, rot, qprm, cp, cq, cprm, pool, disc, m);
     float sep = min_sep(m);
     V3 nq = swap ? -m.normal : m.normal;  // from the query shape to the collider
@@ -79,7 +85,11 @@ __global__ void shape_cast_kernel(int n, int st, const int* __restrict__ cols,
       break;
     }
   }
-  cast_manifold<TA, TB>(swap, o + d * t, rot, qprm, cp, cq, cprm, pool, disc, m);
+  cast_manifold<TA, TB>(swap, overlap ? o : o + d * t, rot, qprm, cp, cq, cprm, pool, disc, m);
+  if (overlap) {
+    hit_out[c] = (m.count > 0 && min_sep(m) < 0.0f) ? 1 : 0;
+    return;
+  }
   int pi = first_min_lane(m);
   t_out[c] = t;
   hit_out[c] = (done && t <= max_d) ? 1 : 0;
@@ -91,14 +101,14 @@ __global__ void shape_cast_kernel(int n, int st, const int* __restrict__ cols,
 
 // One launch of the instance of canonical pair (TA, TB).
 template <int TA, int TB>
-int launch_cast(int n, int st, const int* cols, const float* query, const float* pos,
+int launch_cast(int n, int st, int overlap, const int* cols, const float* query, const float* pos,
                 const float* quat, const float* params, const int* shape_type,
                 const float* disc, const float* pool, float* t_out, unsigned char* hit_out,
                 float* pa_out, float* pb_out, float* n_out, int* rounds, void* stream) {
   const int threads = 64;
   shape_cast_kernel<TA, TB><<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      n, st, cols, query, pos, quat, params, shape_type, disc, pool, t_out, hit_out, pa_out,
-      pb_out, n_out, rounds);
+      n, st, overlap, cols, query, pos, quat, params, shape_type, disc, pool, t_out, hit_out,
+      pa_out, pb_out, n_out, rounds);
   return (int)cudaGetLastError();
 }
 
@@ -108,8 +118,9 @@ int launch_cast(int n, int st, const int* cols, const float* query, const float*
 // type_b of the launch's canonical pair, one of PAIRS.
 #define AVIAN_CAST_CASE(TA, TB)                                                           \
   case TA * 16 + TB:                                                                      \
-    return launch_cast<TA, TB>(n, st, cols, query, pos, quat, params, shape_type, disc,   \
-                               pool, t_out, hit_out, pa_out, pb_out, n_out, rounds, stream);
+    return launch_cast<TA, TB>(n, st, overlap, cols, query, pos, quat, params, shape_type, \
+                               disc, pool, t_out, hit_out, pa_out, pb_out, n_out, rounds,  \
+                               stream);
 #define AVIAN_CAST_BODY(PAIRS)      \
   if (n == 0) return 0;             \
   switch (code) {                   \

@@ -407,6 +407,77 @@ def patch_convex(h, d):
     return pts, nf, k.to(torch.int32)
 
 
+HULL_INSIDE_TOL = 1e-5  # of a hull's size: the margin of ``hull_contains``
+_CONTAINS_CHUNK = 256    # pairs of one pass of ``hull_contains``'s exact rule
+
+
+def closest_point_on_hull(h, p, iters=16):
+    """The inner hulls' points closest to the local points ``p`` [K, 3]
+    (reference ``closest_point_on_hull``, convex.py:768): ``iters``
+    Frank-Wolfe steps on |x - p|^2 from the mean of the window's 32 rows
+    (rows past the count replaced by row 0, summed from row 0 upward), each
+    step toward the first vertex farthest along -(x - p). Inside a hull the
+    iteration only creeps toward ``p``; ``hull_contains`` decides there."""
+    verts = torch.where(h.valid[..., None], h.verts, h.verts[:, :1])
+    x = torch.zeros_like(p)
+    for j in range(MAX_HULL_VERTS):
+        x = x + verts[:, j]
+    x = x / float(MAX_HULL_VERTS)
+    for _ in range(iters):
+        g = x - p
+        dxs = x - _rows(h.verts, first_argmax(_hull_dots(h, -g)))
+        gamma = torch.clamp(vec.dot(g, dxs) / torch.clamp(vec.dot(dxs, dxs), min=1e-12), 0.0, 1.0)
+        x = x - gamma[:, None] * dxs
+    return x
+
+
+def _triples(n, device):
+    """The index triples i < j < k < n, lexicographic: three i64[T]."""
+    t = torch.combinations(torch.arange(n, device=device), r=3)
+    return t[:, 0], t[:, 1], t[:, 2]
+
+
+def hull_contains(h, p, x):
+    """bool[K]: whether each local point ``p`` [K, 3] lies inside its inner
+    hull, at least ``HULL_INSIDE_TOL`` x the hull's size from every face
+    plane. ``x`` is ``closest_point_on_hull``'s point: every vertex strictly
+    below ``p`` along ``p - x`` certifies ``p`` outside. Where that does not,
+    the exact rule: each plane through three vertices (normal ``n``, their
+    cross product) that has every vertex on one side of it, within the
+    margin, must have ``p`` strictly on that side, beyond the margin. The
+    hull's faces are among those planes, so a point that passes is inside; a
+    flat hull (every vertex on one plane) holds none, nor one of fewer than
+    four vertices."""
+    u = p - x
+    certified = _hull_dots(h, u).amax(1) < vec.dot(p, u)
+    cnt = h.prm[:, 1].to(torch.int64)
+    inside = torch.zeros_like(certified)
+    todo = torch.nonzero(~certified & (cnt >= 4))[:, 0]
+    if not todo.numel():
+        return inside
+    n_max = int(cnt[todo].max())
+    ti, tj, tk = _triples(n_max, p.device)
+    for part in torch.split(todo, _CONTAINS_CHUNK):
+        verts, c = h.verts[part], cnt[part]
+        vi = verts[:, ti]
+        n = vec.cross(verts[:, tj] - vi, verts[:, tk] - vi)
+        nn = vec.dot(n, n)
+        size = torch.clamp(h.prm[part, 2:5].amax(1), min=1e-3)
+        tol = (HULL_INSIDE_TOL * size)[:, None] * vec.sqrt_rn(nn)
+        below = torch.ones_like(nn, dtype=torch.bool)
+        above = torch.ones_like(below)
+        for j in range(n_max):
+            s = vec.dot(verts[:, j, None, :] - vi, n)
+            off = (j >= c)[:, None]
+            below = below & (off | (s <= tol))
+            above = above & (off | (s >= -tol))
+        q = vec.dot(p[part, None, :] - vi, n)
+        plane = (tk[None, :] < c[:, None]) & (nn > 0.0)
+        bad = plane & ((below & ~(q < -tol)) | (above & ~(q > tol)))
+        inside[part] = ~bad.any(1)
+    return inside
+
+
 SHAPES = {
     int(ShapeType.SPHERE): (support_sphere, patch_sphere),
     int(ShapeType.CAPSULE): (support_capsule, patch_capsule),

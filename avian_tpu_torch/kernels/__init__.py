@@ -45,6 +45,10 @@
 - ``point_2d`` (Kernel AD, CUDA): the 2D point projections;
 - ``shape_cast_2d`` (Kernel AE, CUDA): the 2D shape casts and query
   manifolds.
+- ``point_3d`` (Kernel AF, CUDA): point projections;
+- ``ray_cast_grid`` (Kernel AG, CUDA): grid-accelerated ray casts;
+- ``aabb_overlap`` (Kernel AH, CUDA): AABB intersections;
+- ``shape_overlap`` (Kernel S's overlap mode, CUDA): shape intersections.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -82,6 +86,9 @@ from avian_tpu_torch.kernels import swept_toi_2d as _ab
 from avian_tpu_torch.kernels import ray_cast_2d as _ac
 from avian_tpu_torch.kernels import point_2d as _ad
 from avian_tpu_torch.kernels import shape_cast_2d as _ae
+from avian_tpu_torch.kernels import point_3d as _af
+from avian_tpu_torch.kernels import ray_cast_grid as _ag
+from avian_tpu_torch.kernels import aabb_overlap as _ah
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -118,6 +125,10 @@ WRAPPERS = {
     "ray_cast_2d": (_ac.ray_cast_2d,),
     "point_2d": (_ad.point_2d,),
     "shape_cast_2d": (_ae.shape_cast_2d,),
+    "point_3d": (_af.point_3d,),
+    "ray_cast_grid": (_ag.ray_cast_grid,),
+    "aabb_overlap": (_ah.aabb_overlap,),
+    "shape_overlap": (_s.shape_overlap,),
 }
 
 

@@ -12,7 +12,8 @@ is the wrappers' check of device, dtype, shape and contiguity, and
 ``launch_manifold`` is the common launch of the narrowphase's pair kernels
 (A, M, N, O, P, Q). Kernels R and S instantiate the device code of all of
 those for every canonical pair (``csrc/pair_dispatch.cuh``), split over
-three translation units each so that no one ``nvcc`` holds up the build.
+three translation units each so that no one ``nvcc`` holds up the build;
+S's overlap mode is a flag of the same instances.
 """
 
 import ctypes
@@ -48,7 +49,7 @@ _SIGNATURES = {
     # Kernels R, S (one entry point per group of canonical pairs) and T
     **{f"avian_swept_toi_{g}": [_I] * 3 + [_P] * 18 + [_P]
        for g in ("analytic", "generic", "hull")},
-    **{f"avian_shape_cast_{g}": [_I] * 3 + [_P] * 14 + [_P]
+    **{f"avian_shape_cast_{g}": [_I] * 4 + [_P] * 14 + [_P]
        for g in ("analytic", "generic", "hull")},
     "avian_ray_cast": [_I] * 4 + [_P] * 2 + [_I] + [_P] * 6 + [_P],
     "avian_grid_sweep": [_P] * 5 + [_I, _I, _P],
@@ -107,6 +108,10 @@ _SIGNATURES = {
     "avian_ray_cast_2d": [_I, _I, _P, _I] + [_P] * 8 + [_P],
     "avian_point_2d": [_I, _I] + [_P] * 9 + [_P],
     "avian_shape_cast_2d": [_I, _I] + [_P] * 18 + [_P],
+    # Kernels AF, AG and AH of the 3D queries
+    "avian_point_3d": [_I] * 4 + [_P] * 10 + [_P],
+    "avian_ray_cast_grid": [_I] * 5 + [_P] * 18 + [_P],
+    "avian_aabb_overlap": [_I] * 2 + [_P] * 6 + [_P],
 }
 
 

@@ -212,15 +212,7 @@ def _convex(o, d, prm, solid, pool):
         return torch.where(valid, vec.dot(verts, u[:, None, :]), -1e30).amax(1)
 
     def closest(p):
-        x = _seq_sum(verts, valid, verts[:, 0]) / float(convex.MAX_HULL_VERTS)
-        for _ in range(FW_STEPS):
-            g = x - p
-            dots = torch.where(valid, vec.dot(verts, -g[:, None, :]), -1e30)
-            dxs = x - _rows(verts, first_argmax(dots))
-            gamma = torch.clamp(vec.dot(g, dxs) / torch.clamp(vec.dot(dxs, dxs), min=1e-12),
-                                0.0, 1.0)
-            x = x - gamma[:, None] * dxs
-        return x
+        return convex.closest_point_on_hull(h, p, FW_STEPS)
 
     t = torch.zeros_like(o[:, 0])
     done = torch.zeros_like(t, dtype=torch.bool)
@@ -259,6 +251,17 @@ def _miss(o, d, prm, solid):
     return torch.full_like(o[:, 0], BIG), -d
 
 
+def ray_local(kind, o, d, prm, solid, pool):
+    """``(t f32[K], normal f32[K, 3])`` of K rays ``o``, ``d`` [K, 3] in the
+    frames of K colliders of ray kind ``kind`` with params ``prm`` [K, 8];
+    ``solid`` a bool tensor (one flag, or one a ray)."""
+    if kind == CONVEX:
+        return _convex(o, d, prm, solid, pool)
+    fn = {SPHERE: lambda *a: _sphere(a[0], a[1], a[2][:, 0], a[3]), CAPSULE: _capsule,
+          BOX: _box, PLANE: _plane, CYLINDER: _cylinder, CONE: _cone, MISS: _miss}[kind]
+    return fn(o, d, prm, solid)
+
+
 def ray_cast_twin(kind, cols, rays, solid, pos, quat, params, pool, t_out, n_out):
     """Plain PyTorch version; see ``ray_cast``."""
     solid = torch.tensor(bool(solid), device=rays.device)
@@ -266,15 +269,8 @@ def ray_cast_twin(kind, cols, rays, solid, pos, quat, params, pool, t_out, n_out
     c = cols.long().repeat(r_n)
     r = torch.arange(r_n, device=rays.device).repeat_interleave(cols.shape[0])
     q = quat[c]
-    o = quat_m.rotate_inv(q, rays[r, :3] - pos[c])
-    d = quat_m.rotate_inv(q, rays[r, 3:])
-    prm = params[c]
-    if kind == CONVEX:
-        t, n = _convex(o, d, prm, solid, pool)
-    else:
-        fn = {SPHERE: lambda *a: _sphere(a[0], a[1], a[2][:, 0], a[3]), CAPSULE: _capsule,
-              BOX: _box, PLANE: _plane, CYLINDER: _cylinder, CONE: _cone, MISS: _miss}[kind]
-        t, n = fn(o, d, prm, solid)
+    t, n = ray_local(kind, quat_m.rotate_inv(q, rays[r, :3] - pos[c]),
+                     quat_m.rotate_inv(q, rays[r, 3:]), params[c], solid, pool)
     t_out.view(-1)[r * m + c] = t
     n_out.view(-1, 3)[r * m + c] = quat_m.rotate(q, n)
     return t_out, n_out

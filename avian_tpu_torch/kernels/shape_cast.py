@@ -28,8 +28,16 @@ world's vertex pool through lanes 0 and 1), ``max_distance`` and
 ``max_distance + 1`` (each rounded once to f32, as the reference's weakly
 typed Python floats are).
 
-The plain PyTorch version, ``shape_cast_twin``, runs on CPU tensors; on a
-CUDA tensor the wrapper launches the kernel or raises.
+Its overlap mode, ``shape_overlap``, replaces the per-collider manifold of
+``avian_tpu/queries/intersect.py::shape_intersections`` (:27, ``one`` :45):
+no round, one manifold of the query shape at its origin against each of the
+bucket's colliders, and whether it has a point of negative separation. It
+launches the same instances with a flag, one manifold a thread on the
+collider's row, bound by operations like a round of a cast.
+
+The plain PyTorch versions, ``shape_cast_twin`` and ``shape_overlap_twin``,
+run on CPU tensors; on a CUDA tensor the wrappers launch the kernel or
+raise.
 """
 
 from typing import NamedTuple
@@ -57,25 +65,37 @@ class CastOut(NamedTuple):
     n: torch.Tensor    # f32[M, 3] normal from the query shape to the collider
 
 
-def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
-    """Plain PyTorch version; see ``shape_cast``. Runs every round of every
-    collider."""
+def _manifold_at(pair, c, st, query, pos, quat, params, shape_type, pool):
+    """``(swap bool[K, 1], manifold(qp))``: the pair manifold of the query
+    shape at positions ``qp`` [K, 3] against the colliders ``c``, canonical
+    sides swapped where the collider's shape code is the lower."""
     from avian_tpu_torch.geometry.narrowphase import pair_manifold_twin
 
-    c = cols.long()
     k_n = c.shape[0]
     swap = (st > shape_type[c])[:, None]
-    o, rot, d = query[0:3], query[3:7].expand(k_n, 4), query[7:10]
-    qprm = query[10:18].expand(k_n, 8)
-    max_d, lim = query[18], query[19]
+    rot, qprm = query[3:7].expand(k_n, 4), query[10:18].expand(k_n, 8)
     cp, cq, cprm = pos[c], quat[c], params[c]
 
-    def manifold(t):
-        qp = o + d * t[:, None]
+    def manifold(qp):
         return pair_manifold_twin(
             pair, torch.where(swap, cp, qp), torch.where(swap, cq, rot),
             torch.where(swap, cprm, qprm), torch.where(swap, qp, cp), torch.where(swap, rot, cq),
             torch.where(swap, qprm, cprm), pool)
+
+    return swap, manifold
+
+
+def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
+    """Plain PyTorch version; see ``shape_cast``. Runs every round of every
+    collider."""
+    c = cols.long()
+    k_n = c.shape[0]
+    swap, at = _manifold_at(pair, c, st, query, pos, quat, params, shape_type, pool)
+    o, d = query[0:3], query[7:10]
+    max_d, lim = query[18], query[19]
+
+    def manifold(t):
+        return at(o + d * t[:, None])
 
     t = torch.zeros((k_n,), dtype=torch.float32, device=c.device)
     done = torch.zeros((k_n,), dtype=torch.bool, device=c.device)
@@ -99,6 +119,34 @@ def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, 
     return out
 
 
+def _launch(what, overlap, pair, cols, st, query, pos, quat, params, shape_type, pool,
+            out: CastOut, rounds):
+    """Check the tensors and launch S's instance of ``pair`` on the CUDA
+    tensors (``overlap``: the overlap mode); False where ``cols`` is empty
+    and nothing was launched."""
+    from avian_tpu_torch.geometry.narrowphase import PAIR_KERNELS
+    from avian_tpu_torch.kernels import build
+
+    if cols.device.type != "cuda":
+        raise RuntimeError(f"{what}: unsupported device {cols.device}")
+    dev, f32 = cols.device, torch.float32
+    m = pos.shape[0]
+    build.require(what, dev, [
+        ("cols", cols, cols.shape, torch.int32), ("query", query, (QUERY_LEN,), f32),
+        ("pos", pos, (m, 3), f32), ("quat", quat, (m, 4), f32), ("params", params, (m, 8), f32),
+        ("shape_type", shape_type, (m,), torch.int32), ("pool", pool, pool.shape, f32),
+        ("t", out.t, (m,), f32), ("hit", out.hit, (m,), torch.bool),
+        ("pa", out.pa, (m, 3), f32), ("pb", out.pb, (m, 3), f32), ("n", out.n, (m, 3), f32),
+    ] + ([] if rounds is None else [("rounds", rounds, (m,), torch.int32)]))
+    if not cols.shape[0]:
+        return False
+    group = GROUP[PAIR_KERNELS[pair][1]]
+    build.launch(f"avian_shape_cast_{group}", dev, pair[0] * 16 + pair[1], cols.shape[0],
+                 int(st), int(overlap), cols, query, pos, quat, params, shape_type,
+                 _disc_table(dev), pool, *out, rounds)
+    return True
+
+
 def shape_cast(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut,
                rounds=None):
     """Cast the query shape of type ``st`` (``query`` f32[20], see above)
@@ -117,26 +165,41 @@ def shape_cast(pair, cols, st, query, pos, quat, params, shape_type, pool, out: 
         if rounds is not None:
             raise ValueError("shape_cast: the plain version counts no rounds")
         return shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out)
-    if cols.device.type != "cuda":
-        raise RuntimeError(f"shape_cast: unsupported device {cols.device}")
-    from avian_tpu_torch.kernels import build
-
-    dev, f32 = cols.device, torch.float32
-    m = pos.shape[0]
-    build.require("shape_cast", dev, [
-        ("cols", cols, cols.shape, torch.int32), ("query", query, (QUERY_LEN,), f32),
-        ("pos", pos, (m, 3), f32), ("quat", quat, (m, 4), f32), ("params", params, (m, 8), f32),
-        ("shape_type", shape_type, (m,), torch.int32), ("pool", pool, pool.shape, f32),
-        ("t", out.t, (m,), f32), ("hit", out.hit, (m,), torch.bool),
-        ("pa", out.pa, (m, 3), f32), ("pb", out.pb, (m, 3), f32), ("n", out.n, (m, 3), f32),
-    ] + ([] if rounds is None else [("rounds", rounds, (m,), torch.int32)]))
-    if cols.shape[0]:
-        group = GROUP[PAIR_KERNELS[pair][1]]
-        build.launch(f"avian_shape_cast_{group}", dev, pair[0] * 16 + pair[1], cols.shape[0],
-                     int(st), cols, query, pos, quat, params, shape_type, _disc_table(dev), pool,
-                     *out, rounds)
+    if _launch("shape_cast", False, pair, cols, st, query, pos, quat, params, shape_type, pool,
+               out, rounds):
         shape_cast.launches += 1
     return out
 
 
 shape_cast.launches = 0
+
+
+def shape_overlap_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, hit):
+    """Plain PyTorch version; see ``shape_overlap``."""
+    c = cols.long()
+    _, at = _manifold_at(pair, c, st, query, pos, quat, params, shape_type, pool)
+    _, _, _, sep4, _, count = at(query[0:3].expand(c.shape[0], 3))
+    hit[c] = (count > 0) & (sep4.amin(1) < 0.0)
+    return hit
+
+
+def shape_overlap(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
+    """Overlap mode of ``shape_cast``: whether the query shape at its origin
+    (``query``'s rotation and params; its direction and distances unread)
+    and each collider of ``cols`` have a manifold point of negative
+    separation, written into ``out.hit``; nothing else of ``out`` is
+    written."""
+    from avian_tpu_torch.geometry.narrowphase import PAIR_KERNELS
+
+    if pair not in PAIR_KERNELS:
+        raise ValueError(f"shape_overlap: no kernel for shape pair {pair}")
+    if cols.device.type == "cpu":
+        shape_overlap_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out.hit)
+        return out
+    if _launch("shape_overlap", True, pair, cols, st, query, pos, quat, params, shape_type, pool,
+               out, None):
+        shape_overlap.launches += 1
+    return out
+
+
+shape_overlap.launches = 0

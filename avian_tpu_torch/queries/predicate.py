@@ -5,6 +5,7 @@ every collider slot at once, ``predicate(world, collider_ids) -> bool[M]``
 (``filter.with_predicate``)."""
 
 from avian_tpu_torch.queries.filter import QueryFilter, with_predicate
+from avian_tpu_torch.queries.point import project_point
 from avian_tpu_torch.queries.raycast import BIG, cast_ray
 from avian_tpu_torch.queries.shapecast import cast_shape
 
@@ -21,3 +22,8 @@ def cast_shape_predicate(world, shape_type, params, origin, rotation, direction,
     """First shape-cast hit among the colliders passing ``predicate``."""
     return cast_shape(world, shape_type, params, origin, rotation, direction, max_distance,
                       qfilter=with_predicate(world, qfilter, predicate), **kw)
+
+
+def project_point_predicate(world, point, predicate, solid=True, qfilter: QueryFilter = None):
+    """The closest point among the colliders passing ``predicate``."""
+    return project_point(world, point, solid, with_predicate(world, qfilter, predicate))

@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the 31 kernels (A-Z, AA-AE) against its plain PyTorch twin at the main
-paths' shapes (the 10,000-cube pile after 60 steps; the base-100 box pyramid
-after 2 steps, when most of its constraints sit in the overflow colour, and
-after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
+the 34 kernels (A-Z, AA-AH) and S's overlap mode against its plain PyTorch
+twin at the main paths' shapes (the 10,000-cube pile after 60 steps; the
+base-100 box pyramid after 2 steps, when most of its constraints sit in the
+overflow colour, and after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
 shape-pair bucket of 10,000 mixed shapes after 40 steps; every bucket of
 10,000 mixed shapes, rocks and round cuboids on a heightfield of 8,192
 triangles after 40 steps, and 4,096 random pairs of each of the 15 pairs that
@@ -24,7 +24,10 @@ round-cuboid scenes with their own checks, fires 32 swept bullets into the
 terrain for 120 steps (``terrain_ccd``: Kernel R against its twin, no bullet
 below the field, what the sweep's repairs of the reference did), runs the
 reference's swept-CCD scenes, casts five shapes and 1,024 rays into the
-terrain (Kernels S and T against their twins), steps the pyramid, the hinged
+terrain (Kernels S and T against their twins), makes the point, intersection
+and grid queries and the persistent casters a user makes on that terrain
+(Kernels AF, AG, AH and S's overlap mode counted over those calls, held to
+their twins, AG to T's brute force), steps the pyramid, the hinged
 boxes, 2,000 mixed shapes, a 2,000-body terrain and a 2,000-body
 ``terrain_ccd`` once more with every kernel replaced by its plain version
 and holds the kernels' trajectories to those, and checks that two runs are
@@ -105,6 +108,7 @@ from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, POOL_KERNELS,
                                                   compute_manifolds, manifold_buckets,
                                                   pair_manifold_twin)
 from avian_tpu_torch.math import quat as quat_m
+from avian_tpu_torch.math import vec
 from avian_tpu_torch.dim2 import broadphase as bp2
 from avian_tpu_torch.dim2 import contacts as nc2
 from avian_tpu_torch.dim2 import dynamics as dyn2
@@ -129,6 +133,16 @@ from avian_tpu_torch.dim2 import queries as q2d
 from avian_tpu_torch.kernels import point_2d as kad
 from avian_tpu_torch.kernels import ray_cast_2d as kac
 from avian_tpu_torch.kernels import shape_cast_2d as kae
+from avian_tpu_torch.kernels import aabb_overlap as kah
+from avian_tpu_torch.kernels import point_3d as kaf
+from avian_tpu_torch.kernels import ray_cast_grid as kag
+from avian_tpu_torch.queries import (RayCasters, ShapeCasters, aabb_intersections,
+                                     build_query_grid, cast_ray_grid, point_intersections,
+                                     project_point, project_point_predicate, shape_intersections,
+                                     update_ray_casters, update_shape_casters)
+from avian_tpu_torch.queries import accel
+from avian_tpu_torch.queries import intersect as qintersect
+from avian_tpu_torch.queries import point as qpoint
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
@@ -406,6 +420,13 @@ REPLACES = {
     "point_2d": ("cuda", "avian_tpu_torch/csrc/point_2d.cu", "avian_tpu/dim2/queries.py:356"),
     "shape_cast_2d": ("cuda", "avian_tpu_torch/csrc/shape_cast_2d.cu",
                       "avian_tpu/dim2/queries.py:500"),
+    "point_3d": ("cuda", "avian_tpu_torch/csrc/point_3d.cu", "avian_tpu/queries/point.py:17"),
+    "ray_cast_grid": ("cuda", "avian_tpu_torch/csrc/ray_cast_grid.cu",
+                      "avian_tpu/queries/accel.py:118"),
+    "aabb_overlap": ("cuda", "avian_tpu_torch/csrc/aabb_overlap.cu",
+                     "avian_tpu/queries/intersect.py:14"),
+    "shape_overlap": ("cuda", "avian_tpu_torch/csrc/shape_cast.cuh",
+                      "avian_tpu/queries/intersect.py:27"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -1558,6 +1579,11 @@ def plain_versions():
         (kpq, "plane_hull_manifold", kpq.plane_hull_manifold_twin),
         (kccd, "swept_toi", kccd.swept_toi_twin), (ks, "shape_cast", ks.shape_cast_twin),
         (kt, "ray_cast", kt.ray_cast_twin),
+        (kaf, "point_3d", lambda *a: kaf.point_3d_twin(*a[:10])),
+        (kag, "ray_cast_grid", lambda rays, md, solid, tabs, cells=64, window=32, work=None:
+         kag.ray_cast_grid_twin(rays, md, solid, tabs, cells, window)),
+        (kah, "aabb_overlap", kah.aabb_overlap_twin),
+        (ks, "shape_overlap", lambda *a: ks.shape_overlap_twin(*a[:-1], a[-1].hit)),
     ]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -2495,6 +2521,288 @@ def phase_queries(device, smi):
         f"({twin_cols} colliders: those whose AABB meets the cast's swept box and "
         f"{CCD_TWIN_COLUMNS} seeded ones): max abs err {err_s:.3g}; T on {k} rays: "
         f"{err_t:.3g}; " + show("times", out) + f" [{smi}]")
+    return out, got, world
+
+
+# The grid queries on the queries phase's world: GRID_POINTS points (the first
+# GRID_CENTRES at seeded bodies' collider centres, inside them), GRID_BOXES
+# AABBs, the five QUERY_SHAPES' intersections, QUERY_RAYS grid rays,
+# GRID_CASTERS ray casters (half hollow) and five shape casters; AF, AG, AH
+# and S's overlap mode held to their twins on the first QUERY_TWIN_RAYS
+# points, rays and boxes.
+GRID_POINTS, GRID_CENTRES, GRID_BOXES, GRID_CASTERS = 1024, 256, 64, 256
+# Arithmetic operations (not comparisons or selects) of one (point,
+# collider) of AF by kind: the two rotations and the kind's own; a hull's
+# fixed part (the mean, the steps' updates, the certificate) and, from the
+# launch's counters, 5 a vertex row of its scans and 11 a row of the exact
+# containment test.
+AF_FRAME_OPS = 66
+AF_KIND_OPS = {kaf.SPHERE: 20, kaf.CAPSULE: 30, kaf.BOX: 17, kaf.PLANE: 11, kaf.CYLINDER: 50,
+               kaf.CONE: 80, kaf.SEGMENT: 9, kaf.MISS: 0, kaf.CONVEX: 520}
+AF_SCAN_OPS, AF_EXACT_OPS = 5, 11
+# AG: a ray's set-up, each cell's step and key (6) and binary search (3 a
+# probe), each test's rotations (93) beside T's RAY_OPS or a hull's march.
+AG_RAY_OPS, AG_CELL_OPS, AG_PROBE_OPS, AG_TEST_OPS = 40, 8, 3, 93
+
+
+def af_work(world, p_n, work):
+    """(bytes, operations) of AF on ``p_n`` points: the points, the
+    colliders' rows and the pool read once, 17 bytes written a pair; each
+    pair's kind operations and the launch's counted vertex rows."""
+    m = world.colliders.capacity
+    kinds = qpoint.point_kinds(world)
+    io = 12 * p_n + 60 * m + 12 * int(world.convex_verts.shape[0]) + 17 * p_n * m
+    per = sum(AF_KIND_OPS[k] * int((kinds == k).sum()) for k in kaf.KINDS)
+    ops = p_n * (m * AF_FRAME_OPS + per) + AF_SCAN_OPS * int(work[0]) + AF_EXACT_OPS * int(work[1])
+    return io, ops
+
+
+def ag_work(world, grid, r_n, cells, work):
+    """(bytes, operations) of AG on ``r_n`` rays: the rays, the grid, the
+    colliders' rows and the pool read once, 20 bytes written a ray; each
+    ray's walk and binary searches, and the launch's counted tests (T's
+    ``RAY_OPS`` an analytic one, ``ray_work``'s march a hull vertex row)."""
+    m, ne = world.colliders.capacity, grid.skey.shape[0]
+    io = 29 * r_n + 8 * ne + 5 * grid.global_idx.shape[0] + 65 * m \
+        + 12 * int(world.convex_verts.shape[0]) + 20 * r_n
+    probes = math.ceil(math.log2(ne + 1))
+    ops = r_n * (AG_RAY_OPS + cells * (AG_CELL_OPS + AG_PROBE_OPS * probes)) \
+        + int(work[0]) * (AG_TEST_OPS + RAY_OPS) \
+        + int(work[1]) * (AG_TEST_OPS + 500) + int(work[2]) * (24 * 13 + 8) * HULL_SCAN_OPS
+    return io, ops
+
+
+def grid_against_brute_force(world, grid, o, d, window):
+    """AG with ``window`` against T's brute force on the rays (``o``, ``d``
+    unit, on the card), both solid, up to ``QUERY_MAX_DISTANCE``: the rays
+    whose hit flag differs, and whose grid hit is not the brute force's
+    nearest (its distance, and the brute force's own distance of the grid's
+    collider)."""
+    grid_hit = cast_ray_grid(world, grid, o, d, QUERY_MAX_DISTANCE, True, cell_window=window)
+    d = vec.normalize_or_rn(d, torch.tensor([1.0, 0.0, 0.0], device=d.device))  # as the grid's
+    t, _ = raycast.all_hits(world, o, d, True, QueryFilter())
+    t = torch.where(t <= QUERY_MAX_DISTANCE, t, raycast.BIG)
+    nearest = t.amin(1)
+    flag = grid_hit.hit != (nearest < raycast.BIG)
+    ci = grid_hit.collider.clamp(min=0).long()
+    own = t.gather(1, ci[:, None])[:, 0]
+    off = grid_hit.hit & ((grid_hit.distance != nearest) | (own != grid_hit.distance))
+    return int(flag.sum()), int(off.sum()), torch.nonzero(flag | off)[:8, 0].tolist()
+
+
+def phase_grid_queries(device, smi, world):
+    """Point projections, intersections, the query grid and the persistent
+    casters on the queries phase's world, as a user makes them:
+    ``project_point`` and ``point_intersections`` of ``GRID_POINTS`` seeded
+    points (the first ``GRID_CENTRES`` at collider centres of seeded bodies,
+    each inside its collider, hulls included), ``project_point_predicate``,
+    ``aabb_intersections`` of ``GRID_BOXES`` boxes, ``shape_intersections``
+    of the five ``QUERY_SHAPES`` at seeded bodies, ``cast_ray_grid`` on
+    ``query_rays(5)``, ``GRID_CASTERS`` ray casters from seeded bodies'
+    collider centres (half hollow; with a window that holds every cell run)
+    and five shape casters. The launch counts are those of these
+    calls alone. Then AF, AG, AH and S's overlap mode against their twins
+    (the first ``QUERY_TWIN_RAYS`` points, rays and boxes; the five shapes),
+    E's cell keys against the reference's packing of the unclamped cell
+    coordinates, AG against T's brute force with a window that holds every
+    cell run (no ray may differ) and at the default (the rays that differ
+    are counted), and the times. Returns ({name: measurements}, launch
+    counts)."""
+    col = world.colliders
+    rng = np.random.default_rng(13)
+    pos, _ = bp_m.collider_poses(world)
+    dynamic = torch.nonzero(world.bodies.body_type[col.body_idx.long()] == int(BodyType.DYNAMIC)
+                            & col.active)[:, 0]
+    picks = dynamic[torch.from_numpy(rng.choice(dynamic.numel(), GRID_CENTRES + GRID_CASTERS
+                                                + 5, replace=False)).to(device)]
+    centres = picks[:GRID_CENTRES]
+    reach = 0.75 * (TERRAIN_FIELD - 1) / 2
+    pts = torch.cat([pos[centres].cpu(), torch.from_numpy(np.stack([
+        rng.uniform(-reach, reach, GRID_POINTS - GRID_CENTRES),
+        rng.uniform(-1.0, 6.0, GRID_POINTS - GRID_CENTRES),
+        rng.uniform(-reach, reach, GRID_POINTS - GRID_CENTRES)], 1).astype(np.float32))])
+    box_lo = rng.uniform([-reach, -1.0, -reach], [reach, 4.0, reach], (GRID_BOXES, 3))
+    box_hi = box_lo + rng.uniform(0.2, 3.0, (GRID_BOXES, 3))
+    shape_at = pos[picks[GRID_CENTRES + GRID_CASTERS:]].tolist()
+    shapes = [(st, params, tuple(at), tuple(float(x) for x in q / np.linalg.norm(q)))
+              for (st, params), at, q in zip(QUERY_SHAPES, shape_at, rng.normal(size=(5, 4)))]
+    casters = RayCasters.create([
+        dict(body=int(col.body_idx[c]), origin=tuple(col.local_pos[c].tolist()),
+             direction=tuple(rng.normal(size=3) * [1.0, 0.2, 1.0] - [0.0, 1.0, 0.0]),
+             max_distance=QUERY_MAX_DISTANCE, solid=k % 2 == 0)
+        for k, c in enumerate(picks[GRID_CENTRES:GRID_CENTRES + GRID_CASTERS].tolist())],
+        device=device)
+    shape_casters = ShapeCasters.create([
+        dict(shape_type=st, params=params, body=int(col.body_idx[picks[k]]) if k % 2 else -1,
+             origin=(0.0, 3.0, 0.0) if k % 2 else (float(rng.uniform(-reach, reach)), 15.0,
+                                                   float(rng.uniform(-reach, reach))),
+             direction=(0.0, -1.0, 0.0), max_distance=QUERY_MAX_DISTANCE)
+        for k, (st, params) in enumerate(QUERY_SHAPES)], device=device)
+    origins, dirs = query_rays(5)
+    o_dev, d_dev = origins.to(device), dirs.to(device)
+    no_box = lambda w, ids: w.colliders.shape_type[ids] != int(ShapeType.BOX)  # noqa: E731
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    projected = [project_point(world, p) for p in pts]
+    listed = [point_intersections(world, p) for p in pts]
+    predicated = [project_point_predicate(world, p, no_box) for p in pts[:16]]
+    boxes = [aabb_intersections(world, lo, hi) for lo, hi in zip(box_lo, box_hi)]
+    shaped = [shape_intersections(world, *shape) for shape in shapes]
+    grid = build_query_grid(world)
+    rays = cast_ray_grid(world, grid, o_dev, d_dev, QUERY_MAX_DISTANCE)
+    runs = torch.unique_consecutive(grid.skey, return_counts=True)[1][:-1]
+    longest = int(runs.max())
+    cast = update_ray_casters(world, casters, grid, cell_window=max(longest, 32))
+    shape_cast = update_shape_casters(world, shape_casters)
+    torch.cuda.synchronize()
+    got = kernels.launches()
+
+    want = dict(point_3d=2 * GRID_POINTS + 16, ray_cast_grid=2, aabb_overlap=GRID_BOXES)
+    if any(got[k] < v for k, v in want.items()) or got["shape_overlap"] < 5 \
+            or got["shape_cast"] < 5:
+        raise AssertionError(f"grid queries: AF, AG, AH and S did not carry the calls: {got}")
+    inside = torch.stack([r["is_inside"] for r in projected[:GRID_CENTRES]])
+    lists = torch.stack(listed[:GRID_CENTRES])
+    own = (lists == centres[:, None].to(torch.int32)).any(1)
+    if not (bool(inside.all()) and bool(own.all())):
+        raise AssertionError(f"grid queries: {int((~inside).sum())} of the {GRID_CENTRES} "
+                             f"collider centres reported outside, {int((~own).sum())} not listed")
+    hulls = int((col.shape_type[centres] == int(ShapeType.CONVEX)).sum())
+    if hulls == 0 or not all(bool(r["hit"]) for r in predicated):
+        raise AssertionError("grid queries: no hull among the centres, or a predicate missed")
+    if sum(int(b[0]) >= 0 for b in boxes) < GRID_BOXES // 2 \
+            or not all(int(x[0]) >= 0 for x in shaped):
+        raise AssertionError("grid queries: the boxes or a shape intersected too little")
+    hollow = ~casters.solid & casters.enabled
+    if not bool((cast.distance[~hollow] == 0.0).all()):
+        raise AssertionError("grid queries: a solid caster at its collider's centre missed 0")
+    if int(shape_cast.hit.sum()) < 3 or int(rays.hit.sum()) < QUERY_RAYS // 2:
+        raise AssertionError("grid queries: the shape casters or the grid rays hit too little")
+
+    # The kernels against their twins.
+    k = QUERY_TWIN_RAYS
+    work_f = torch.zeros(2, dtype=torch.int64, device=device)
+    dist, closest, ins = qpoint.all_point_hits(world, pts[:k], work_f)
+    with plain_versions():
+        (dist_w, closest_w, ins_w), twin_ms_f = once_ms(
+            lambda: qpoint.all_point_hits(world, pts[:k]))
+    compare("point_3d inside", ins, ins_w)
+    err_f = max(compare("point_3d distance", dist, dist_w, TOL_ST),
+                compare("point_3d closest", closest, closest_w, TOL_ST))
+    work_all = torch.zeros(2, dtype=torch.int64, device=device)
+    qpoint.all_point_hits(world, pts, work_all)
+    w_grid = torch.zeros(3, dtype=torch.int64, device=device)
+    md = torch.full((QUERY_RAYS,), QUERY_MAX_DISTANCE, device=device)
+    solid = torch.ones(QUERY_RAYS, dtype=torch.bool, device=device)
+    tabs = accel.grid_tables(world, grid, QueryFilter())
+    rays_in = torch.cat([o_dev, d_dev], 1).contiguous()
+    t_g, n_g, c_g = kag.ray_cast_grid(rays_in, md, solid, tabs, work=w_grid)
+    with plain_versions():
+        (t_w, n_w, c_w), twin_ms_g = once_ms(lambda: kag.ray_cast_grid(
+            rays_in[:k], md[:k], solid[:k], tabs))
+    compare("ray_cast_grid collider", c_g[:k], c_w)
+    err_g = max(compare("ray_cast_grid distance", t_g[:k], t_w, TOL_ST),
+                compare("ray_cast_grid normal", n_g[:k], n_w, TOL_ST))
+    lo_t = torch.from_numpy(box_lo.astype(np.float32)).to(device)
+    hi_t = torch.from_numpy(box_hi.astype(np.float32)).to(device)
+    over = qintersect.all_aabb_overlaps(world, lo_t, hi_t)
+    with plain_versions():
+        over_w, twin_ms_h = once_ms(lambda: qintersect.all_aabb_overlaps(world, lo_t, hi_t))
+    compare("aabb_overlap", over, over_w)
+    twin_ms_s, err_s = 0.0, 0.0
+    for shape in shapes:
+        flags = qintersect.shape_overlaps(world, *shape)
+        with plain_versions():
+            flags_w, ms = once_ms(lambda shape=shape: qintersect.shape_overlaps(world, *shape))
+        compare(f"shape_overlap {ShapeType(shape[0]).name}", flags, flags_w)
+        twin_ms_s = twin_ms_s if shape[0] != int(ShapeType.SPHERE) else ms
+
+    # E's keys against the reference's packing of the unclamped cell
+    # coordinates (accel.py:_pack of floor(aabb / cell)), and how far the
+    # in-grid coordinates stay from E's clamp.
+    cell, in_grid, _ = bp_m.sweep_cell(col)
+    lo_c, hi_c = torch.floor(col.aabb_min / cell), torch.floor(col.aabb_max / cell)
+    reach_cells = float(torch.cat([lo_c[in_grid], hi_c[in_grid]]).abs().max())
+    if reach_cells >= ke._CELL_LIMIT:
+        raise AssertionError(f"grid queries: a cell coordinate reaches E's clamp: {reach_cells}")
+    cc = lo_c.to(torch.int32)[:, None, :] + torch.tensor(ke._CELL_OFFSETS, dtype=torch.int32,
+                                                         device=device)
+    inside_aabb = (cc <= hi_c.to(torch.int32)[:, None, :]).all(-1) & in_grid[:, None]
+    packed = torch.where(inside_aabb, kb.cell_key(cc), kb.SENTINEL).reshape(-1)
+    compare("cell_keys against the unclamped packing",
+            ke.cell_keys(world.bodies, col, cell, in_grid)[0], packed)
+    # AG against T's brute force: every run in the window, then the default.
+    full = grid_against_brute_force(world, grid, o_dev, d_dev, max(longest, 32))
+    if full[0] or full[1]:
+        raise AssertionError(f"grid queries: with a window of {longest} AG parts from T's brute "
+                             f"force on {full[0]} hit flags and {full[1]} hits (rays {full[2]})")
+    cut = grid_against_brute_force(world, grid, o_dev, d_dev, 32)
+    # The hollow casters against T's brute force with solid=False.
+    o_c, d_c = accel._attached(world, casters.body, casters.origin, casters.direction)
+    d_c = vec.normalize_or_rn(d_c, torch.tensor([1.0, 0.0, 0.0], device=device))
+    t_c, _ = raycast.all_hits(world, o_c[hollow], d_c[hollow], False, QueryFilter())
+    t_c = torch.where(t_c <= QUERY_MAX_DISTANCE, t_c, raycast.BIG).amin(1)
+    t_c = torch.where(t_c < raycast.BIG, t_c, float("inf"))
+    if not bool((cast.distance[hollow] == t_c).all()):
+        raise AssertionError(f"grid queries: {int((cast.distance[hollow] != t_c).sum())} hollow "
+                             "casters part from T's brute force with solid=False")
+
+    # Times: the public calls' kernels at the main path's widths.
+    out = {}
+    b_ms, b_by = bound(*af_work(world, GRID_POINTS, work_all))
+    out["point_3d"] = dict(max_abs_err=err_f, plain_ms=twin_ms_f, bound_ms=b_ms, bound_by=b_by,
+                           ms=cuda_ms(lambda: qpoint.all_point_hits(world, pts)),
+                           library_ms=None, points=GRID_POINTS, plain_points=k)
+    b_ms, b_by = bound(*ag_work(world, grid, QUERY_RAYS, 64, w_grid))
+    out["ray_cast_grid"] = dict(
+        max_abs_err=err_g, plain_ms=twin_ms_g, bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: kag.ray_cast_grid(rays_in, md, solid, tabs)), library_ms=None,
+        rays=QUERY_RAYS, plain_rays=k)
+    m = col.capacity
+    b_ms, b_by = bound(24 * GRID_BOXES + 25 * m + GRID_BOXES * m, 0)
+    out["aabb_overlap"] = dict(
+        max_abs_err=0.0, plain_ms=twin_ms_h, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=cuda_ms(lambda: qintersect.all_aabb_overlaps(world, lo_t, hi_t)), boxes=GRID_BOXES)
+    # The query grid (E's keys and a sort): its time, its plain version's,
+    # and its bound (the AABBs and the flags read, the keys written, sorted
+    # and their colliders written; the sort's comparisons not counted).
+    grid_ms = cuda_ms(lambda: build_query_grid(world))
+    with plain_versions():
+        plain_grid, grid_twin_ms = once_ms(lambda: build_query_grid(world))
+    compare("query grid keys", grid.skey, plain_grid.skey)
+    compare("query grid colliders", grid.scol, plain_grid.scol)
+    ne = grid.skey.shape[0]
+    grid_bound, grid_by = bound(25 * m + 4 * ne + 8 * ne, 0)
+    sphere = shapes[0]
+    query, _, res, _ = shapecast.cast_setup(world, sphere[0], sphere[1], sphere[2], sphere[3],
+                                            (1.0, 0.0, 0.0), 0.0)
+    b_ms, b_by = bound(*cast_work(world, sphere[0], torch.zeros(m, dtype=torch.int32,
+                                                                device=device), res))
+    out["shape_overlap"] = dict(max_abs_err=err_s, plain_ms=twin_ms_s, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None,
+                                ms=cuda_ms(lambda: qintersect.shape_overlaps(world, *sphere)))
+    say("grid queries", f"terrain {TERRAIN_N} after {TERRAIN_KERNEL_STEPS} steps, {m} colliders: "
+        f"{GRID_POINTS} points ({GRID_CENTRES} at collider centres, {hulls} of them hulls, all "
+        f"inside and listed), {GRID_BOXES} boxes, five shapes' intersections "
+        f"({[int((x >= 0).sum()) for x in shaped]} listed), {QUERY_RAYS} grid rays "
+        f"({int(rays.hit.sum())} hit), {GRID_CASTERS} ray casters ({int(cast.hit.sum())} hit; "
+        f"the {int(hollow.sum())} hollow ones equal to T's brute force, from inside their "
+        f"colliders at {float(cast.distance[hollow].min()):.3f}-"
+        f"{float(cast.distance[hollow].max()):.3f} m), "
+        f"five shape casters ({int(shape_cast.hit.sum())} hit); launches of these calls: "
+        f"{dict((k, got[k]) for k in GRID_KERNELS + ('shape_cast', 'collider_aabbs'))}; "
+        f"AF, AG, AH and S's overlap mode against their twins on {k} points, {k} rays, "
+        f"{GRID_BOXES} boxes and five shapes: max abs err {max(err_f, err_g, err_s):.3g}; "
+        f"AG against T's brute force on {QUERY_RAYS} rays: with a window of {longest} (the "
+        f"longest cell run) 0 differ, at the default 32 {cut[0]} hit flags and {cut[1]} hits "
+        f"differ (rays {cut[2]}); hull rows scanned: Frank-Wolfe {int(work_all[0])}, exact "
+        f"{int(work_all[1])}; AG's tests: {int(w_grid[0])} analytic, {int(w_grid[1])} hulls; "
+        f"E's keys equal to the unclamped packing, cell coordinates within "
+        f"{reach_cells:.0f} of 0 (the clamp {ke._CELL_LIMIT:.0e}); "
+        f"the query grid ({ne} entries, E's keys and a sort, equal to its plain version): "
+        f"{grid_ms:.4f} ms, plain {grid_twin_ms:.4f} ms, bound {grid_bound:.5f} ms ({grid_by}); "
+        + show("times", out) + f" [{smi}]")
     return out, got
 
 
@@ -3589,6 +3897,7 @@ CONTROLLER_RADIUS, CONTROLLER_HALF = 0.4, 0.5
 CONTROLLER_GROUND_TOL, CONTROLLER_BOX_TOL, TOL_CONTROLLER = 0.02, 0.01, 1e-5
 CONTROLLER_CONFIG = char2d.MoveAndSlideConfig2D()
 Q2D_KERNELS = ("ray_cast_2d", "point_2d", "shape_cast_2d")
+GRID_KERNELS = ("point_3d", "ray_cast_grid", "aabb_overlap", "shape_overlap")
 
 
 def query2d_inputs(seed, centres):
@@ -4011,8 +4320,12 @@ def main():
     measured_ccd, ccd_launches = timed("ccd", phase_ccd, device, smi)
     measured_by_kernel.update(measured_ccd)
     timed("ccd scenes", phase_ccd_reference, device)
-    measured_queries, query_launches = timed("queries", phase_queries, device, smi)
+    measured_queries, query_launches, query_world = timed("queries", phase_queries, device, smi)
     measured_by_kernel.update(measured_queries)
+    measured_grid, grid_launches = timed("grid queries", phase_grid_queries, device, smi,
+                                         query_world)
+    measured_by_kernel.update(measured_grid)
+    del query_world
     measured_by_kernel.update(timed("dim2 kernels", phase_dim2_kernels, device))
     timed("dim2 golden", phase_dim2_golden, device)
     dim2_launches = timed("pyramid2d", phase_pyramid2d, device, smi)
@@ -4048,7 +4361,8 @@ def main():
                 "swept_toi": ccd_launches, "shape_cast": query_launches,
                 "ray_cast": query_launches, **dict.fromkeys(DIM2_KERNELS, dim2_launches),
                 "solve_joints_2d": hinges2d_launches, "swept_toi_2d": ccd2d_launches,
-                **dict.fromkeys(Q2D_KERNELS, q2d_launches)}.get(
+                **dict.fromkeys(Q2D_KERNELS, q2d_launches),
+                **dict.fromkeys(GRID_KERNELS, grid_launches)}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -4058,6 +4372,7 @@ def main():
                          terrain_launches=terrain_launches[name],
                          scene_launches=scene_launches[name],
                          ccd_launches=ccd_launches[name], query_launches=query_launches[name],
+                         grid_query_launches=grid_launches[name],
                          pyramid2d_launches=dim2_launches[name],
                          hinges2d_launches=hinges2d_launches[name],
                          ccd2d_launches=ccd2d_launches[name],
