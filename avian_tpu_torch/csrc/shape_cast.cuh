@@ -15,11 +15,15 @@
 // (queries/shapecast.py) operation by operation (-fmad=false, IEEE sqrt and
 // division).
 //
-// Overlap mode (`overlap` != 0, for avian_tpu/queries/intersect.py::
+// Overlap mode (`overlap` == 1, for avian_tpu/queries/intersect.py::
 // shape_intersections :27, `one` :45) runs no round: one manifold of the query
 // shape at its origin against the collider, and the flag count > 0 and
-// smallest separation < 0 into hit_out, nothing else written. It is one more
-// use of the same instances, so it adds nothing to the build.
+// smallest separation < 0 into hit_out, nothing else written. Manifold mode
+// (`overlap` == 2, for avian_tpu/character/move_and_slide.py::depenetrate :57,
+// `against` :77) runs the same one manifold and writes the smallest of its
+// four separations into t_out and its normal, from the query shape to the
+// collider, into n_out, nothing else. Both are more uses of the same
+// instances, so they add nothing to the build.
 //
 // The query (20 floats): origin (3), rotation (4), unit direction (3), the
 // shape's params padded to 8 lanes (a CONVEX query shape indexes the world's
@@ -86,8 +90,13 @@ __global__ void shape_cast_kernel(int n, int st, int overlap, const int* __restr
     }
   }
   cast_manifold<TA, TB>(swap, overlap ? o : o + d * t, rot, qprm, cp, cq, cprm, pool, disc, m);
-  if (overlap) {
+  if (overlap == 1) {
     hit_out[c] = (m.count > 0 && min_sep(m) < 0.0f) ? 1 : 0;
+    return;
+  }
+  if (overlap == 2) {
+    t_out[c] = min_sep(m);
+    store3(n_out + 3 * c, swap ? -m.normal : m.normal);
     return;
   }
   int pi = first_min_lane(m);

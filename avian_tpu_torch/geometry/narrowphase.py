@@ -319,7 +319,10 @@ def canonical_spans(type_a, type_b, valid, shape_pairs=None):
     lo = torch.minimum(type_a, type_b).long()
     hi = torch.maximum(type_a, type_b).long()
     code = torch.where(valid, lo * _NUM_TYPES + hi, _NUM_TYPES * _NUM_TYPES)
-    counts = torch.bincount(code, minlength=_NUM_TYPES * _NUM_TYPES + 1).tolist()
+    # A scatter, not ``torch.bincount``, which reads the largest code back to
+    # the host before it counts: the one host read is the counts'.
+    counts = torch.zeros((_NUM_TYPES * _NUM_TYPES + 1,), dtype=torch.int64, device=code.device)
+    counts = counts.scatter_add_(0, code, torch.ones_like(code)).tolist()
     allowed = allowed_pairs(shape_pairs)
     spans = []
     start = 0

@@ -44,11 +44,14 @@
 - ``ray_cast_2d`` (Kernel AC, CUDA): the 2D ray casts;
 - ``point_2d`` (Kernel AD, CUDA): the 2D point projections;
 - ``shape_cast_2d`` (Kernel AE, CUDA): the 2D shape casts and query
-  manifolds.
+  manifolds;
 - ``point_3d`` (Kernel AF, CUDA): point projections;
 - ``ray_cast_grid`` (Kernel AG, CUDA): grid-accelerated ray casts;
 - ``aabb_overlap`` (Kernel AH, CUDA): AABB intersections;
-- ``shape_overlap`` (Kernel S's overlap mode, CUDA): shape intersections.
+- ``shape_overlap`` (Kernel S's overlap mode, CUDA): shape intersections;
+- ``shape_manifold`` (Kernel S's manifold mode, CUDA): the query shape's
+  manifolds, which the character's depenetration reads;
+- ``toi_pair`` (Kernel AI, CUDA): times of impact of pairs of shapes.
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -89,6 +92,7 @@ from avian_tpu_torch.kernels import shape_cast_2d as _ae
 from avian_tpu_torch.kernels import point_3d as _af
 from avian_tpu_torch.kernels import ray_cast_grid as _ag
 from avian_tpu_torch.kernels import aabb_overlap as _ah
+from avian_tpu_torch.kernels import toi_pair as _ai
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -129,6 +133,8 @@ WRAPPERS = {
     "ray_cast_grid": (_ag.ray_cast_grid,),
     "aabb_overlap": (_ah.aabb_overlap,),
     "shape_overlap": (_s.shape_overlap,),
+    "shape_manifold": (_s.shape_manifold,),
+    "toi_pair": (_ai.toi_pair,),
 }
 
 

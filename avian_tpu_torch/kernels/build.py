@@ -10,10 +10,10 @@ change to a source rebuilds. A failed build raises; there is no fallback.
 ``launch`` calls one entry point on PyTorch's current stream, ``require``
 is the wrappers' check of device, dtype, shape and contiguity, and
 ``launch_manifold`` is the common launch of the narrowphase's pair kernels
-(A, M, N, O, P, Q). Kernels R and S instantiate the device code of all of
-those for every canonical pair (``csrc/pair_dispatch.cuh``), split over
+(A, M, N, O, P, Q). Kernels R, S and AI instantiate the device code of all
+of those for every canonical pair (``csrc/pair_dispatch.cuh``), split over
 three translation units each so that no one ``nvcc`` holds up the build;
-S's overlap mode is a flag of the same instances.
+S's overlap and manifold modes are a flag of the same instances.
 """
 
 import ctypes
@@ -50,6 +50,9 @@ _SIGNATURES = {
     **{f"avian_swept_toi_{g}": [_I] * 3 + [_P] * 18 + [_P]
        for g in ("analytic", "generic", "hull")},
     **{f"avian_shape_cast_{g}": [_I] * 4 + [_P] * 14 + [_P]
+       for g in ("analytic", "generic", "hull")},
+    # Kernel AI (one entry point per group of canonical pairs)
+    **{f"avian_toi_pair_{g}": [_I] * 3 + [_P] * 16 + [_P]
        for g in ("analytic", "generic", "hull")},
     "avian_ray_cast": [_I] * 4 + [_P] * 2 + [_I] + [_P] * 6 + [_P],
     "avian_grid_sweep": [_P] * 5 + [_I, _I, _P],

@@ -35,9 +35,16 @@ bucket's colliders, and whether it has a point of negative separation. It
 launches the same instances with a flag, one manifold a thread on the
 collider's row, bound by operations like a round of a cast.
 
-The plain PyTorch versions, ``shape_cast_twin`` and ``shape_overlap_twin``,
-run on CPU tensors; on a CUDA tensor the wrappers launch the kernel or
-raise.
+Its manifold mode, ``shape_manifold``, replaces the per-collider manifold of
+``avian_tpu/character/move_and_slide.py::depenetrate`` (:57, ``against``
+:77, under ``vmap`` :87-89): the same one manifold, and the smallest of its
+four separations and its normal (from the query shape to the collider),
+which the depenetration's push reads. It is the 3D counterpart of the 0-round
+launch of Kernel AE (``dim2/queries.py::manifold_vs_all``).
+
+The plain PyTorch versions, ``shape_cast_twin``, ``shape_overlap_twin`` and
+``shape_manifold_twin``, run on CPU tensors; on a CUDA tensor the wrappers
+launch the kernel or raise.
 """
 
 from typing import NamedTuple
@@ -53,6 +60,11 @@ ROUNDS = 16
 BIG = 1e30
 EPS = 1e-4
 QUERY_LEN = 20
+# The kernel's modes (its ``overlap`` argument).
+CAST, OVERLAP, MANIFOLD = 0, 1, 2
+# The separation of the empty manifold (``geometry/narrowphase.py::empty``):
+# what the manifold mode leaves at colliders outside every bucket.
+EMPTY_SEP = 1e9
 
 
 class CastOut(NamedTuple):
@@ -86,8 +98,8 @@ def _manifold_at(pair, c, st, query, pos, quat, params, shape_type, pool):
 
 
 def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
-    """Plain PyTorch version; see ``shape_cast``. Runs every round of every
-    collider."""
+    """Plain PyTorch version; see ``shape_cast``. Stops once a round changes
+    no collider's t or hit flag: every later round would repeat it."""
     c = cols.long()
     k_n = c.shape[0]
     swap, at = _manifold_at(pair, c, st, query, pos, quat, params, shape_type, pool)
@@ -106,8 +118,11 @@ def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, 
         hit_now = sep < EPS
         step = torch.where(approach > 1e-6, sep / torch.clamp(approach, min=1e-6), BIG)
         new_t = torch.where(done | hit_now, t, t + torch.clamp(step, min=0.0))
-        t = torch.minimum(new_t, lim)
-        done = done | hit_now
+        new_t, new_done = torch.minimum(new_t, lim), done | hit_now
+        fixed = torch.equal(new_t, t) and torch.equal(new_done, done)
+        t, done = new_t, new_done
+        if fixed:
+            break
     normal, p_a, p_b, sep4, _, _ = manifold(t)
     pi = first_argmax(-sep4)[:, None, None].expand(-1, 1, 3)
     p_a, p_b = p_a.gather(1, pi)[:, 0], p_b.gather(1, pi)[:, 0]
@@ -119,11 +134,11 @@ def shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, 
     return out
 
 
-def _launch(what, overlap, pair, cols, st, query, pos, quat, params, shape_type, pool,
+def _launch(what, mode, pair, cols, st, query, pos, quat, params, shape_type, pool,
             out: CastOut, rounds):
     """Check the tensors and launch S's instance of ``pair`` on the CUDA
-    tensors (``overlap``: the overlap mode); False where ``cols`` is empty
-    and nothing was launched."""
+    tensors in ``mode`` (``CAST``, ``OVERLAP`` or ``MANIFOLD``); False where
+    ``cols`` is empty and nothing was launched."""
     from avian_tpu_torch.geometry.narrowphase import PAIR_KERNELS
     from avian_tpu_torch.kernels import build
 
@@ -142,7 +157,7 @@ def _launch(what, overlap, pair, cols, st, query, pos, quat, params, shape_type,
         return False
     group = GROUP[PAIR_KERNELS[pair][1]]
     build.launch(f"avian_shape_cast_{group}", dev, pair[0] * 16 + pair[1], cols.shape[0],
-                 int(st), int(overlap), cols, query, pos, quat, params, shape_type,
+                 int(st), mode, cols, query, pos, quat, params, shape_type,
                  _disc_table(dev), pool, *out, rounds)
     return True
 
@@ -165,7 +180,7 @@ def shape_cast(pair, cols, st, query, pos, quat, params, shape_type, pool, out: 
         if rounds is not None:
             raise ValueError("shape_cast: the plain version counts no rounds")
         return shape_cast_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out)
-    if _launch("shape_cast", False, pair, cols, st, query, pos, quat, params, shape_type, pool,
+    if _launch("shape_cast", CAST, pair, cols, st, query, pos, quat, params, shape_type, pool,
                out, rounds):
         shape_cast.launches += 1
     return out
@@ -196,10 +211,42 @@ def shape_overlap(pair, cols, st, query, pos, quat, params, shape_type, pool, ou
     if cols.device.type == "cpu":
         shape_overlap_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out.hit)
         return out
-    if _launch("shape_overlap", True, pair, cols, st, query, pos, quat, params, shape_type, pool,
+    if _launch("shape_overlap", OVERLAP, pair, cols, st, query, pos, quat, params, shape_type, pool,
                out, None):
         shape_overlap.launches += 1
     return out
 
 
 shape_overlap.launches = 0
+
+
+def shape_manifold_twin(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
+    """Plain PyTorch version; see ``shape_manifold``."""
+    c = cols.long()
+    swap, at = _manifold_at(pair, c, st, query, pos, quat, params, shape_type, pool)
+    normal, _, _, sep4, _, _ = at(query[0:3].expand(c.shape[0], 3))
+    out.t[c] = sep4.amin(1)
+    out.n[c] = torch.where(swap, -normal, normal)
+    return out
+
+
+def shape_manifold(pair, cols, st, query, pos, quat, params, shape_type, pool, out: CastOut):
+    """Manifold mode of ``shape_cast``: the manifold of the query shape at
+    its origin (``query``'s rotation and params; its direction and distances
+    unread) and each collider of ``cols``; its smallest separation is written
+    into ``out.t`` and its normal, from the query shape to the collider, into
+    ``out.n``; nothing else of ``out`` is written."""
+    from avian_tpu_torch.geometry.narrowphase import PAIR_KERNELS
+
+    if pair not in PAIR_KERNELS:
+        raise ValueError(f"shape_manifold: no kernel for shape pair {pair}")
+    if cols.device.type == "cpu":
+        return shape_manifold_twin(pair, cols, st, query, pos, quat, params, shape_type, pool,
+                                   out)
+    if _launch("shape_manifold", MANIFOLD, pair, cols, st, query, pos, quat, params, shape_type,
+               pool, out, None):
+        shape_manifold.launches += 1
+    return out
+
+
+shape_manifold.launches = 0

@@ -9,7 +9,7 @@ and each bucket is one launch of Kernel T (``kernels/ray_cast.py``) for all
 the rays at once; ``cast_ray`` and ``ray_hits`` cast one.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -83,23 +83,34 @@ def _ray(origin, direction):
     return o, d
 
 
-def cast_ray(world, origin, direction, max_distance=BIG, solid=True,
-             qfilter: QueryFilter = None) -> RayHit:
-    """First hit along the ray."""
+def first_hits(world, origins, directions, max_distance=BIG, solid=True,
+               qfilter: QueryFilter = None) -> RayHit:
+    """The first hit of each of R rays (origins and unit directions f32[R,
+    3]) from one ``all_hits`` call: a ``RayHit`` with a leading [R] axis, the
+    lower collider index first among equal distances."""
     qfilter = qfilter if qfilter is not None else QueryFilter()
-    o, d = _ray(origin, direction)
-    t, n = all_hits(world, o[None], d[None], solid, qfilter)
-    t, n = t[0], n[0]
+    t, n = all_hits(world, origins, directions, solid, qfilter)
     t = torch.where(t <= max_distance, t, BIG)
-    i = torch.argmin(t)  # the first of equals
-    hit = t[i] < BIG
-    o, d = o.to(world.device), d.to(world.device)
+    i = torch.argmin(t, dim=1)  # the first of equals
+    rows = torch.arange(t.shape[0], device=t.device)
+    ti = t[rows, i]
+    hit = ti < BIG
+    o = origins.to(device=world.device, dtype=torch.float32)
+    d = directions.to(device=world.device, dtype=torch.float32)
     return RayHit(
         collider=torch.where(hit, i, -1).to(torch.int32),
         body=torch.where(hit, world.colliders.body_idx[i], -1).to(torch.int32),
-        distance=torch.where(hit, t[i], float("inf")),
-        point=o + d * torch.where(hit, t[i], 0.0), normal=n[i], hit=hit,
+        distance=torch.where(hit, ti, float("inf")),
+        point=o + d * torch.where(hit, ti, 0.0)[:, None], normal=n[rows, i], hit=hit,
     )
+
+
+def cast_ray(world, origin, direction, max_distance=BIG, solid=True,
+             qfilter: QueryFilter = None) -> RayHit:
+    """First hit along the ray."""
+    o, d = _ray(origin, direction)
+    hits = first_hits(world, o[None], d[None], max_distance, solid, qfilter)
+    return RayHit(*(getattr(hits, f.name)[0] for f in fields(RayHit)))
 
 
 def ray_hits(world, origin, direction, max_hits: int, max_distance=BIG, solid=True,

@@ -5,13 +5,17 @@ and normal oracle of 16 rounds of advancement along the cast direction.
 
 One sweep of the scene computes every collider's travel distance: the
 colliders are bucketed by the canonical pair of (query shape, collider
-shape) with one sort and one host read, and each bucket is one launch of
-Kernel S (``kernels/shape_cast.py``). ``cast_shape`` takes the first
+shape) with one sort and one host read (``cast_buckets``, which a caller
+that casts many times into one world shares), and each bucket is one launch
+of Kernel S (``kernels/shape_cast.py``). ``cast_shape`` takes the first
 nearest hit, ``shape_hits`` the ``max_hits`` nearest (ties to the lower
-collider index, as the reference's ``lax.top_k``).
+collider index, as the reference's ``lax.top_k``). ``manifold_vs_all`` is S's
+manifold mode on the same buckets: the query shape's manifold against every
+collider, which the character's depenetration reads.
 """
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -55,42 +59,107 @@ def _f32(x):
     return float(torch.tensor(x, dtype=torch.float32))
 
 
-def cast_setup(world, shape_type, params, origin, rotation, direction, max_distance,
-               shape_pairs=None):
-    """What one cast's launches take: ``(query f32[20], collider tables
-    (pos, quat, params, shape_type, pool), out, buckets)``, where ``out`` is a
-    ``CastOut`` holding the reference's empty-manifold result for every
-    collider and ``buckets`` lists ``(canonical pair, cols i32[K])``."""
+class CastPlan(NamedTuple):
+    """What every cast of one query shape type into a world as it stands
+    shares (``cast_buckets``)."""
+
+    tabs: tuple            # (pos, quat, params, shape_type, pool): S's collider tables
+    buckets: list          # one (canonical pair, cols i32[K]) per launch
+    swapped: torch.Tensor  # bool[M] the collider's shape code is the lower
+
+
+def cast_buckets(world, shape_type, shape_pairs=None) -> CastPlan:
+    """The colliders' poses (one launch of Kernel E) and tables, and their
+    buckets by the canonical pair of (query shape, collider shape): one sort
+    and one host read. A caller that casts many times into one world (the
+    character controller) buckets once."""
     st = int(shape_type)
     col = world.colliders
-    dev = world.device
-    m = col.capacity
     pos, quat = collider_poses(world)
-    prm = torch.zeros((8,), dtype=torch.float32)
-    prm[:len(params)] = torch.as_tensor(params, dtype=torch.float32)
-    d = vec.normalize_or_rn(torch.as_tensor(direction, dtype=torch.float32),
-                            torch.tensor([1.0, 0.0, 0.0]))
-    query = torch.cat([
-        torch.as_tensor(origin, dtype=torch.float32), torch.as_tensor(rotation, dtype=torch.float32),
-        d, prm, torch.tensor([_f32(max_distance), _f32(max_distance + 1.0)]),
-    ]).to(dev)
-    # Colliders of no bucket (half-space pairs, pairs outside the hint) get
-    # the reference's empty manifold: never a hit, the normal +x un-swapped.
-    swapped = st > col.shape_type
-    x_axis = torch.tensor([1.0, 0.0, 0.0], device=dev)
-    out = ks.CastOut(
-        t=torch.full((m,), float(query[19]), device=dev),
-        hit=torch.zeros((m,), dtype=torch.bool, device=dev),
-        pa=torch.zeros((m, 3), device=dev), pb=torch.zeros((m, 3), device=dev),
-        n=torch.where(swapped[:, None], -x_axis, x_axis),
-    )
     order, _, spans = canonical_spans(torch.full_like(col.shape_type, st), col.shape_type,
                                       torch.ones_like(col.active),
                                       cast_pairs(world, st, shape_pairs))
     order = order.to(torch.int32)
     tabs = (pos.contiguous(), quat.contiguous(), col.params.contiguous(),
             col.shape_type.contiguous(), world.convex_verts.contiguous())
-    return query, tabs, out, [(pair, order[a:b].contiguous()) for pair, a, b in spans]
+    return CastPlan(tabs, [(pair, order[a:b].contiguous()) for pair, a, b in spans],
+                    st > col.shape_type)
+
+
+def _floats(x):
+    return (x.to(torch.float32) if isinstance(x, torch.Tensor)
+            else torch.as_tensor(x, dtype=torch.float32)).reshape(-1)
+
+
+def cast_query(params, origin, rotation, direction, max_distance, device):
+    """The f32[20] query of one cast (``kernels/shape_cast.py``) on
+    ``device``: the direction normalized (+x where it is ~0) and the params
+    padded to 8 lanes where they stand. A Python ``max_distance`` and
+    ``max_distance + 1`` are each rounded once to f32 on the host, as the
+    reference's weakly typed Python floats are; for a tensor, ``max_distance
+    + 1`` is computed in f32 on its device, as the reference computes it on a
+    traced value (its ``shapecast.py:108``). Inputs that are all on the host
+    are copied to ``device`` once; inputs already there read nothing back."""
+    o, rot, d, prm = (_floats(x) for x in (origin, rotation, direction, params))
+    d = vec.normalize_or_rn(d, torch.eye(3, device=d.device)[0])
+    prm = torch.cat([prm, prm.new_zeros((8 - prm.shape[0],))])
+    if isinstance(max_distance, torch.Tensor):
+        md = max_distance.to(torch.float32).reshape(1)
+        dist = torch.cat([md, md + 1.0])
+    else:
+        dist = torch.tensor([_f32(max_distance), _f32(max_distance + 1.0)])
+    parts = (o, rot, d, prm, dist)
+    if all(x.device.type == "cpu" for x in parts):
+        return torch.cat(parts).to(device)
+    return torch.cat([x.to(device) for x in parts])
+
+
+def empty_results(fill, swapped) -> ks.CastOut:
+    """Every collider's result before a launch: the reference's empty
+    manifold's, where no bucket reaches it (half-space pairs, pairs outside
+    the hint): ``fill`` (a 0-d tensor) for t, never a hit, the normal +x
+    un-swapped."""
+    m = swapped.shape[0]
+    x_axis = torch.eye(3, device=swapped.device)[0]
+    return ks.CastOut(
+        t=fill.expand(m).clone(), hit=torch.zeros((m,), dtype=torch.bool, device=swapped.device),
+        pa=swapped.new_zeros((m, 3), dtype=torch.float32),
+        pb=swapped.new_zeros((m, 3), dtype=torch.float32),
+        n=torch.where(swapped[:, None], -x_axis, x_axis))
+
+
+def cast_setup(world, shape_type, params, origin, rotation, direction, max_distance,
+               shape_pairs=None):
+    """What one cast's launches take: ``(query f32[20], collider tables
+    (pos, quat, params, shape_type, pool), out, buckets)``, where ``out`` is a
+    ``CastOut`` holding the reference's empty-manifold result for every
+    collider (t = ``max_distance + 1``) and ``buckets`` lists ``(canonical
+    pair, cols i32[K])``."""
+    plan = cast_buckets(world, shape_type, shape_pairs)
+    query = cast_query(params, origin, rotation, direction, max_distance, world.device)
+    return query, plan.tabs, empty_results(query[19], plan.swapped), plan.buckets
+
+
+def sweep(plan: CastPlan, shape_type, query, ok):
+    """Every collider's cast of ``query`` (one launch of Kernel S a bucket):
+    ``(t f32[M], point_a, point_b, normal f32[M, 3])``, ``t`` = ``BIG`` where
+    ``ok`` (bool[M]) is False or the cast missed."""
+    out = empty_results(query[19], plan.swapped)
+    for pair, cols in plan.buckets:
+        ks.shape_cast(pair, cols, int(shape_type), query, *plan.tabs, out)
+    return torch.where(ok & out.hit, out.t, BIG), out.pa, out.pb, out.n
+
+
+def manifold_vs_all(plan: CastPlan, shape_type, query):
+    """The manifold of the query shape at its origin against every collider
+    (one launch of Kernel S's manifold mode a bucket): ``(separation f32[M],
+    normal f32[M, 3])``, the smallest of each manifold's separations and its
+    normal from the query shape to the collider; 1e9 (the empty manifold's)
+    and +x un-swapped where no bucket reaches the collider."""
+    out = empty_results(query.new_full((), ks.EMPTY_SEP), plan.swapped)
+    for pair, cols in plan.buckets:
+        ks.shape_manifold(pair, cols, int(shape_type), query, *plan.tabs, out)
+    return out.t, out.n
 
 
 def sweep_all(world, shape_type, params, origin, rotation, direction, max_distance,
@@ -98,13 +167,27 @@ def sweep_all(world, shape_type, params, origin, rotation, direction, max_distan
     """Every collider's cast (reference ``_sweep_all``): ``(t f32[M], point_a,
     point_b, normal f32[M, 3])``, ``t`` = ``BIG`` where filtered out or
     missed."""
-    query, tabs, out, buckets = cast_setup(world, shape_type, params, origin, rotation,
-                                           direction, max_distance, shape_pairs)
-    for pair, cols in buckets:
-        ks.shape_cast(pair, cols, int(shape_type), query, *tabs, out)
-    ok = collider_query_mask(world.colliders, qfilter)
-    t = torch.where(ok & out.hit, out.t, BIG)
-    return t, out.pa, out.pb, out.n
+    plan = cast_buckets(world, shape_type, shape_pairs)
+    query = cast_query(params, origin, rotation, direction, max_distance, world.device)
+    return sweep(plan, shape_type, query, collider_query_mask(world.colliders, qfilter))
+
+
+def first_hit(world, t, pa, pb, n) -> ShapeHit:
+    """The first nearest of a sweep's hits (``cast_shape``'s selection),
+    gathered on the device: nothing is read back to the host."""
+    i = torch.argmin(t).reshape(1)  # the first of equals
+
+    def at(x):
+        return x.index_select(0, i)[0]
+
+    ti = at(t)
+    found = ti < BIG
+    return ShapeHit(
+        collider=torch.where(found, i[0], -1).to(torch.int32),
+        body=torch.where(found, at(world.colliders.body_idx), -1).to(torch.int32),
+        distance=torch.where(found, ti, float("inf")),
+        point_a=at(pa), point_b=at(pb), normal=-at(n), hit=found,
+    )
 
 
 def cast_shape(world, shape_type, params, origin, rotation, direction, max_distance,
@@ -112,16 +195,8 @@ def cast_shape(world, shape_type, params, origin, rotation, direction, max_dista
     """First hit when sweeping the shape from ``origin`` along ``direction``
     up to ``max_distance``."""
     qfilter = qfilter if qfilter is not None else QueryFilter()
-    t, pa, pb, n = sweep_all(world, shape_type, params, origin, rotation, direction,
-                             max_distance, qfilter, shape_pairs)
-    i = torch.argmin(t)  # the first of equals
-    found = t[i] < BIG
-    return ShapeHit(
-        collider=torch.where(found, i, -1).to(torch.int32),
-        body=torch.where(found, world.colliders.body_idx[i], -1).to(torch.int32),
-        distance=torch.where(found, t[i], float("inf")),
-        point_a=pa[i], point_b=pb[i], normal=-n[i], hit=found,
-    )
+    return first_hit(world, *sweep_all(world, shape_type, params, origin, rotation, direction,
+                                       max_distance, qfilter, shape_pairs))
 
 
 def nearest(t, k, width):

@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
-the 34 kernels (A-Z, AA-AH) and S's overlap mode against its plain PyTorch
-twin at the main paths' shapes (the 10,000-cube pile after 60 steps; the
+the 35 kernels (A-Z, AA-AI) and S's overlap and manifold modes against its
+plain PyTorch twin at the main paths' shapes (the 10,000-cube pile after 60 steps; the
 base-100 box pyramid after 2 steps, when most of its constraints sit in the
 overflow colour, and after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
 shape-pair bucket of 10,000 mixed shapes after 40 steps; every bucket of
@@ -27,7 +27,14 @@ reference's swept-CCD scenes, casts five shapes and 1,024 rays into the
 terrain (Kernels S and T against their twins), makes the point, intersection
 and grid queries and the persistent casters a user makes on that terrain
 (Kernels AF, AG, AH and S's overlap mode counted over those calls, held to
-their twins, AG to T's brute force), steps the pyramid, the hinged
+their twins, AG to T's brute force), makes the contact queries, drives the
+character and picks on that terrain (``time_of_impact``, Kernel AI, and
+``contact`` on 65,536 pairs of its broadphase; a capsule walked by
+``move_and_slide`` for 120 frames into the pile, S and its manifold mode,
+above the field and out of the colliders, one host read a frame; AI and the
+manifold mode held to their twins, the first frames on a small terrain to
+the plain versions; the character and picking examples; ``pick_batch`` and
+``pick_2d`` held to the ray casts), steps the pyramid, the hinged
 boxes, 2,000 mixed shapes, a 2,000-body terrain and a 2,000-body
 ``terrain_ccd`` once more with every kernel replaced by its plain version
 and holds the kernels' trajectories to those, and checks that two runs are
@@ -58,6 +65,7 @@ true, "device": {...}}``. Any failure raises, and the script exits non-zero with
 line. It takes no arguments, needs a CUDA card and imports nothing of JAX.
 """
 
+import collections
 import contextlib
 import itertools
 import json
@@ -66,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -143,6 +152,11 @@ from avian_tpu_torch.queries import (RayCasters, ShapeCasters, aabb_intersection
 from avian_tpu_torch.queries import accel
 from avian_tpu_torch.queries import intersect as qintersect
 from avian_tpu_torch.queries import point as qpoint
+from avian_tpu_torch import character as char3d
+from avian_tpu_torch import contact_query as cq
+from avian_tpu_torch import picking
+from avian_tpu_torch.geometry.narrowphase import canonical_spans
+from avian_tpu_torch.kernels import toi_pair as kai
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
@@ -427,6 +441,10 @@ REPLACES = {
                      "avian_tpu/queries/intersect.py:14"),
     "shape_overlap": ("cuda", "avian_tpu_torch/csrc/shape_cast.cuh",
                       "avian_tpu/queries/intersect.py:27"),
+    "shape_manifold": ("cuda", "avian_tpu_torch/csrc/shape_cast.cuh",
+                       "avian_tpu/character/move_and_slide.py:57"),
+    "toi_pair": ("cuda", "avian_tpu_torch/csrc/toi_pair.cuh",
+                 "avian_tpu/geometry/contact_query.py:81"),
 }
 # Launches of each kernel in one full step of a world with (``j``) or
 # without joint slots (Kernels A, M, N, O: one per shape pair present,
@@ -1584,6 +1602,9 @@ def plain_versions():
          kag.ray_cast_grid_twin(rays, md, solid, tabs, cells, window)),
         (kah, "aabb_overlap", kah.aabb_overlap_twin),
         (ks, "shape_overlap", lambda *a: ks.shape_overlap_twin(*a[:-1], a[-1].hit)),
+        (ks, "shape_manifold", ks.shape_manifold_twin),
+        (kai, "toi_pair", lambda pair, idx, tabs, hit, t, iters=kai.ROUNDS, rounds=None:
+         kai.toi_pair_twin(pair, idx, tabs, hit, t, iters)),
     ]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -2806,6 +2827,466 @@ def phase_grid_queries(device, smi, world):
     return out, got
 
 
+# The contact queries, the character and picking on the queries phase's world
+# (phase tools3d): TOOLS_PAIRS seeded pairs of its broadphase buffer (at
+# least TOOLS_PAIR_MIN of each canonical pair present, a seeded half swapped)
+# closing at up to TOOLS_SPEED m/s for TOOLS_MAX_T; AI against its twin on
+# TOOLS_TWIN_PAIRS of them, on CPU copies.
+TOOLS_PAIRS, TOOLS_PAIR_MIN, TOOLS_TWIN_PAIRS = 65_536, 64, 4096
+TOOLS_SPEED, TOOLS_MAX_T = 300.0, 1.0 / 60.0
+# The character: a capsule of half height 0.5 and radius 0.4 walking at
+# CHARACTER_WALK m/s (reset every frame, as the examples do) from the field's
+# -x edge into the pile for CHARACTER_FRAMES frames at 30 Hz; its lowest point
+# and its depth in a collider (by AF at CHARACTER_AXIS_POINTS points along its
+# axis) within TERRAIN_BELOW_TOL of the field and of the skin. The first
+# CHARACTER_PLAIN_FRAMES frames on CHARACTER_PLAIN's terrain after
+# CHARACTER_PLAIN_STEPS steps, on the kernels and on the plain versions (CPU
+# copies), bit for bit.
+CHARACTER_PARAMS = (0.5, 0.4)
+CHARACTER_FRAMES, CHARACTER_DT, CHARACTER_WALK = 120, 1.0 / 30.0, (2.0, -1.0, 0.3)
+CHARACTER_AXIS_POINTS = 17
+CHARACTER_PLAIN = dict(n=300, per_row=12, field=17)
+CHARACTER_PLAIN_STEPS, CHARACTER_PLAIN_FRAMES = 20, 5
+PICK_2D_POINTERS = 64
+
+
+def tools_pairs(world, seed):
+    """``TOOLS_PAIRS`` pairs of ``world``'s next broadphase as
+    ``contact_query`` takes them: (type_a, pos_a, quat_a, params_a, vel_a,
+    type_b, pos_b, quat_b, params_b, vel_b) with a leading [P], on the card,
+    and the canonical pairs present. Every canonical pair of the buffer is
+    among the first pairs; a seeded half is swapped; a closes on b along the
+    line of their centres (with some drift) at a seeded 0-``TOOLS_SPEED``
+    m/s."""
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, TERRAIN_CONFIG)
+    bp = bp_m.broad_phase(w2, TERRAIN_CONFIG)
+    col, dev = w2.colliders, world.device
+    slots = torch.nonzero(bp.valid)[:, 0]
+    ca, cb = bp.collider_a[slots].long(), bp.collider_b[slots].long()
+    st = col.shape_type
+    code = (torch.minimum(st[ca], st[cb]) * 16 + torch.maximum(st[ca], st[cb])).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    first = np.concatenate([np.flatnonzero(code == c)[:TOOLS_PAIR_MIN] for c in np.unique(code)])
+    rest = rng.choice(code.shape[0], TOOLS_PAIRS - first.shape[0],
+                      replace=code.shape[0] < TOOLS_PAIRS)
+    pick = torch.from_numpy(np.concatenate([first, rest])).to(dev)
+    swap = torch.from_numpy(rng.random(TOOLS_PAIRS) < 0.5).to(dev)
+    a = torch.where(swap, cb[pick], ca[pick])
+    b = torch.where(swap, ca[pick], cb[pick])
+    line = vec.normalize_or_rn(pos[b] - pos[a], torch.eye(3, device=dev)[0])
+    drift = torch.from_numpy(rng.normal(size=(TOOLS_PAIRS, 3)).astype(np.float32)).to(dev)
+    speed = torch.from_numpy(rng.uniform(0.0, TOOLS_SPEED, TOOLS_PAIRS).astype(np.float32))
+    rel = (line + 0.2 * drift) * speed.to(dev)[:, None]
+    pairs = (st[a], pos[a], quat[a], col.params[a], rel, st[b], pos[b], quat[b], col.params[b],
+             torch.zeros_like(rel))
+    return tuple(x.contiguous() for x in pairs), sorted(divmod(int(c), 16) for c in np.unique(code))
+
+
+def toi_work(pairs, pool, rounds):
+    """(bytes, operations) of Kernel AI on ``pairs``: each pair's row read and
+    its results written once, the pool read once; each pair's rounds at its
+    kernel's ``MANIFOLD_OPS`` and ``ROUND_OPS``, and for each pool-backed side
+    its hull's fixed and per-vertex operations (as Kernel P's bound)."""
+    ta, _, _, prm_a, _, tb, _, _, prm_b, _ = pairs
+    p_n = ta.shape[0]
+    io = (4 + 8 + 2 * 4 * (3 + 4 + 8) + 12 + 4 + 1 + 4) * p_n + nbytes(pool)
+    lo, hi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+    ops = 0
+    for pair in {tuple(x) for x in torch.stack([lo, hi], 1).tolist()}:
+        if pair not in PAIR_KERNELS:
+            continue
+        name = PAIR_KERNELS[pair][1]
+        sel = (lo == pair[0]) & (hi == pair[1])
+        per = torch.full_like(ta, MANIFOLD_OPS[name] + ROUND_OPS, dtype=torch.int64)
+        if name in OPS_PER_HULL:
+            for t_side, prm in ((ta, prm_a), (tb, prm_b)):
+                hull = t_side == int(ShapeType.CONVEX)
+                per = per + torch.where(hull, OPS_PER_HULL[name] + OPS_PER_HULL_VERTEX[name]
+                                        * prm[:, 1].long(), 0)
+        ops += int((per * rounds.long())[sel].sum())
+    return io, ops
+
+
+def counting_syncs(fn):
+    """``(fn(), where it synchronized)``: the ``file:line`` of each host read
+    or blocking copy ``fn`` made, by PyTorch's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = []
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = os.path.relpath(w.filename, ROOT) if w.filename.startswith(ROOT) else w.filename
+            sites.append(f"{path}:{w.lineno}")
+    return out, sites
+
+
+def character_frames(world, pos, frames, walk=None):
+    """``frames`` frames of ``move_and_slide`` of the capsule from ``pos``
+    (f32[3] on the world's device), the velocity reset to ``walk`` every
+    frame: f32[F, 3, 3] of (position, velocity, last normal)."""
+    dev = world.device
+    walk = torch.tensor(CHARACTER_WALK if walk is None else walk, device=dev)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    return _frames(world, pos, quat, walk, frames)
+
+
+def _frames(world, pos, quat, walk, frames, syncs=None):
+    """``character_frames`` from device tensors; with ``syncs`` (a list),
+    each frame's synchronizing calls (``counting_syncs``) are appended."""
+    out = []
+    for _ in range(frames):
+        def frame(pos=pos):
+            return char3d.move_and_slide(world, ShapeType.CAPSULE, CHARACTER_PARAMS, pos, quat,
+                                         walk, CHARACTER_DT)
+
+        if syncs is None:
+            pos, vel, normal = frame()
+        else:
+            (pos, vel, normal), where = counting_syncs(frame)
+            syncs.append(where)
+        out.append(torch.stack([pos, vel, normal]))
+    return torch.stack(out)
+
+
+def port_world(device, bodies, max_bodies):
+    """A world of static bodies ``(pos, quat, shape, args)`` on a half-space,
+    built by the port's builder, its AABBs stored."""
+    b = SceneBuilder()
+    b.half_space(b.add_body(body_type=BodyType.STATIC), normal=(0, 1, 0))
+    for pos, quat, shape, args in bodies:
+        getattr(b, shape)(b.add_body(body_type=BodyType.STATIC, pos=pos, quat=quat), *args)
+    world = b.finalize(max_bodies=max_bodies, max_colliders=max_bodies,
+                       max_contacts=4 * max_bodies, device=device)
+    return bp_m.update_aabbs(world, PhysicsConfig())
+
+
+def character_examples(device):
+    """``examples/kinematic_character_3d.py``, ``character_walk.py`` and
+    ``move_and_slide_3d.py``: their worlds, frames and checks, through the
+    port on the card. Returns one line of text."""
+    ident = (0.0, 0.0, 0.0, 1.0)
+    quat = torch.tensor(ident, device=device)
+    s, c = np.sin(np.pi / 28.0), np.cos(np.pi / 28.0)
+    kinematic = port_world(device, [((2.6, 0.28, 0.0), (0.0, 0.0, s, c), "box", (1.6, 0.08, 2.0)),
+                                    ((5.6, 0.52, 0.0), ident, "box", (1.6, 0.08, 2.0)),
+                                    ((7.6, 2.0, 0.0), ident, "box", (0.3, 2.0, 4.0))], 8)
+    p = _frames(kinematic, torch.tensor([0.0, 0.91, 0.0], device=device), quat,
+                torch.tensor([2.0, -1.0, 0.0], device=device), 120)[-1, 0].cpu().numpy()
+    if not (np.isfinite(p).all() and 5.5 < p[0] < 7.05 and p[1] > 1.3):
+        raise AssertionError(f"kinematic_character_3d: ended at {p}")
+    text = [f"kinematic_character_3d at x {p[0]:.2f}, y {p[1]:.2f}"]
+    walk = port_world(device, [((2.5, 0.15, 0.0), ident, "box", (0.8, 0.15, 3.0)),
+                               ((6.0, 1.5, 0.0), ident, "box", (0.3, 3.0, 8.0))], 4)
+    pos = torch.tensor([0.0, 0.91, 0.0], device=device)
+    vel = torch.tensor([2.0, -1.0, 0.0], device=device)
+    for _ in range(90):
+        pos, vel, _ = char3d.move_and_slide(walk, ShapeType.CAPSULE, CHARACTER_PARAMS, pos, quat,
+                                            vel, 1.0 / 30.0)
+        vel = vel.clone()
+        vel[0] = 2.0
+        vel[1] = torch.clamp(vel[1], min=-1.0) - 0.3
+    p = pos.cpu().numpy()
+    if not (np.isfinite(p).all() and 4.0 < p[0] < 5.75 - 0.4 + 0.05 and p[1] > 0.8):
+        raise AssertionError(f"character_walk: ended at {p}")
+    text.append(f"character_walk at x {p[0]:.2f}, y {p[1]:.2f}")
+    s8, c8 = np.sin(np.pi / 8), np.cos(np.pi / 8)
+    angled = port_world(device, [((4.0, 1.5, 0.0), (0.0, s8, 0.0, c8), "box", (0.3, 3.0, 8.0))], 4)
+    p = _frames(angled, torch.tensor([0.0, 0.91, 0.0], device=device), quat,
+                torch.tensor([2.0, -1.0, 0.0], device=device), 90)[-1, 0].cpu().numpy()
+    n = np.asarray([np.cos(np.pi / 4), 0.0, -np.sin(np.pi / 4)])
+    d = float(np.dot(p - np.asarray([4.0, 1.5, 0.0]), n))
+    if not (np.isfinite(p).all() and d < -0.55 and p[0] > 1.5 and abs(p[2]) > 0.8):
+        raise AssertionError(f"move_and_slide_3d: ended at {p}, {d} m from the wall plane")
+    text.append(f"move_and_slide_3d at x {p[0]:.2f}, z {p[2]:.2f}, {d:.2f} m from the wall")
+    return ", ".join(text)
+
+
+def picking_example(device):
+    """``examples/picking_demo.py``'s world and checks on the card."""
+    ident = (0.0, 0.0, 0.0, 1.0)
+    b = SceneBuilder()
+    for x in (-2.0, 0.0, 2.0):
+        b.sphere(b.add_body(body_type=BodyType.STATIC, pos=(x, 0.0, 0.0), quat=ident), 0.5)
+    world = bp_m.update_aabbs(b.finalize(max_bodies=4, max_colliders=4, max_contacts=8,
+                                         device=device), PhysicsConfig(max_colors=4))
+    hits = picking.pick_batch(world, [(-2.0, 5.0, 0.0), (0.0, 5.0, 0.0), (2.0, 5.0, 0.0)],
+                              [(0.0, -1.0, 0.0)] * 3)
+    picked = hits.collider.tolist()
+    mask = torch.tensor([False, True, False, False], device=device)
+    left = picking.pick(world, (-2.0, 5.0, 0.0), (0.0, -1.0, 0.0), pickable=mask)
+    middle = picking.pick(world, (0.0, 5.0, 0.0), (0.0, -1.0, 0.0), pickable=mask)
+    if picked != [0, 1, 2] or bool(left.hit) or not (bool(middle.hit)
+                                                      and int(middle.collider) == 1):
+        raise AssertionError(f"picking_demo: picked {picked}, masked {bool(left.hit)}, "
+                             f"{int(middle.collider)}")
+    return f"picking_demo picked {picked}, its mask respected"
+
+
+def phase_tools3d(device, smi, world):
+    """The 3D contact queries, the character controller and picking on the
+    queries phase's world, as a user calls them: ``time_of_impact``,
+    ``contact`` and ``contact_manifolds`` on ``TOOLS_PAIRS`` pairs in one call
+    each; a capsule driven by ``move_and_slide`` for ``CHARACTER_FRAMES``
+    frames across the heightfield and into the pile (its synchronizing calls
+    counted); the launch counts are those of these calls alone. Then AI
+    against its twin on ``TOOLS_TWIN_PAIRS`` of the pairs (CPU copies, bit for
+    bit), ``contact_manifolds`` against ``compute_manifolds``, every frame
+    above the field, no deeper than the skin in a collider by S's manifold
+    mode across the open field and by AF everywhere (within
+    ``TERRAIN_BELOW_TOL``), S's manifold mode against its twin (CPU copies),
+    the first
+    ``CHARACTER_PLAIN_FRAMES`` frames on a small terrain on the kernels and
+    the plain versions (CPU copies), the character and picking examples, and
+    ``pick_batch`` of ``QUERY_RAYS`` rays and ``pick_2d`` of
+    ``PICK_2D_POINTERS`` pointers against the ray casts they fold the
+    pickable mask into. Returns ({name: measurements}, launch counts)."""
+    col = world.colliders
+    pairs, present = tools_pairs(world, 17)
+    kw = dict(shape_pairs=TERRAIN_PAIRS, convex_verts=world.convex_verts)
+    shapes = pairs[:4] + pairs[5:9]
+    half = (TERRAIN_FIELD - 1) / 2
+    heights = scenes.terrain_heights(TERRAIN_FIELD)
+    x0, z0 = -half + 1.0, 0.3
+    start = torch.tensor([x0, float(scenes.terrain_height_at(heights, [x0], [z0])[0]) + 0.95, z0],
+                         device=device)
+    walk = torch.tensor(CHARACTER_WALK, device=device)
+    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    hit, t = cq.time_of_impact(*pairs, TOOLS_MAX_T, **kw)
+    found, c_pa, c_pb, c_n, pen = cq.contact(*shapes, **kw)
+    man = cq.contact_manifolds(*shapes, **kw)
+    torch.cuda.synchronize()
+    before = kernels.launches()
+    t0 = time.perf_counter()
+    frame_syncs = []
+    frames = _frames(world, start, ident, walk, CHARACTER_FRAMES, frame_syncs)
+    torch.cuda.synchronize()
+    frame_ms = 1e3 * (time.perf_counter() - t0) / CHARACTER_FRAMES
+    syncs = sum(len(x) for x in frame_syncs)
+    sync_sites = sorted(collections.Counter(x for f in frame_syncs for x in f).items())
+    # The port's own host reads a frame, and any others (PyTorch's, once).
+    ours = [sum(x.startswith("avian_tpu_torch") for x in f) for f in frame_syncs]
+    others = [len(f) - n for f, n in zip(frame_syncs, ours)]
+    got = kernels.launches()
+    in_frames = {k: got[k] - before[k] for k in got}
+
+    # The contact queries: AI against its twin, the manifolds against the
+    # narrowphase's.
+    if not (got["toi_pair"] > 0 and got["shape_manifold"] > 0 and got["shape_cast"] > 0):
+        raise AssertionError(f"tools3d: AI, S or its manifold mode did not run: {got}")
+    rng = np.random.default_rng(19)
+    sub = torch.from_numpy(rng.choice(TOOLS_PAIRS, TOOLS_TWIN_PAIRS, replace=False)).to(device)
+    cpu_pairs = [x[sub].cpu() for x in pairs]
+    t1 = time.perf_counter()
+    hit_w, t_w = cq.time_of_impact(*cpu_pairs, TOOLS_MAX_T, shape_pairs=TERRAIN_PAIRS,
+                                   convex_verts=world.convex_verts.cpu())
+    twin_ms_ai = 1e3 * (time.perf_counter() - t1)
+    compare("toi_pair hit", hit[sub].cpu(), hit_w)
+    err_ai = compare("toi_pair t", t[sub].cpu(), t_w)
+    ref, _ = compute_manifolds(
+        torch.cat([pairs[0], pairs[5]]), torch.cat([pairs[3], pairs[8]]),
+        torch.cat([pairs[1], pairs[6]]), torch.cat([pairs[2], pairs[7]]),
+        torch.arange(TOOLS_PAIRS, device=device),
+        torch.arange(TOOLS_PAIRS, device=device) + TOOLS_PAIRS,
+        torch.ones(TOOLS_PAIRS, dtype=torch.bool, device=device), TERRAIN_PAIRS,
+        world.convex_verts)
+    for what in ("normal", "point_a", "point_b", "separation", "feature_id", "count"):
+        compare(f"contact_manifolds {what}", getattr(man, what), getattr(ref, what))
+    order, _, spans = canonical_spans(pairs[0], pairs[5],
+                                      torch.ones(TOOLS_PAIRS, dtype=torch.bool, device=device),
+                                      TERRAIN_PAIRS)
+    order = order.to(torch.int32)
+    max_t = torch.full((TOOLS_PAIRS,), TOOLS_MAX_T, device=device)
+    tabs = kai.ToiTables(pairs[0], pairs[5], pairs[1], pairs[2], pairs[3], pairs[6], pairs[7],
+                         pairs[8], (pairs[4] - pairs[9]).contiguous(), max_t,
+                         world.convex_verts.contiguous())
+    hit_k, t_k = torch.zeros_like(hit), max_t * 1.01
+    rounds = torch.zeros(TOOLS_PAIRS, dtype=torch.int32, device=device)
+
+    def run_ai(rounds=None):
+        for pair, a, b in spans:
+            kai.toi_pair(pair, order[a:b].contiguous(), tabs, hit_k, t_k, rounds=rounds)
+
+    run_ai(rounds)
+    compare("toi_pair against time_of_impact", t_k, t)
+    b_ms, b_by = bound(*toi_work(pairs, world.convex_verts, rounds))
+    out = {"toi_pair": dict(max_abs_err=err_ai, ms=cuda_ms(run_ai), plain_ms=twin_ms_ai,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs=TOOLS_PAIRS,
+                            plain_pairs=TOOLS_TWIN_PAIRS, plain_device="cpu",
+                            mean_rounds=float(rounds.float().mean()))}
+    hit_share = float(hit.float().mean())
+    pairs_text = (f"{TOOLS_PAIRS} pairs of the broadphase buffer ({len(present)} canonical pairs "
+                  f"{present}), closing at 0-{TOOLS_SPEED:.0f} m/s for {TOOLS_MAX_T:.4f} s: "
+                  f"time_of_impact hit {hit_share:.4f} of them in "
+                  f"{float(rounds.float().mean()):.3f} rounds a pair, contact found "
+                  f"{float(found.float().mean()):.4f}; AI equal to its twin on "
+                  f"{TOOLS_TWIN_PAIRS} (CPU copies), contact_manifolds to "
+                  f"compute_manifolds on all")
+
+    # The character: finite, above the field and out of the colliders. S's
+    # manifold mode gives each frame's deepest separation; the geometry (AF's
+    # signed distances of points along the capsule's axis) its true depth.
+    # The two part where the pair function reports a penetration that is not
+    # there (ROADMAP 3b): S's depth is held to the skin across the open
+    # field, the true depth everywhere.
+    skin = char3d.MoveAndSlideConfig().skin_width
+    f_pos = frames[:, 0]
+    if not bool(torch.isfinite(frames).all()):
+        raise AssertionError("tools3d: the character's state is not finite")
+    p_np = f_pos.cpu().numpy().astype(np.float64)
+    ground = float((p_np[:, 1] - 0.9
+                    - scenes.terrain_height_at(heights, p_np[:, 0], p_np[:, 2])).min())
+    plan = shapecast.cast_buckets(world, ShapeType.CAPSULE)
+    prm = torch.tensor(CHARACTER_PARAMS, device=device)
+    zero3, zero = torch.zeros(3, device=device), torch.zeros((), device=device)
+    field = col.active & (col.body_idx == 0)
+    s_depth, near = [], []
+    for p in f_pos:
+        sep, _ = shapecast.manifold_vs_all(plan, ShapeType.CAPSULE,
+                                           shapecast.cast_query(prm, p, ident, zero3, zero, device))
+        s_depth.append(-torch.where(col.active, sep, 1e9).min())
+        near.append((torch.where(col.active & ~field, sep, 1e9) < 2 * skin).any())
+    s_depth, near = torch.stack(s_depth).cpu(), torch.stack(near).cpu()
+    axis = torch.linspace(-CHARACTER_PARAMS[0], CHARACTER_PARAMS[0], CHARACTER_AXIS_POINTS,
+                          device=device)
+    pts = f_pos[:, None, :] + torch.stack([zero.expand_as(axis), axis, zero.expand_as(axis)], 1)
+    dist, _, _ = qpoint.all_point_hits(world, pts.reshape(-1, 3))
+    true_depth = (CHARACTER_PARAMS[1] - torch.where(col.active, dist, 1e9).amin(1)).reshape(
+        CHARACTER_FRAMES, -1).amax(1).cpu()
+    first = int(near.nonzero()[0, 0]) if bool(near.any()) else CHARACTER_FRAMES
+    open_field = float(s_depth[:first].max()) if first else 0.0
+    false_deep = int(((s_depth > skin) & (true_depth <= skin)).sum())
+    if not (ground >= -TERRAIN_BELOW_TOL and first < CHARACTER_FRAMES and open_field <= skin
+            and float(true_depth.max()) <= skin + TERRAIN_BELOW_TOL):
+        raise AssertionError(f"tools3d: the character's lowest point {ground} m from the field "
+                             f"(limit -{TERRAIN_BELOW_TOL}), {open_field} m into a collider "
+                             f"on the open field by S's manifold mode (limit {skin}), "
+                             f"{float(true_depth.max())} m by AF (limit "
+                             f"{skin + TERRAIN_BELOW_TOL}), near a shape from frame {first}")
+    n_buckets = len(plan.buckets)
+    want = dict.fromkeys(in_frames, 0)
+    want.update(shape_cast=4 * n_buckets * CHARACTER_FRAMES, collider_aabbs=CHARACTER_FRAMES,
+                shape_manifold=4 * n_buckets * CHARACTER_FRAMES)
+    if in_frames != want or max(ours) > 1 or sum(others[1:]) or others[0] > 1:
+        raise AssertionError(f"tools3d: the frames launched {in_frames} (expected {want}) and "
+                             f"synchronized {[len(x) for x in frame_syncs]} times a frame, at "
+                             f"{sync_sites}")
+
+    # S's manifold mode against its twin (CPU copies), at the last frame.
+    query = shapecast.cast_query(prm, f_pos[-1], ident, zero3, zero, device)
+    sep_k, n_k = shapecast.manifold_vs_all(plan, ShapeType.CAPSULE, query)
+    cpu_plan = shapecast.CastPlan(tuple(x.cpu() for x in plan.tabs),
+                                  [(pair, cols.cpu()) for pair, cols in plan.buckets],
+                                  plan.swapped.cpu())
+    t1 = time.perf_counter()
+    sep_w, n_w = shapecast.manifold_vs_all(cpu_plan, ShapeType.CAPSULE, query.cpu())
+    twin_ms_m = 1e3 * (time.perf_counter() - t1)
+    err_m = max(compare("shape_manifold separation", sep_k.cpu(), sep_w),
+                compare("shape_manifold normal", n_k.cpu(), n_w))
+    m = col.capacity
+    cols_n = sum(int(cols.shape[0]) for _, cols in plan.buckets)
+    ops = 0
+    for pair, cols in plan.buckets:
+        name = PAIR_KERNELS[pair][1]
+        ops += int(cols.shape[0]) * MANIFOLD_OPS[name]
+        if name in OPS_PER_HULL:
+            ops += int(cols.shape[0]) * OPS_PER_HULL[name] + OPS_PER_HULL_VERTEX[name] * int(
+                col.params[cols.long(), 1].sum())
+    b_ms, b_by = bound(52 * m + nbytes(world.convex_verts) + 16 * cols_n + 80, ops)
+    out["shape_manifold"] = dict(
+        max_abs_err=err_m, ms=cuda_ms(lambda: shapecast.manifold_vs_all(plan, ShapeType.CAPSULE,
+                                                                          query)),
+        plain_ms=twin_ms_m, bound_ms=b_ms, bound_by=b_by, library_ms=None, colliders=cols_n,
+        plain_device="cpu")
+
+    # The first frames on a small terrain, on the kernels and on the plain
+    # versions (CPU copies).
+    small, _ = terrain(device, **CHARACTER_PLAIN)
+    for _ in range(CHARACTER_PLAIN_STEPS):
+        small = physics_step(small, TERRAIN_CONFIG)
+    sh = scenes.terrain_heights(CHARACTER_PLAIN["field"])
+    xs = -(CHARACTER_PLAIN["field"] - 1) / 2 + 1.0
+    s_start = [xs, float(scenes.terrain_height_at(sh, [xs], [z0])[0]) + 0.95, z0]
+    on_card = character_frames(small, torch.tensor(s_start, device=device),
+                               CHARACTER_PLAIN_FRAMES)
+    t1 = time.perf_counter()
+    on_cpu = character_frames(small.to("cpu"), torch.tensor(s_start), CHARACTER_PLAIN_FRAMES)
+    plain_s = time.perf_counter() - t1
+    compare("character frames on the plain versions", on_card.cpu(), on_cpu)
+
+    examples = character_examples(device) + "; " + picking_example(device)
+
+    # Picking: pick_batch against T's argmin with the mask; pick_2d against
+    # the 2D ray cast with it.
+    o, d = query_rays(5)
+    o, d = o.to(device), d.to(device)
+    pickable = torch.from_numpy(rng.random(m) < 0.5).to(device)
+    picks = picking.pick_batch(world, o, d, pickable=pickable)
+    d_n = vec.normalize_or_rn(d, torch.eye(3, device=device)[0])
+    t_all, _ = raycast.all_hits(world, o, d_n, True, QueryFilter(excluded=~pickable))
+    nearest_i = torch.argmin(t_all, 1)
+    t_first = t_all.gather(1, nearest_i[:, None])[:, 0]
+    compare("pick_batch collider", picks.collider,
+            torch.where(t_first < raycast.BIG, nearest_i, -1).to(torch.int32))
+    compare("pick_batch distance", picks.distance,
+            torch.where(t_first < raycast.BIG, t_first, float("inf")))
+    unpickable = int((picks.hit & ~pickable[picks.collider.clamp(min=0).long()]).sum())
+    if unpickable or int(picks.hit.sum()) < QUERY_RAYS // 4:
+        raise AssertionError(f"tools3d: pick_batch picked {unpickable} unpickable colliders, "
+                             f"{int(picks.hit.sum())} in all")
+    w2d, _ = pyramid2d(device)
+    for _ in range(DIM2_KERNEL_STEPS):
+        w2d = physics_step_2d(w2d, DIM2_CONFIG)
+    m2 = w2d.colliders.capacity
+    pickable2 = torch.from_numpy(rng.random(m2) < 0.5).to(device)
+    excluded2 = QueryFilter(excluded=~pickable2)
+    picked_2d = 0
+    for k in range(PICK_2D_POINTERS):
+        o2 = (float(rng.uniform(-DIM2_BASE / 2, DIM2_BASE / 2)), float(rng.uniform(20.0, 120.0)))
+        d2 = (float(rng.uniform(-0.3, 0.3)), -1.0) if k % 4 else (1.0, float(rng.uniform(-0.2, 0)))
+        if k % 4 == 0:
+            o2 = (-DIM2_BASE, float(rng.uniform(0.5, 40.0)))
+        got2 = picking.pick_2d(w2d, o2, d2, pickable=pickable2)
+        want2 = q2d.cast_ray(w2d, o2, d2, 1e30, True, excluded2)
+        for f in ("collider", "body", "distance", "point", "normal", "hit"):
+            compare(f"pick_2d {f}", getattr(got2, f).reshape(-1), getattr(want2, f).reshape(-1))
+        picked_2d += int(got2.hit)
+    if picked_2d < PICK_2D_POINTERS // 4:
+        raise AssertionError(f"tools3d: pick_2d picked {picked_2d} of {PICK_2D_POINTERS}")
+
+    blocked = int((frames[:, 2].abs().sum(1) > 0).sum())
+    say("tools3d", f"terrain {TERRAIN_N} after {TERRAIN_KERNEL_STEPS} steps, {m} colliders: "
+        + pairs_text + f"; the capsule ({CHARACTER_PARAMS}) {CHARACTER_FRAMES} frames at "
+        f"{CHARACTER_WALK} m/s from x {x0}: {frame_ms:.2f} ms a frame, S "
+        f"{in_frames['shape_cast'] / CHARACTER_FRAMES:.0f} and its manifold mode "
+        f"{in_frames['shape_manifold'] / CHARACTER_FRAMES:.0f} launches a frame ({n_buckets} "
+        f"buckets), {syncs} synchronizing calls (host reads) in {CHARACTER_FRAMES} frames, "
+        f"at most {max(ours)} a frame in the port ({sync_sites}); ended "
+        f"at {[round(x, 3) for x in f_pos[-1].tolist()]}, blocked in {blocked} frames, near a "
+        f"shape from frame {first} in {int(near.sum())}; lowest point {ground:.4f} m from the "
+        f"field (limit -{TERRAIN_BELOW_TOL}); deepest into a collider by S's manifold mode "
+        f"{open_field:.5f} m on the open field (limit {skin}) and {float(s_depth.max()):.5f} m in "
+        f"all, deeper than the skin in {int((s_depth > skin).sum())} frames, {false_deep} of "
+        f"them not deeper by AF, whose deepest is {float(true_depth.max()):.5f} m (limit "
+        f"{skin + TERRAIN_BELOW_TOL}); "
+        f"{CHARACTER_PLAIN_FRAMES} frames on terrain_shapes({CHARACTER_PLAIN['n']}, per_row="
+        f"{CHARACTER_PLAIN['per_row']}, field={CHARACTER_PLAIN['field']}) equal to the plain "
+        f"versions' (CPU copies, {plain_s:.1f} s); {examples}; pick_batch of {QUERY_RAYS} rays "
+        f"({int(picks.hit.sum())} picked, half the colliders pickable) equal to T's argmin, "
+        f"pick_2d of {PICK_2D_POINTERS} pointers ({picked_2d} picked) equal to the 2D ray cast; "
+        f"launches of the calls: {dict((k, got[k]) for k in TOOLS_KERNELS + ('shape_cast',))}; "
+        + show("times", out) + f" [{smi}]")
+    return out, got
+
+
 def phase_ccd_plain_path(device):
     """``CCD_PLAIN_N`` bodies and ``CCD_PLAIN_BULLETS`` bullets on the
     terrain: one step on the kernels, then ``CCD_ONE_STEPS`` single steps,
@@ -3898,6 +4379,7 @@ CONTROLLER_GROUND_TOL, CONTROLLER_BOX_TOL, TOL_CONTROLLER = 0.02, 0.01, 1e-5
 CONTROLLER_CONFIG = char2d.MoveAndSlideConfig2D()
 Q2D_KERNELS = ("ray_cast_2d", "point_2d", "shape_cast_2d")
 GRID_KERNELS = ("point_3d", "ray_cast_grid", "aabb_overlap", "shape_overlap")
+TOOLS_KERNELS = ("toi_pair", "shape_manifold")
 
 
 def query2d_inputs(seed, centres):
@@ -4325,6 +4807,8 @@ def main():
     measured_grid, grid_launches = timed("grid queries", phase_grid_queries, device, smi,
                                          query_world)
     measured_by_kernel.update(measured_grid)
+    measured_tools, tools_launches = timed("tools3d", phase_tools3d, device, smi, query_world)
+    measured_by_kernel.update(measured_tools)
     del query_world
     measured_by_kernel.update(timed("dim2 kernels", phase_dim2_kernels, device))
     timed("dim2 golden", phase_dim2_golden, device)
@@ -4355,14 +4839,16 @@ def main():
         # for P, the reference scenes for Q, the mixed shapes for M, N, O,
         # the swept-CCD terrain for R, the queries for S and T, the 2D
         # pyramid for U-Z, the 2D hinged boxes for AA, the 2D swept bullets
-        # for AB, the 2D queries for AC, AD and AE; the hinged boxes for the
+        # for AB, the 2D queries for AC, AD and AE, the 3D tools for AI and S's
+        # manifold mode; the hinged boxes for the
         # others).
         main = {"hull_manifold": terrain_launches, "plane_hull_manifold": scene_launches,
                 "swept_toi": ccd_launches, "shape_cast": query_launches,
                 "ray_cast": query_launches, **dict.fromkeys(DIM2_KERNELS, dim2_launches),
                 "solve_joints_2d": hinges2d_launches, "swept_toi_2d": ccd2d_launches,
                 **dict.fromkeys(Q2D_KERNELS, q2d_launches),
-                **dict.fromkeys(GRID_KERNELS, grid_launches)}.get(
+                **dict.fromkeys(GRID_KERNELS, grid_launches),
+                **dict.fromkeys(TOOLS_KERNELS, tools_launches)}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -4373,6 +4859,7 @@ def main():
                          scene_launches=scene_launches[name],
                          ccd_launches=ccd_launches[name], query_launches=query_launches[name],
                          grid_query_launches=grid_launches[name],
+                         tools3d_launches=tools_launches[name],
                          pyramid2d_launches=dim2_launches[name],
                          hinges2d_launches=hinges2d_launches[name],
                          ccd2d_launches=ccd2d_launches[name],

@@ -141,7 +141,7 @@ def test_entry_points_match_their_declared_signatures():
     assert set(declared) == set(build._SIGNATURES)
     for name, argtypes in build._SIGNATURES.items():
         assert "".join(code[t] for t in argtypes) == declared[name], name
-    assert len(build.sources()) == 35
+    assert len(build.sources()) == 38
 
 
 @pytest.mark.parametrize("fn", ["collider_aabbs", "cell_keys"])
