@@ -20,7 +20,7 @@ import torch
 from avian_tpu_torch.core import types
 from avian_tpu_torch.core.device import resolve
 from avian_tpu_torch.core.state import World
-from avian_tpu_torch.core.types import BodyType, JointType, ShapeType
+from avian_tpu_torch.core.types import CUSTOM_SHAPE_BASE, BodyType, JointType, ShapeType
 from avian_tpu_torch.geometry.convex import MAX_HULL_VERTS
 
 _INF = float("inf")
@@ -176,6 +176,7 @@ class SceneBuilder:
         self._joints = []
         self._convex_verts = []  # np [k, 3] vertex blocks of the pool
         self._convex_verts_len = 0
+        self._custom_shapes = []  # CustomShape instances; code = CUSTOM_SHAPE_BASE + index
         self.gravity = (0.0, -9.81, 0.0)
 
     def add_body(
@@ -249,7 +250,7 @@ class SceneBuilder:
         _hull_cache=None,
         _mass_cache=None,
     ) -> int:
-        if int(shape) not in _SUPPORTED:
+        if int(shape) < CUSTOM_SHAPE_BASE and int(shape) not in _SUPPORTED:
             raise NotImplementedError(
                 f"shape {ShapeType(int(shape)).name} is not ported yet; "
                 f"supported: {', '.join(s.name for s in _SUPPORTED)}"
@@ -477,8 +478,38 @@ class SceneBuilder:
             "decomposer (avian_tpu/native)"
         )
 
-    def custom_collider(self, body, shape=None, params=(), **kw):
-        raise NotImplementedError("custom shapes are not ported yet")
+    def custom_collider(self, body, shape=None, params=(), mass=None, inertia=None,
+                        com=(0.0, 0.0, 0.0), index=None, **kw):
+        """Attach a user-shape collider (``avian_tpu_torch.api.CustomShape``).
+
+        Pass the ``CustomShape`` as ``shape`` (registered by identity;
+        ``finalize`` stores the tuple on ``World.custom_shapes``), or a raw
+        ``index`` into a ``custom_shapes=`` tuple given to ``physics_step``.
+        The stored code is ``CUSTOM_SHAPE_BASE + index``. ``mass`` and
+        ``inertia`` (diag-3 or sym-6 about the shape's COM) are required: the
+        engine cannot derive them from a support function."""
+        if (shape is None) == (index is None):
+            raise ValueError("pass exactly one of shape= (a CustomShape) or index=")
+        if shape is not None:
+            for i, known in enumerate(self._custom_shapes):
+                if known is shape:
+                    index = i
+                    break
+            else:
+                self._custom_shapes.append(shape)
+                index = len(self._custom_shapes) - 1
+        if mass is None or inertia is None:
+            raise ValueError("custom_collider requires explicit mass= and inertia= "
+                             "(the engine cannot integrate a support function)")
+        i = np.asarray(inertia, np.float32).reshape(-1)
+        if i.shape[0] == 3:
+            i6 = np.concatenate([i, np.zeros(3, np.float32)])
+        elif i.shape[0] == 6:
+            i6 = i
+        else:
+            raise ValueError("inertia must be diag-3 or sym-6")
+        kw["_mass_cache"] = (np.float32(mass), i6, np.asarray(com, np.float32))
+        return self.add_collider(body, CUSTOM_SHAPE_BASE + int(index), params, **kw)
 
     def add_joint(
         self,
@@ -710,6 +741,7 @@ class SceneBuilder:
             gravity=torch.tensor(self.gravity, dtype=torch.float32),
             convex_verts=t(pool),
             shape_pairs=self.shape_pairs(),
+            custom_shapes=tuple(self._custom_shapes),
         )
         return world.to(device)
 

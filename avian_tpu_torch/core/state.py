@@ -386,6 +386,8 @@ class World:
     diverged: torch.Tensor      # bool[]
     convex_verts: torch.Tensor  # f32[V, 3] (unused by the port's shapes)
     shape_pairs: tuple | None = None
+    # The user shapes (api/custom_shapes.py) of codes CUSTOM_SHAPE_BASE + i.
+    custom_shapes: tuple = ()
 
     def replace(self, **kw):
         return replace(self, **kw)
@@ -421,11 +423,16 @@ class World:
         )
 
     @staticmethod
-    def from_numpy(tree, device=None) -> "World":
+    def from_numpy(tree, device=None, custom_shapes=()) -> "World":
         """Build from any object with the reference World's attributes whose
-        leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, world)``)."""
-        if getattr(tree, "custom_shapes", ()):
-            raise NotImplementedError("custom shapes are not ported yet")
+        leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, world)``).
+        A tree that carries custom shapes needs the port's own
+        ``CustomShape`` of each, in its order, as ``custom_shapes``."""
+        theirs = tuple(getattr(tree, "custom_shapes", ()) or ())
+        if len(theirs) != len(custom_shapes):
+            raise ValueError(
+                f"the world carries {len(theirs)} custom shapes and {len(custom_shapes)} were "
+                "given: pass the port's CustomShape of each as custom_shapes=")
         device = resolve(device)
         m = np.asarray(tree.colliders.shape_type).shape[-1]
         leaves = {
@@ -442,6 +449,7 @@ class World:
                 None if pairs is None
                 else tuple((int(a), int(b)) for a, b in pairs)
             ),
+            custom_shapes=tuple(custom_shapes),
             **leaves,
         )
 

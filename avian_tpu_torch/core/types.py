@@ -17,6 +17,11 @@ class BodyType(IntEnum):
     KINEMATIC = 2
 
 
+# Shape codes of user shapes (api/custom_shapes.py) start here, above every
+# built-in code: code = CUSTOM_SHAPE_BASE + index into the world's tuple.
+CUSTOM_SHAPE_BASE = 16
+
+
 class ShapeType(IntEnum):
     """Collider shape tags. Params layout (``colliders.params[:, 4]``):
 

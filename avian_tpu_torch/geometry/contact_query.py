@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from avian_tpu_torch.core.device import resolve
+from avian_tpu_torch.core.types import CUSTOM_SHAPE_BASE
 from avian_tpu_torch.geometry.convex import first_argmin
 from avian_tpu_torch.geometry.narrowphase import (PAIR_KERNELS, POOL_KERNELS, Manifold,
                                                   allowed_pairs, canonical_spans,
@@ -51,9 +52,12 @@ def _shapes(type_a, pos_a, quat_a, params_a, type_b, pos_b, quat_b, params_b, de
     """``(batched, (type_a, pos_a, quat_a, params_a, type_b, ...))``: every
     argument as a contiguous tensor with a leading axis [P] on one device,
     params padded to 8 lanes."""
-    if custom_shapes:
-        raise NotImplementedError("custom shapes are not ported yet (ROADMAP queue 1 item 4)")
     args = (type_a, pos_a, quat_a, params_a, type_b, pos_b, quat_b, params_b)
+    if custom_shapes or any(int(torch.as_tensor(t).max()) >= CUSTOM_SHAPE_BASE
+                            for t in (type_a, type_b)):
+        raise NotImplementedError(
+            "the contact queries do not take custom shapes yet (ROADMAP queue 1: the custom "
+            "instances of Kernels S, AG and AI)")
     dev = _device(args, device)
     f32, i32 = torch.float32, torch.int32
     out = [_tensor(x, dt, dev) for x, dt in zip(args, (i32, f32, f32, f32) * 2)]

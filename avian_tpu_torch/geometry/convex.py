@@ -50,7 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from avian_tpu_torch.core.types import ShapeType
+from avian_tpu_torch.core.types import CUSTOM_SHAPE_BASE, ShapeType
 from avian_tpu_torch.kernels.contact_rows import first_argmax
 from avian_tpu_torch.math import quat as quat_m
 from avian_tpu_torch.math import vec
@@ -489,10 +489,16 @@ SHAPES = {
 }
 
 
-def _shape(t, prm, pool):
+def _shape(t, prm, pool, custom=()):
     """(support, patch, the shape argument they take, flat flag bool[K]) of K
     shapes of type ``t`` with params ``prm`` [K, >= 3]; a CONVEX shape reads
-    the pool and may be flat (lane 5 > 0.5)."""
+    the pool and may be flat (lane 5 > 0.5); a custom shape (code
+    ``CUSTOM_SHAPE_BASE + i``) is ``custom[i]``'s torch functions on its 7
+    parameter lanes."""
+    if int(t) >= CUSTOM_SHAPE_BASE:
+        cs = custom[int(t) - CUSTOM_SHAPE_BASE]
+        flat = torch.zeros(prm.shape[0], dtype=torch.bool, device=prm.device)
+        return cs.support, cs.patch_fn(), prm[:, :7], flat
     support, patch = SHAPES[int(t)]
     if int(t) == int(ShapeType.CONVEX):
         if pool is None:
@@ -676,16 +682,17 @@ def _get_patch(patch_fn, prm, pos, quat, d_world):
     return pts_w, quat_m.rotate(quat, nf_l), cnt
 
 
-def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b, pool=None):
+def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b, pool=None, custom=()):
     """Manifolds of K pairs of shape ``type_a`` (A) and ``type_b`` (B), both
     support-mapped (reference ``generic_convex_pair``, and
     ``generic_convex_pair_aux`` with its flat rule where a side is CONVEX).
     ``prm_*`` are the shape parameters [K, 3], or [K, 7] for CONVEX, whose
-    vertices come from ``pool`` f32[V, 3]. Returns (normal f32[K,3], point_a
-    f32[K,4,3], point_b f32[K,4,3], separation f32[K,4], feature_id
+    vertices come from ``pool`` f32[V, 3], and for a custom shape of
+    ``custom`` (the world's ``CustomShape`` tuple). Returns (normal f32[K,3],
+    point_a f32[K,4,3], point_b f32[K,4,3], separation f32[K,4], feature_id
     i32[K,4], count i32[K])."""
-    support_a, patch_a, prm_a, flat_a = _shape(type_a, prm_a, pool)
-    support_b, patch_b, prm_b, flat_b = _shape(type_b, prm_b, pool)
+    support_a, patch_a, prm_a, flat_a = _shape(type_a, prm_a, pool, custom)
+    support_b, patch_b, prm_b, flat_b = _shape(type_b, prm_b, pool, custom)
     k_n = pa.shape[0]
     dev = pa.device
     sa = _world_support(support_a, prm_a, pa, qa)
@@ -843,7 +850,7 @@ def generic_manifold(type_a, type_b, pa, qa, prm_a, pb, qb, prm_b, pool=None):
     )
 
 
-def plane_patch_manifold(type_b, pa, qa, na, pb, qb, prm_b, pool=None):
+def plane_patch_manifold(type_b, pa, qa, na, pb, qb, prm_b, pool=None, custom=()):
     """Manifolds of K pairs of a half-space A (local normal ``na``, the
     first three lanes of its params) and a support-mapped shape B, in that
     canonical order (reference ``_swapped(support_patch_plane_pair(...))``,
@@ -851,7 +858,7 @@ def plane_patch_manifold(type_b, pa, qa, na, pb, qb, prm_b, pool=None):
     normal, its distances to the plane, reduced to 4 spread points. Same
     returns as ``generic_manifold``; the normal points from the plane to the
     shape."""
-    _, patch_b, prm_b, _ = _shape(type_b, prm_b, pool)
+    _, patch_b, prm_b, _ = _shape(type_b, prm_b, pool, custom)
     na = na[:, :3]
     dev = pa.device
     n_plane = quat_m.rotate(qa, na)

@@ -16,7 +16,12 @@ and each bucket that holds pairs gets one launch of its kernel:
   round cuboid, triangle) against a sphere, capsule, box, cylinder, cone,
   segment or another such shape, whose buckets carry all seven parameter
   lanes and the world's vertex pool;
-- Kernel Q (same module): half-space against a pool-backed convex shape.
+- Kernel Q (same module): half-space against a pool-backed convex shape;
+- the custom instances of M, O and P (``kernels/custom_shapes.py``): a user
+  shape (code ``CUSTOM_SHAPE_BASE + i``) against every built-in support
+  shape and every custom shape ``j <= i`` (M), a half-space (O) and a
+  pool-backed convex shape (P), as the reference's ``_custom_entries``
+  (:407-449) routes them, with the custom side at B.
 
 Inputs are swapped into canonical order (type_a <= type_b) first and the
 results swapped back, as the reference does (narrowphase.py:470-534). A
@@ -36,6 +41,7 @@ from avian_tpu_torch.geometry.box_box import _closest_segment_segment
 from avian_tpu_torch.geometry.convex import first_argmin, nrm
 from avian_tpu_torch.kernels import box_manifold as ka
 from avian_tpu_torch.kernels import convex_manifold as km
+from avian_tpu_torch.kernels import custom_shapes as kcs
 from avian_tpu_torch.kernels import hull_manifold as kpq
 from avian_tpu_torch.kernels import round_manifold as kn
 from avian_tpu_torch.math import quat as quat_m
@@ -63,10 +69,34 @@ PAIR_KERNELS = {
     **{pair: (kpq, "hull_manifold", kind) for kind, pair in enumerate(kpq.HULL_PAIRS)},
 }
 # Kernels whose buckets take every parameter lane and the vertex pool.
-POOL_KERNELS = ("hull_manifold", "plane_hull_manifold")
+POOL_KERNELS = ("hull_manifold", "plane_hull_manifold", "custom_convex_manifold",
+                "custom_hull_manifold", "custom_plane_manifold")
 SUPPORTED_PAIRS = tuple(sorted(PAIR_KERNELS))
 _EMPTY_PAIRS = ((int(_S.PLANE), int(_S.PLANE)),)
 _NUM_TYPES = 16
+# The built-in shapes a custom shape meets through Kernel M (the reference's
+# _SHAPE_SUPPORT): sphere, capsule, box, cylinder, cone, segment.
+_SUPPORT_SHAPES = tuple(int(t) for t in (_S.SPHERE, _S.CAPSULE, _S.BOX, _S.CYLINDER, _S.CONE,
+                                         _S.SEGMENT))
+
+
+def pair_kernels(custom_shapes=()):
+    """``PAIR_KERNELS`` plus the custom pairs of ``custom_shapes`` (the
+    reference's ``_custom_entries``): canonical pair -> (module, wrapper,
+    kind), a custom pair's kind being ``(custom_shapes, pair)``."""
+    if not custom_shapes:
+        return PAIR_KERNELS
+    table = dict(PAIR_KERNELS)
+    shapes = tuple(custom_shapes)
+    for i in range(len(shapes)):
+        code = kcs.CUSTOM_SHAPE_BASE + i
+        entries = [(t, "custom_convex_manifold") for t in _SUPPORT_SHAPES]
+        entries += [(int(_S.PLANE), "custom_plane_manifold"),
+                    (int(_S.CONVEX), "custom_hull_manifold")]
+        entries += [(kcs.CUSTOM_SHAPE_BASE + j, "custom_convex_manifold") for j in range(i + 1)]
+        for t, name in entries:
+            table[(t, code)] = (kcs, name, (shapes, (t, code)))
+    return table
 
 
 @dataclass(frozen=True)
@@ -280,10 +310,10 @@ def _select(mask, yes, no):
     )
 
 
-def allowed_pairs(shape_pairs):
+def allowed_pairs(shape_pairs, custom_shapes=()):
     """The canonical pairs the narrowphase may evaluate (``None`` = all)."""
     if shape_pairs is None:
-        return set(SUPPORTED_PAIRS)
+        return set(pair_kernels(custom_shapes))
     return {(int(a), int(b)) for a, b in shape_pairs}
 
 
@@ -305,7 +335,7 @@ class Bucket:
         return getattr(self.module, self.name + ("_twin" if twin else ""))(self.kind, *self.inputs)
 
 
-def canonical_spans(type_a, type_b, valid, shape_pairs=None):
+def canonical_spans(type_a, type_b, valid, shape_pairs=None, custom_shapes=(), codes=None):
     """Bucket items by the canonical shape pair of their two shape codes
     (i64 or i32 [P]): one stable sort of the pair codes and one host read of
     the bucket sizes. Returns ``(order, swap, spans)``: ``order`` i64[P] the
@@ -313,39 +343,58 @@ def canonical_spans(type_a, type_b, valid, shape_pairs=None):
     (per item) whether its codes were swapped into canonical order, and
     ``spans`` one ``(pair, start, end)`` of ``order`` for each canonical pair
     that has items, is in ``shape_pairs`` (``None`` = all) and has a kernel.
-    Raises for a pair the port does not support; half-space pairs and pairs
-    outside ``shape_pairs`` get no span (the empty manifold)."""
+    With ``custom_shapes`` the codes reach ``CUSTOM_SHAPE_BASE +
+    len(custom_shapes)``. Raises for a pair the port does not support, and
+    for a valid item or one of ``codes`` (every collider's shape code) of a
+    custom code past ``custom_shapes``, in the same host read; half-space
+    pairs and pairs outside ``shape_pairs`` get no span (the empty
+    manifold)."""
+    n_types = kcs.CUSTOM_SHAPE_BASE + len(custom_shapes) if custom_shapes else _NUM_TYPES
+    table = pair_kernels(custom_shapes)
     swap = type_a > type_b
     lo = torch.minimum(type_a, type_b).long()
     hi = torch.maximum(type_a, type_b).long()
-    code = torch.where(valid, lo * _NUM_TYPES + hi, _NUM_TYPES * _NUM_TYPES)
+    none, past = n_types * n_types, n_types * n_types + 1
+    code = torch.where(valid, torch.where(hi < n_types, lo * n_types + hi, past), none)
     # A scatter, not ``torch.bincount``, which reads the largest code back to
     # the host before it counts: the one host read is the counts'.
-    counts = torch.zeros((_NUM_TYPES * _NUM_TYPES + 1,), dtype=torch.int64, device=code.device)
-    counts = counts.scatter_add_(0, code, torch.ones_like(code)).tolist()
-    allowed = allowed_pairs(shape_pairs)
+    counts = torch.zeros((past + 1,), dtype=torch.int64, device=code.device)
+    counts = counts.scatter_add_(0, code, torch.ones_like(code))
+    if codes is not None:
+        counts[past] += (codes >= n_types).sum()
+    counts = counts.tolist()
+    if counts[past]:
+        raise ValueError(f"a collider has a custom shape code past the {len(custom_shapes)} "
+                         "custom shapes given (pass each CustomShape to the builder or to "
+                         "physics_step's custom_shapes)")
+    allowed = allowed_pairs(shape_pairs, custom_shapes)
     spans = []
     start = 0
-    for flat, n_items in enumerate(counts[:-1]):
-        pair = divmod(flat, _NUM_TYPES)
-        if n_items and pair not in PAIR_KERNELS and pair not in _EMPTY_PAIRS:
+    for flat, n_items in enumerate(counts[:none]):
+        pair = divmod(flat, n_types)
+        if n_items and pair not in table and pair not in _EMPTY_PAIRS:
             raise NotImplementedError(
-                f"shape pair {ShapeType(pair[0]).name}/{ShapeType(pair[1]).name}"
-                " is not ported yet (pairs of spheres, capsules, boxes, cylinders,"
-                " cones, segments, pool-backed convex shapes and half-spaces are)"
+                f"shape pair {pair} is not ported yet (pairs of spheres, capsules, boxes,"
+                " cylinders, cones, segments, pool-backed convex shapes, half-spaces and"
+                " the world's custom shapes are)"
             )
         end = start + n_items
-        if n_items and pair in allowed and pair in PAIR_KERNELS:
+        if n_items and pair in allowed and pair in table:
             spans.append((pair, start, end))
         start = end
     return torch.argsort(code, stable=True), swap, spans
 
 
-def pair_manifold_twin(pair, pa, qa, prm_a, pb, qb, prm_b, pool=None):
+def pair_manifold_twin(pair, pa, qa, prm_a, pb, qb, prm_b, pool=None, custom_shapes=()):
     """The plain version of canonical pair ``pair``'s kernel on K pairs in
     canonical order; ``prm_*`` [K, >= 7] shape parameters (each kernel takes
-    the lanes it reads), ``pool`` the vertex pool for pool-backed shapes."""
-    module, name, kind = PAIR_KERNELS[pair]
+    the lanes it reads), ``pool`` the vertex pool for pool-backed shapes,
+    ``custom_shapes`` the world's custom shapes."""
+    module, name, kind = pair_kernels(custom_shapes)[pair]
+    if module is kcs:
+        lanes = kcs.PARAM_LANES
+        return kcs.manifold_twin(kind[0], pair, pa, qa, prm_a[:, :lanes], pb, qb,
+                                 prm_b[:, :lanes], pool)
     twin = getattr(module, name + "_twin")
     if name in POOL_KERNELS:
         lanes = kpq.PARAM_LANES
@@ -354,15 +403,16 @@ def pair_manifold_twin(pair, pa, qa, prm_a, pb, qb, prm_b, pool=None):
 
 
 def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
-                     shape_pairs=None, convex_verts=None):
+                     shape_pairs=None, convex_verts=None, custom_shapes=()):
     """Bucket the valid pairs by canonical shape pair (``canonical_spans``)
     and gather every input once; each bucket's inputs are then a contiguous
-    slice. Buckets of Kernels P and Q get the first ``kpq.PARAM_LANES``
-    params and the vertex pool ``convex_verts``, the others the first three
-    params. Raises for a pair the port does not support; skips pairs outside
-    ``shape_pairs`` and half-space pairs."""
+    slice. Buckets of Kernels P and Q and of the custom instances get the
+    first ``kpq.PARAM_LANES`` params and the vertex pool ``convex_verts``,
+    the others the first three params. Raises for a pair the port does not
+    support; skips pairs outside ``shape_pairs`` and half-space pairs."""
+    table = pair_kernels(custom_shapes)
     order, swap, spans = canonical_spans(shape_type[ca.long()], shape_type[cb.long()], valid,
-                                         shape_pairs)
+                                         shape_pairs, custom_shapes, shape_type)
     sw = swap[order]
     c_a = torch.where(sw, cb[order], ca[order]).long()
     c_b = torch.where(sw, ca[order], cb[order]).long()
@@ -370,7 +420,7 @@ def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
     wide = None
     buckets = []
     for pair, start, end in spans:
-        module, name, kind = PAIR_KERNELS[pair]
+        module, name, kind = table[pair]
         inputs = tuple(x[start:end] for x in gathered)
         if name in POOL_KERNELS:
             if convex_verts is None:
@@ -386,9 +436,10 @@ def manifold_buckets(shape_type, params, pos, quat, ca, cb, valid,
 
 
 def compute_manifolds(shape_type, params, pos, quat, ca, cb, valid,
-                      shape_pairs=None, convex_verts=None):
+                      shape_pairs=None, convex_verts=None, custom_shapes=()):
     """Manifolds for every slot of the pair buffer (``convex_verts``: the
-    world's vertex pool, for pool-backed convex shapes).
+    world's vertex pool, for pool-backed convex shapes; ``custom_shapes``:
+    the world's custom shapes).
 
     Slots that hold no pair, and pairs whose canonical shape pair is not in
     ``shape_pairs``, get the empty manifold (the reference's ``_unsupported``
@@ -396,7 +447,7 @@ def compute_manifolds(shape_type, params, pos, quat, ca, cb, valid,
     maps each canonical shape pair launched to its number of pairs."""
     out = empty(ca.shape[0], pos.device)
     buckets = manifold_buckets(shape_type, params, pos, quat, ca, cb, valid, shape_pairs,
-                               convex_verts)
+                               convex_verts, custom_shapes)
     if not buckets:
         return out, {}
     # One scatter of every bucket's manifolds, swapped back where the inputs

@@ -51,7 +51,13 @@
 - ``shape_overlap`` (Kernel S's overlap mode, CUDA): shape intersections;
 - ``shape_manifold`` (Kernel S's manifold mode, CUDA): the query shape's
   manifolds, which the character's depenetration reads;
-- ``toi_pair`` (Kernel AI, CUDA): times of impact of pairs of shapes.
+- ``toi_pair`` (Kernel AI, CUDA): times of impact of pairs of shapes;
+- the kernels of user shapes (``custom_shapes``, CUDA, compiled with the
+  shapes' own device functions by ``custom_build``): ``custom_aabbs``
+  (Kernel E's custom pass), ``custom_convex_manifold``,
+  ``custom_plane_manifold`` and ``custom_hull_manifold`` (the custom
+  instances of Kernels M, O and P), ``ray_support`` (Kernel AJ) and
+  ``custom_point`` (Kernel AF's custom instance).
 
 ``build`` compiles ``csrc/*.cu`` at first use. A kernel may have several
 entry wrappers (one per launch kind); each adds one to its ``launches``
@@ -93,6 +99,7 @@ from avian_tpu_torch.kernels import point_3d as _af
 from avian_tpu_torch.kernels import ray_cast_grid as _ag
 from avian_tpu_torch.kernels import aabb_overlap as _ah
 from avian_tpu_torch.kernels import toi_pair as _ai
+from avian_tpu_torch.kernels import custom_shapes as _cs
 
 WRAPPERS = {
     "box_manifold": (_a.box_manifold,),
@@ -135,6 +142,12 @@ WRAPPERS = {
     "shape_overlap": (_s.shape_overlap,),
     "shape_manifold": (_s.shape_manifold,),
     "toi_pair": (_ai.toi_pair,),
+    "custom_aabbs": (_cs.custom_aabbs,),
+    "custom_convex_manifold": (_cs.custom_convex_manifold,),
+    "custom_plane_manifold": (_cs.custom_plane_manifold,),
+    "custom_hull_manifold": (_cs.custom_hull_manifold,),
+    "ray_support": (_cs.ray_support,),
+    "custom_point": (_cs.custom_point,),
 }
 
 

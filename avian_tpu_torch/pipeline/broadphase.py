@@ -24,6 +24,7 @@ from avian_tpu_torch.core.state import World
 from avian_tpu_torch.geometry import shapes
 from avian_tpu_torch.kernels import collider_aabbs as ke
 from avian_tpu_torch.kernels import compact_pairs as kl
+from avian_tpu_torch.kernels import custom_shapes as kcs
 from avian_tpu_torch.kernels import grid_sweep as kb
 
 MAX_GLOBALS = 16
@@ -54,17 +55,21 @@ class GridEntries:
     dyn: torch.Tensor        # bool[M]
 
 
-def update_aabbs_and_poses(world: World, config: PhysicsConfig):
+def update_aabbs_and_poses(world: World, config: PhysicsConfig, custom_shapes=()):
     """``(world with this step's AABBs, collider pos f32[M,3], quat f32[M,4])``:
     world pose of each collider = body pose o local offset, and its AABB
     expanded for speculative contacts (reference :85, :96). One launch of
-    Kernel E."""
+    Kernel E, then one of its custom pass for each of ``custom_shapes``
+    that has colliders, which writes their AABBs over E's rows."""
     col = world.colliders
-    lo, hi, pos, quat = ke.collider_aabbs(
-        world.bodies, col, config.dt,
-        config.narrow_phase.default_speculative_margin,
-        config.narrow_phase.contact_tolerance * config.length_unit,
-    )
+    args = (config.dt, config.narrow_phase.default_speculative_margin,
+            config.narrow_phase.contact_tolerance * config.length_unit)
+    lo, hi, pos, quat = ke.collider_aabbs(world.bodies, col, *args)
+    if custom_shapes:
+        order, spans = kcs.buckets(col.shape_type, custom_shapes)
+        for code, start, end in spans:
+            kcs.custom_aabbs(custom_shapes, code, order[start:end].contiguous(), world.bodies,
+                             col, pos, quat, *args, lo, hi)
     return world.replace(colliders=col.replace(aabb_min=lo, aabb_max=hi)), pos, quat
 
 
@@ -75,9 +80,9 @@ def collider_poses(world: World):
     return update_aabbs_and_poses(world, PhysicsConfig())[1:]
 
 
-def update_aabbs(world: World, config: PhysicsConfig) -> World:
+def update_aabbs(world: World, config: PhysicsConfig, custom_shapes=()) -> World:
     """World AABBs, expanded for speculative contacts (reference :96)."""
-    return update_aabbs_and_poses(world, config)[0]
+    return update_aabbs_and_poses(world, config, custom_shapes)[0]
 
 
 def sweep_window(config: PhysicsConfig, m: int) -> int:

@@ -26,7 +26,7 @@ import torch
 
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.state import World
-from avian_tpu_torch.core.types import ShapeType
+from avian_tpu_torch.core.types import CUSTOM_SHAPE_BASE, ShapeType
 from avian_tpu_torch.geometry.narrowphase import canonical_spans
 from avian_tpu_torch.kernels import swept_toi as kr
 from avian_tpu_torch.math import quat as quat_m
@@ -95,7 +95,11 @@ def swept_grid(world: World, s: SolverState, pos0, quat0, config: PhysicsConfig)
         rows = col.shape_type[swept[:k_ok].long()]
         ta = rows[:, None].expand(k_ok, m).reshape(-1)
         tb = col.shape_type[None, :].expand(k_ok, m).reshape(-1)
-        valid = torch.ones_like(ta, dtype=torch.bool)
+        # The reference's sweep asks its narrowphase without the custom
+        # shapes, so a custom collider's pairs get no manifold there and never
+        # rewind a body (api/custom_shapes.py: swept CCD does not see custom
+        # shapes); here they get no bucket.
+        valid = (ta < CUSTOM_SHAPE_BASE) & (tb < CUSTOM_SHAPE_BASE)
         order, _, spans = canonical_spans(ta, tb, valid, pairs)
         order = order.to(torch.int32)
         buckets = [(pair, order[start:end].contiguous()) for pair, start, end in spans]

@@ -31,11 +31,13 @@ def row_params(config: PhysicsConfig) -> kf.RowParams:
     )
 
 
-def narrow_phase(world: World, bp: BroadPhaseResult, config: PhysicsConfig, poses):
+def narrow_phase(world: World, bp: BroadPhaseResult, config: PhysicsConfig, poses,
+                 custom_shapes=()):
     """Build this step's Contacts from broadphase pairs + the old buffer.
 
     ``poses`` is the colliders' world ``(pos, quat)`` from
-    ``update_aabbs_and_poses``. Returns
+    ``update_aabbs_and_poses``; ``custom_shapes`` the step's custom shapes
+    (their pairs are one more bucket each). Returns
     ``(contacts, bucket_sizes)``; ``bucket_sizes`` maps each canonical shape
     pair launched to its number of pairs."""
     old = world.contacts
@@ -48,6 +50,7 @@ def narrow_phase(world: World, bp: BroadPhaseResult, config: PhysicsConfig, pose
     man, sizes = compute_manifolds(
         col.shape_type, col.params, pos, quat,
         bp.collider_a.long(), bp.collider_b.long(), bp.valid, pairs, world.convex_verts,
+        custom_shapes,
     )
 
     # ---- pair persistence: one stable sort of [old keys ++ new keys] ----

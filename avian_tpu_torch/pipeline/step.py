@@ -8,20 +8,22 @@ damping] -> restitution -> store impulses and joint forces -> writeback and
 force clear -> sleeping -> NaN quarantine.
 
 The slices cover worlds of spheres, capsules, boxes, cylinders, cones,
-segments, half-spaces and pool-backed convex shapes (convex hulls, round
-cuboids, and the triangles of trimeshes and heightfields), with joints of
-all five types, and the opt-in swept CCD pass (``config.swept_ccd``,
-``pipeline/ccd.py``) after the substeps. The step raises
-``NotImplementedError`` for ``hooks``, ``custom_joints`` or
-``custom_shapes``, and
-the narrowphase raises for any other shape code (TRIANGLE, TRIMESH and
-HEIGHTFIELD written into a world directly); nothing is skipped silently.
+segments, half-spaces, pool-backed convex shapes (convex hulls, round
+cuboids, and the triangles of trimeshes and heightfields) and user shapes
+(``api/custom_shapes.py``), with joints of all five types, user constraints
+(``custom_joints``, ``api/custom.py``), collision hooks (``filter_pairs``
+after the broadphase, ``modify_contacts`` after the narrowphase), and the
+opt-in swept CCD pass (``config.swept_ccd``, ``pipeline/ccd.py``) after the
+substeps. The narrowphase raises for any other shape code (TRIANGLE,
+TRIMESH and HEIGHTFIELD written into a world directly); nothing is skipped
+silently.
 """
 
 from dataclasses import dataclass
 
 import torch
 
+from avian_tpu_torch.api.custom_shapes import resolve as resolve_shapes
 from avian_tpu_torch.core import types
 from avian_tpu_torch.core.config import PhysicsConfig
 from avian_tpu_torch.core.state import Contacts, World
@@ -49,48 +51,59 @@ class Prepared:
     dropped: torch.Tensor
     manifold_pairs: dict               # canonical shape pair -> pairs launched on
     poses: tuple                       # collider (pos f32[M,3], quat f32[M,4]) at step start
+    custom_joints: object = None       # the user constraint, if any
+    cdata: object = None               # its data from ``prepare``
 
 
-def _check_supported(world, config, hooks, custom_joints, custom_shapes):
-    if hooks is not None:
-        raise NotImplementedError("collision hooks are not ported yet")
-    if custom_joints is not None:
-        raise NotImplementedError("custom joints are not ported yet")
-    if custom_shapes:
-        raise NotImplementedError("custom shapes are not ported yet")
+def _filtered(bp: bp_m.BroadPhaseResult, valid) -> bp_m.BroadPhaseResult:
+    """The pairs with ``hooks.filter_pairs``'s mask (reference :92-103): an
+    invalid slot's key becomes -1 and the pairs are counted again."""
+    return bp_m.BroadPhaseResult(
+        collider_a=bp.collider_a, collider_b=bp.collider_b,
+        pair_key=torch.where(valid, bp.pair_key, -1), valid=valid,
+        num_pairs=valid.sum().to(torch.int32), dropped=bp.dropped,
+    )
 
 
-def prepare_step(world: World, config: PhysicsConfig) -> Prepared:
-    """Collision detection and the per-step preparation of the solver."""
+def prepare_step(world: World, config: PhysicsConfig, hooks=None, custom_joints=None,
+                 custom_shapes=()) -> Prepared:
+    """Collision detection and the per-step preparation of the solver, with
+    the hooks, the user constraint's ``prepare`` and the custom shapes of
+    ``physics_step``."""
     h = config.substep_dt
-    world2, pos, quat = bp_m.update_aabbs_and_poses(world, config)
+    world2, pos, quat = bp_m.update_aabbs_and_poses(world, config, custom_shapes)
     bp = bp_m.broad_phase(world2, config)
-    contacts, sizes = np_m.narrow_phase(world2, bp, config, poses=(pos, quat))
+    if hooks is not None and hasattr(hooks, "filter_pairs"):
+        bp = _filtered(bp, hooks.filter_pairs(world2, bp.collider_a, bp.collider_b, bp.valid))
+    contacts, sizes = np_m.narrow_phase(world2, bp, config, (pos, quat), custom_shapes)
+    if hooks is not None and hasattr(hooks, "modify_contacts"):
+        contacts = hooks.modify_contacts(world2, contacts)
     s, table = sb_m.prepare_with_table(world2.bodies, world2.gravity, h)
     con = sol_m.prepare_constraints(world2, contacts, s, config)
     jcon = (xpbd_m.prepare_joints(world2, s, config)
             if world2.joints.capacity > 0 else None)
+    cdata = custom_joints.prepare(world2, s, config) if custom_joints is not None else None
     return Prepared(world2, contacts, s, table, con, jcon, bp.num_pairs, bp.dropped, sizes,
-                    (pos, quat))
+                    (pos, quat), custom_joints, cdata)
 
 
 def run_substeps(p: Prepared, config: PhysicsConfig):
     """The substep loop on a prepared step: ``(solver state, constraints)``."""
     h = config.substep_dt
-    s, con = p.s, p.con
+    s, con, cdata = p.s, p.con, p.cdata
     for _ in range(config.substeps):
         s = int_m.integrate_velocities(s, p.table, h)
         s = sol_m.warm_start(s, con, config)
         s, con = sol_m.solve_pass(s, con, True, config)
         s = int_m.integrate_positions(s, p.table, h)
         s, con = sol_m.solve_pass(s, con, False, config)
-        if p.jcon is not None:
-            s = xpbd_m.solve_position_constraints(s, p.jcon, h, config)
+        if p.jcon is not None or p.custom_joints is not None:
+            s, cdata = xpbd_m.solve_with_custom(s, p.jcon, h, config, p.custom_joints, cdata)
     return s, con
 
 
-def _core(world: World, config: PhysicsConfig):
-    p = prepare_step(world, config)
+def _core(world: World, config: PhysicsConfig, hooks, custom_joints, custom_shapes):
+    p = prepare_step(world, config, hooks, custom_joints, custom_shapes)
     s, con = run_substeps(p, config)
     swept, n_swept = {}, 0
     if config.swept_ccd:
@@ -165,8 +178,13 @@ def needs_step(world: World) -> torch.Tensor:
 
 def physics_step(world: World, config: PhysicsConfig, return_diagnostics=False,
                  hooks=None, custom_joints=None, custom_shapes=()):
-    """Advance the world by ``config.dt`` seconds."""
-    _check_supported(world, config, hooks, custom_joints, custom_shapes)
+    """Advance the world by ``config.dt`` seconds. ``hooks`` (an object with
+    ``filter_pairs(world, collider_a, collider_b, valid) -> valid`` and or
+    ``modify_contacts(world, contacts) -> contacts``), ``custom_joints``
+    (``api/custom.py``) and ``custom_shapes`` (a tuple of ``CustomShape``,
+    which takes precedence over ``world.custom_shapes``) are used as the
+    reference uses them."""
+    custom_shapes = resolve_shapes(world, custom_shapes)
     # The early-out is a host-side branch on one device-to-host read; the
     # rest of the step reads counts to the host as well (compaction and
     # pair buckets), so this costs no extra synchronisation in kind.
@@ -185,7 +203,7 @@ def physics_step(world: World, config: PhysicsConfig, return_diagnostics=False,
         stepped = False
     else:
         new_world, stats = _core(wake_pushed(world) if config.sleeping_enabled else world,
-                                 config)
+                                 config, hooks, custom_joints, custom_shapes)
         stepped = True
 
     nonfinite = torch.zeros((), dtype=torch.int32, device=world.device)

@@ -101,17 +101,37 @@ def solve_position_constraints(s: SolverState, jc: JointConstraints, h: float,
     """One substep of the joint solve: every colour in order, then the
     velocity projection from the delta pose's change and joint damping
     (reference :229). Updates ``s.state`` and ``jc.lam`` in place."""
-    if jc.data.shape[0] == 0:
-        return s
-    state = s.state
-    pre = state[:, 6:13].clone()
-    last = config.max_colors - 1
-    for c in range(config.max_colors):
-        ki.joint_color(c, c == last, state, jc.data, jc.lam, jc.jtype, jc.body_a, jc.body_b,
-                       jc.color, jc.mask, jc.ovf_order, jc.ovf_key, h * h)
-    ki.joint_velocities(state, pre, jc.data, jc.body_a, jc.body_b, jc.mask, jc.damp_order,
-                        jc.damp_key, h)
-    return s
+    return solve_with_custom(s, jc, h, config)[0]
+
+
+def solve_with_custom(s: SolverState, jc, h: float, config: PhysicsConfig, custom=None,
+                      custom_data=None):
+    """``solve_position_constraints`` with a user constraint (reference :229,
+    ``custom``/``custom_data``): Kernel I's colours, then ``custom.solve(s,
+    custom_data, h)``, then Kernel I's velocity projection, so that the
+    projection sees the custom deltas. ``jc`` is None for a world without
+    joint slots; with a custom constraint the projection still runs. Returns
+    ``(s, custom_data)``."""
+    has_rows = jc is not None and jc.data.shape[0] > 0
+    if not has_rows and custom is None:
+        return s, custom_data
+    pre = s.state[:, 6:13].clone()
+    if has_rows:
+        last = config.max_colors - 1
+        for c in range(config.max_colors):
+            ki.joint_color(c, c == last, s.state, jc.data, jc.lam, jc.jtype, jc.body_a,
+                           jc.body_b, jc.color, jc.mask, jc.ovf_order, jc.ovf_key, h * h)
+    if custom is not None:
+        s, custom_data = custom.solve(s, custom_data, h)
+    if has_rows:
+        rows = (jc.data, jc.body_a, jc.body_b, jc.mask, jc.damp_order, jc.damp_key)
+    else:
+        dev = s.state.device
+        i32 = torch.zeros((0,), dtype=torch.int32, device=dev)
+        rows = (torch.zeros((0, ki.JD), dtype=torch.float32, device=dev), i32, i32,
+                torch.zeros((0,), dtype=torch.float32, device=dev), i32, i32)
+    ki.joint_velocities(s.state, pre, *rows, h)
+    return s, custom_data
 
 
 def store_joint_forces(joints: Joints, jc: JointConstraints, config: PhysicsConfig) -> Joints:

@@ -30,6 +30,7 @@ from avian_tpu_torch.math import quat as quat_m
 from avian_tpu_torch.math import vec
 from avian_tpu_torch.pipeline.broadphase import MAX_GLOBALS, collider_poses, sweep_cell
 from avian_tpu_torch.queries.filter import QueryFilter, collider_query_mask
+from avian_tpu_torch.api.custom_shapes import refuse
 from avian_tpu_torch.queries.raycast import RayHit, ray_kinds
 from avian_tpu_torch.queries.shapecast import ShapeHit, cast_shape
 
@@ -53,6 +54,7 @@ def build_query_grid(world) -> QueryGrid:
     size 1.001 x the largest in-grid extent, up to 8 cells an AABB, the
     entries sorted by key (stable), and the global colliders lowest index
     first, at most ``MAX_GLOBALS``."""
+    refuse(world, "the query grid (Kernel AG)")
     col = world.colliders
     m = col.capacity
     cell, in_grid, is_global = sweep_cell(col)
@@ -91,6 +93,7 @@ def cast_ray_grid(world, grid: QueryGrid, origin, direction, max_distance, solid
     ``solid`` one for all or one a ray), in one launch of Kernel AG. Matches
     ``cast_ray`` for hits within ``max_cells * cell`` of travel whose cells'
     runs fit ``cell_window``; the first visited cell wins ties."""
+    refuse(world, "cast_ray_grid (Kernel AG)")
     qfilter = qfilter if qfilter is not None else QueryFilter()
     dev = world.device
     col = world.colliders
@@ -205,6 +208,7 @@ def update_ray_casters(world, casters: RayCasters, grid: QueryGrid = None,
     ``solid`` flag; ``kw`` are ``cast_ray_grid``'s ``max_cells`` and
     ``cell_window``. A ``RayHit`` with a leading K axis; a disabled caster
     reports collider -1, distance ``inf`` and zero point and normal."""
+    refuse(world, "update_ray_casters (Kernel AG)")
     if grid is None:
         grid = build_query_grid(world)
     o, d = _attached(world, casters.body, casters.origin, casters.direction)
@@ -222,6 +226,7 @@ def update_shape_casters(world, casters: ShapeCasters, qfilter: QueryFilter = No
     slot, as the reference loops over its slots, disabled ones included. One
     host read of the shape types and of the casters' world poses; a
     ``ShapeHit`` with a leading K axis."""
+    refuse(world, "update_shape_casters (Kernel S)")
     o, d, rot = _attached(world, casters.body, casters.origin, casters.direction,
                           casters.rotation)
     host = torch.cat([casters.shape_type[:, None].to(torch.float32), casters.params, o, rot, d,

@@ -7,32 +7,36 @@ bucketed by shape type with one sort and one host read, and each bucket is
 one launch of Kernel AF (``kernels/point_3d.py``) for all the points. A point
 inside a pool-backed convex shape's inner hull is found by an exact test and
 reports distance ``-radius`` and itself as the closest point, where the
-reference's Frank-Wolfe map reports it outside (ROADMAP 3b).
+reference's Frank-Wolfe map reports it outside (ROADMAP 3b). The colliders of each of the world's custom
+shapes are one launch of Kernel AF's custom instance
+(``kernels/custom_shapes.py::custom_point``).
 """
 
 import torch
 
 from avian_tpu_torch.core.types import ShapeType
+from avian_tpu_torch.kernels import custom_shapes as kcs
 from avian_tpu_torch.kernels import point_3d as kaf
 from avian_tpu_torch.pipeline.broadphase import collider_poses
 from avian_tpu_torch.queries.filter import QueryFilter, collider_query_mask
 
 BIG = kaf.BIG
+CUSTOM = kaf.CONVEX + 1  # the kind of a custom collider: no bucket of the built-in AF
 
 
 def point_kinds(world) -> torch.Tensor:
     """i64[M]: each collider's Kernel AF instance: its shape type, ``MISS``
     for triangles and for CONVEX shapes in a world without a vertex pool (the
-    reference's default branch there). Raises for the TRIMESH and
-    HEIGHTFIELD codes, which the builder never writes."""
-    st = world.colliders.shape_type.long()
-    if bool((st > int(ShapeType.CONVEX)).any()):
-        raise NotImplementedError("point queries against raw TRIMESH/HEIGHTFIELD codes are not "
-                                  "ported (the builder makes CONVEX triangles)")
+    reference's default branch there), ``CUSTOM`` for a custom shape's
+    collider, which AF's custom instance takes. Raises for the TRIMESH and
+    HEIGHTFIELD codes, which the builder never writes, and for a custom code
+    that names none of the world's custom shapes."""
+    st, custom = kcs.custom_codes(world.colliders.shape_type, len(world.custom_shapes),
+                                  "point queries")
     miss = st == int(ShapeType.TRIANGLE)
     if world.convex_verts.shape[0] <= 1:
         miss = miss | (st == int(ShapeType.CONVEX))
-    return torch.where(miss, kaf.MISS, st)
+    return torch.where(custom, CUSTOM, torch.where(miss, kaf.MISS, st))
 
 
 def all_point_hits(world, points, work=None):
@@ -45,7 +49,7 @@ def all_point_hits(world, points, work=None):
     m = col.capacity
     pos, quat = collider_poses(world)
     kinds = point_kinds(world)
-    counts = torch.bincount(kinds, minlength=kaf.CONVEX + 1).tolist()
+    counts = torch.bincount(kinds, minlength=CUSTOM + 1).tolist()[:CUSTOM]
     order = torch.argsort(kinds, stable=True).to(torch.int32)
     pts = torch.as_tensor(points, dtype=torch.float32).to(dev).reshape(-1, 3).contiguous()
     p_n = pts.shape[0]
@@ -60,6 +64,12 @@ def all_point_hits(world, points, work=None):
             kaf.point_3d(kind, order[start:start + count].contiguous(), pts, *args, dist, closest,
                          inside, work)
         start += count
+    shapes = tuple(world.custom_shapes)
+    if shapes:
+        corder, spans = kcs.buckets(col.shape_type, shapes)
+        for code, a, b in spans:
+            kcs.custom_point(shapes, code, corder[a:b].contiguous(), pts, *args[:3], dist,
+                             closest, inside)
     return dist, closest, inside
 
 

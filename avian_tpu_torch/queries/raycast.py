@@ -6,7 +6,10 @@ semantics (a ray that starts inside a solid shape hits at 0 with normal
 
 The colliders are bucketed by shape type with one sort and one host read,
 and each bucket is one launch of Kernel T (``kernels/ray_cast.py``) for all
-the rays at once; ``cast_ray`` and ``ray_hits`` cast one.
+the rays at once; the colliders of each of the world's custom shapes are one
+launch of Kernel AJ (``kernels/custom_shapes.py::ray_support``), whose hits
+``first_hits``' argmin and ``ray_hits``' top-k take with T's. ``cast_ray``
+and ``ray_hits`` cast one.
 """
 
 from dataclasses import dataclass, fields
@@ -14,6 +17,7 @@ from dataclasses import dataclass, fields
 import torch
 
 from avian_tpu_torch.core.types import ShapeType
+from avian_tpu_torch.kernels import custom_shapes as kcs
 from avian_tpu_torch.kernels import ray_cast as kt
 from avian_tpu_torch.math import vec
 from avian_tpu_torch.pipeline.broadphase import collider_poses
@@ -21,6 +25,7 @@ from avian_tpu_torch.queries.filter import QueryFilter, collider_query_mask
 from avian_tpu_torch.queries.shapecast import nearest
 
 BIG = kt.BIG
+CUSTOM = kt.CONVEX + 1  # the kind of a custom collider: Kernel AJ's, no T bucket
 
 
 @dataclass(frozen=True)
@@ -39,16 +44,16 @@ class RayHit:
 def ray_kinds(world) -> torch.Tensor:
     """i64[M]: each collider's Kernel T instance: its shape type, ``MISS`` for
     segments and triangles (and for CONVEX shapes in a world without a
-    vertex pool, as the reference lowers no convex branch there). Raises for
-    the TRIMESH and HEIGHTFIELD codes, which the builder never writes."""
-    st = world.colliders.shape_type.long()
-    if bool((st > int(ShapeType.CONVEX)).any()):
-        raise NotImplementedError("ray casts against raw TRIMESH/HEIGHTFIELD codes are not "
-                                  "ported (the builder makes CONVEX triangles)")
+    vertex pool, as the reference lowers no convex branch there), ``CUSTOM``
+    for a custom shape's collider, which T never takes. Raises for the
+    TRIMESH and HEIGHTFIELD codes, which the builder never writes, and for a
+    custom code that names none of the world's custom shapes."""
+    st, custom = kcs.custom_codes(world.colliders.shape_type, len(world.custom_shapes),
+                                  "ray casts")
     miss = (st == int(ShapeType.SEGMENT)) | (st == int(ShapeType.TRIANGLE))
     if world.convex_verts.shape[0] <= 1:
         miss = miss | (st == int(ShapeType.CONVEX))
-    return torch.where(miss, kt.MISS, st)
+    return torch.where(custom, CUSTOM, torch.where(miss, kt.MISS, st))
 
 
 def all_hits(world, origins, directions, solid, qfilter: QueryFilter):
@@ -61,7 +66,7 @@ def all_hits(world, origins, directions, solid, qfilter: QueryFilter):
     pos, quat = collider_poses(world)
     ok = collider_query_mask(col, qfilter)
     kinds = ray_kinds(world)
-    counts = torch.bincount(kinds, minlength=kt.CONVEX + 1).tolist()
+    counts = torch.bincount(kinds, minlength=CUSTOM + 1).tolist()[:CUSTOM]
     order = torch.argsort(kinds, stable=True).to(torch.int32)
     rays = torch.cat([origins, directions], 1).to(device=dev, dtype=torch.float32).contiguous()
     t = torch.empty((r_n, m), dtype=torch.float32, device=dev)
@@ -73,6 +78,11 @@ def all_hits(world, origins, directions, solid, qfilter: QueryFilter):
         if count:
             kt.ray_cast(kind, order[start:start + count].contiguous(), rays, solid, *args, t, n)
         start += count
+    shapes = tuple(world.custom_shapes)
+    if shapes:
+        corder, spans = kcs.buckets(col.shape_type, shapes)
+        for code, a, b in spans:
+            kcs.ray_support(shapes, code, corder[a:b].contiguous(), rays, solid, *args[:3], t, n)
     return torch.where(ok[None, :], t, BIG), n
 
 

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from avian_tpu_torch.api.custom_shapes import refuse
 from avian_tpu_torch.geometry.narrowphase import canonical_spans
 from avian_tpu_torch.kernels import shape_cast as ks
 from avian_tpu_torch.math import vec
@@ -73,6 +74,7 @@ def cast_buckets(world, shape_type, shape_pairs=None) -> CastPlan:
     buckets by the canonical pair of (query shape, collider shape): one sort
     and one host read. A caller that casts many times into one world (the
     character controller) buckets once."""
+    refuse(world, "a shape cast, overlap or character query (Kernel S)")
     st = int(shape_type)
     col = world.colliders
     pos, quat = collider_poses(world)

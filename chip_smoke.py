@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``avian_tpu_torch/csrc``, holds each of
+Builds the hand-written kernels from ``avian_tpu_torch/csrc`` (and, beside
+them, the generated unit of the extensions phase's custom shape), holds each of
 the 35 kernels (A-Z, AA-AI) and S's overlap and manifold modes against its
 plain PyTorch twin at the main paths' shapes (the 10,000-cube pile after 60 steps; the
 base-100 box pyramid after 2 steps, when most of its constraints sit in the
@@ -34,7 +35,14 @@ character and picks on that terrain (``time_of_impact``, Kernel AI, and
 above the field and out of the colliders, one host read a frame; AI and the
 manifold mode held to their twins, the first frames on a small terrain to
 the plain versions; the character and picking examples; ``pick_batch`` and
-``pick_2d`` held to the ray casts), steps the pyramid, the hinged
+``pick_2d`` held to the ray casts), drives the 3D extension points (phase
+``extensions``: the terrain with every fourth body the example's ellipsoid,
+60 steps, every custom bucket launched, Kernel E's custom pass, the custom
+instances of M, O, P and AF and Kernel AJ held to their plain versions, 1,024
+rays, their picks and 1,024 points; the custom-collider examples with their
+checks; collision hooks on the 10,000-cube pile, the one-way platform and the
+conveyor belt; 1,024 custom pendulums with no joint slots and the custom
+constraint example), steps the pyramid, the hinged
 boxes, 2,000 mixed shapes, a 2,000-body terrain and a 2,000-body
 ``terrain_ccd`` once more with every kernel replaced by its plain version
 and holds the kernels' trajectories to those, and checks that two runs are
@@ -82,7 +90,7 @@ import torch
 from avian_tpu_torch import kernels, scenes
 from avian_tpu_torch.core.builder import SceneBuilder
 from avian_tpu_torch.core.config import PhysicsConfig
-from avian_tpu_torch.core.types import BodyType, ShapeType
+from avian_tpu_torch.core.types import CUSTOM_SHAPE_BASE, BodyType, ShapeType
 from avian_tpu_torch.kernels import body_pass as kk
 from avian_tpu_torch.kernels import box_manifold as ka
 from avian_tpu_torch.kernels import build
@@ -157,11 +165,14 @@ from avian_tpu_torch import contact_query as cq
 from avian_tpu_torch import picking
 from avian_tpu_torch.geometry.narrowphase import canonical_spans
 from avian_tpu_torch.kernels import toi_pair as kai
+from avian_tpu_torch.kernels import custom_build
+from avian_tpu_torch.kernels import custom_shapes as kcs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
 import random_pairs_2d  # noqa: E402  (Kernel V's seeded random pairs)
 import shared_2d  # noqa: E402  (the 2D joint examples, AA's and AB's checks)
+import shared_ext  # noqa: E402  (the ellipsoid, the extension points' worlds and user code)
 
 N_CUBES = 10_000
 CONTACTS_PER_CUBE = 16
@@ -572,13 +583,28 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernel library and, beside it (its ``nvcc`` runs started
+    together with the library's), the generated unit of the extensions
+    phase's custom shape."""
+    import threading
+
     t0 = time.perf_counter()
+    custom = {}
+    thread = threading.Thread(target=lambda: custom.update(
+        lib=custom_build.library((shared_ext.ELLIPSOID,))))
+    thread.start()
     build.library()
+    main_s = time.perf_counter() - t0
+    thread.join()
+    if "lib" not in custom:
+        raise AssertionError("build: the custom shape's unit did not build")
     seconds = time.perf_counter() - t0
     log = build.lib_path().with_suffix(".log")
     regs = [ln.split(":", 1)[1].strip() for ln in log.read_text().splitlines()
             if "registers" in ln] if log.exists() else []
-    say("build", f"{seconds:.1f} s, {build.lib_path().name}; ptxas: {' | '.join(regs)}")
+    say("build", f"{seconds:.1f} s ({main_s:.1f} s the library, {custom['lib'].build_s:.1f} s "
+        f"the custom unit beside it), {build.lib_path().name}, {custom['lib'].path.name}; "
+        f"ptxas: {' | '.join(regs)}")
 
 
 def solve_all_modes(p, config):
@@ -4777,6 +4803,488 @@ def phase_dim2_showcase(device):
         f"{cp[1]:.3f})")
 
 
+# ---- the 3D extension points: user shapes, hooks, custom joints ----------------------
+
+EXT_SEMI = (0.5, 0.25, 0.5)  # examples/custom_collider.py's ellipsoid
+CUSTOM_CODE = CUSTOM_SHAPE_BASE  # the ellipsoid, the first custom shape
+CUSTOM_PAIRS = tuple((t, CUSTOM_CODE) for t in (0, 1, 2, 4, 5, 8, CUSTOM_CODE))
+EXT_CONFIG = PhysicsConfig(substeps=4, shape_pairs=TERRAIN_PAIRS + CUSTOM_PAIRS,
+                           sap_window=TERRAIN_WINDOW)
+EXT_STEPS, EXT_KERNEL_STEPS = 60, 40
+EXT_CENTRES = 256         # of the 1,024 points, at ellipsoid centres
+EXT_PLAIN_ROWS = 64       # rays and points the plain versions take
+EXT_PLAIN_PAIRS = 2048    # pairs of each custom bucket the plain versions take
+EXT_RANDOM_PLANE = 4096   # seeded ellipsoid/half-space poses for O's custom instance
+HOOK_STEPS, HOOK_BELT_SPEED, HOOK_EVERY = 180, 2.0, 10
+# The hooked pile's gate, from the JAX reference's own reading of the same
+# pile cut to 2,000 cubes (tests/torch_cases/hook_pile_reference.py, seeds
+# 0-2, on the CPU): at step 180 up to 6.7 % of its cubes on the ground move
+# along +x at 0.5 m/s or less (cubes of the collapsing upper layers land by
+# the pile's edges and knock them outward, the slowest at -6.07 m/s), and the
+# median is 2 m/s within 3e-4. The gate: at most HOOK_SLOW_SHARE of the cubes
+# on the ground at 0.5 m/s or less, the median within HOOK_MEDIAN_TOL.
+HOOK_SLOW_SHARE, HOOK_MEDIAN_TOL = 0.067, 0.01
+PENDULUMS, PENDULUM_STEPS, PENDULUM_REST, PENDULUM_TOL = 1024, 120, 2.5, 0.05
+# Operations of one support call of the ellipsoid (9 multiplies, a 3-term
+# dot, a max, a square root, 3 divisions), and around each call in AJ's
+# Frank-Wolfe step and in AF's two iterations.
+ELLIPSOID_OPS, AJ_STEP_OPS, AF_STEP_OPS = 16, 30, 25
+CUSTOM_KERNELS = ("custom_aabbs", "custom_convex_manifold", "custom_plane_manifold",
+                  "custom_hull_manifold", "ray_support", "custom_point")
+REPLACES.update({
+    "custom_aabbs": ("cuda", "avian_tpu_torch/csrc/custom_shape.cuh",
+                     "avian_tpu/geometry/shapes.py:55"),
+    "custom_convex_manifold": ("cuda", "avian_tpu_torch/csrc/custom_shape.cuh",
+                               "avian_tpu/geometry/convex.py:468"),
+    "custom_plane_manifold": ("cuda", "avian_tpu_torch/csrc/custom_shape.cuh",
+                              "avian_tpu/geometry/convex.py:702"),
+    "custom_hull_manifold": ("cuda", "avian_tpu_torch/csrc/custom_shape.cuh",
+                             "avian_tpu/geometry/convex.py:881"),
+    "ray_support": ("cuda", "avian_tpu_torch/csrc/custom_shape.cuh",
+                    "avian_tpu/queries/raycast.py:324"),
+    "custom_point": ("cuda", "avian_tpu_torch/csrc/custom_shape.cuh",
+                     "avian_tpu/queries/point.py:135"),
+})
+
+
+def custom_terrain(device):
+    """``terrain_shapes(TERRAIN_N, per_row=TERRAIN_PER_ROW, seed=TERRAIN_SEED)``'s
+    builder calls with every fourth dynamic body's collider the example's
+    ellipsoid (a rock's draws are still made, so that every other body is the
+    terrain's), at 24 contact slots a body. Returns (world, ids, the
+    ellipsoids' ids)."""
+    rng = np.random.default_rng(TERRAIN_SEED)
+    field, per_row, n = TERRAIN_FIELD, TERRAIN_PER_ROW, TERRAIN_N
+    heights = scenes.terrain_heights(field)
+    b = SceneBuilder()
+    ground = b.add_body(body_type=BodyType.STATIC)
+    b.heightfield(ground, heights, float(field - 1), float(field - 1))
+    x0 = -6.5 - (per_row - 12) * 0.55
+    mass, inertia = shared_ext.ellipsoid_mass_inertia(*EXT_SEMI)
+    ids, ellipsoids = [], []
+    for k in range(n):
+        x = (k % per_row) * 1.1 + x0 + rng.uniform(-0.05, 0.05)
+        z = ((k // per_row) % per_row) * 1.1 + x0 + rng.uniform(-0.05, 0.05)
+        y = float(scenes.terrain_height_at(heights, x, z)) + 1.0 + (k // (per_row * per_row)) * 1.5
+        body = b.add_body(pos=(x, y, z))
+        kind = k % 7
+        rock = rng.normal(size=(12, 3)) if kind == 5 else None
+        if k % 4 == 3:
+            b.custom_collider(body, shape=shared_ext.ELLIPSOID, params=EXT_SEMI, mass=mass,
+                              inertia=inertia)
+            ellipsoids.append(body)
+        elif kind == 0:
+            b.sphere(body, 0.4)
+        elif kind == 1:
+            b.box(body, 0.35, 0.35, 0.35)
+        elif kind == 2:
+            b.capsule(body, 0.25, 0.5)
+        elif kind == 3:
+            b.cylinder(body, 0.3, 0.7)
+        elif kind == 4:
+            b.cone(body, 0.35, 0.7)
+        elif kind == 5:
+            b.convex_hull(body, (0.4 * rock / np.linalg.norm(rock, axis=1, keepdims=True))
+                          .astype(np.float32))
+        else:
+            b.round_cuboid(body, 0.5, 0.5, 0.5, 0.05)
+        ids.append(body)
+    world = b.finalize(max_bodies=n + 1, max_colliders=n + 2 * (field - 1) ** 2,
+                       max_contacts=TERRAIN_SLOTS_PER_BODY * (n + 1), device=device)
+    return world, ids, ellipsoids
+
+
+def ext_steps(what, world, config, steps, seen, drops=None, **kw):
+    """``steps`` steps through ``physics_step`` with diagnostics; fails on a
+    dropped pair or an overflow drop (unless ``drops``, a list, gathers
+    their running maxima) or a non-finite state, and gathers the canonical
+    pairs launched into ``seen``. Returns (world, ms a step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        world, diag = physics_step(world, config, return_diagnostics=True, **kw)
+        dropped, overflow = int(diag["dropped_pairs"]), int(diag["overflow_dropped"])
+        if drops is not None:
+            drops[:] = [max(drops[0], dropped), max(drops[1], overflow)]
+        elif dropped or overflow:
+            raise AssertionError(f"{what}: dropped {dropped} pairs, {overflow} overflow rows")
+        seen.update(pair for pair, n in diag["manifold_pairs"].items() if n)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / max(steps, 1)
+    b = world.bodies
+    if not all(bool(torch.isfinite(getattr(b, f)).all()) for f in ("pos", "quat", "lin_vel")):
+        raise AssertionError(f"{what}: non-finite state")
+    return world, ms
+
+
+def custom_bucket_against_twin(bk):
+    """A custom bucket's kernel on all its pairs against the plain version
+    on the first ``EXT_PLAIN_PAIRS``: (max abs err, kernel inputs, twin)."""
+    got = bk.run()
+    n = min(EXT_PLAIN_PAIRS, bk.slots.shape[0])
+    sub = tuple(x[:n] for x in bk.inputs[:6]) + (bk.inputs[6],)
+    want = kcs._pair_twin(bk.kind, *sub)
+    err = 0.0
+    for name, g, w in zip(("normal", "point_a", "point_b", "separation", "feature_id", "count"),
+                          got, want):
+        err = max(err, compare(f"{bk.name} {bk.pair} {name}", g[:n], w))
+    return err
+
+
+def custom_pair_work(bk):
+    """(bytes, operations) of one custom bucket of M or P, as ``pair_work``
+    counts M's and P's from the launch's own inputs: each input and output
+    once; M's operations a pair, or P's a pair and a hull and a vertex of
+    each pair's own hull (params lane 1; 12 bytes a vertex read); and the
+    support calls of each custom side at ``ELLIPSOID_OPS`` each."""
+    pa, prm_a = bk.inputs[0], bk.inputs[2]
+    k = pa.shape[0]
+    io = nbytes(*bk.inputs[:6]) + k * 148
+    sides = 2 if bk.pair[0] >= CUSTOM_SHAPE_BASE else 1
+    ops = k * sides * kcs.PAIR_SUPPORT_CALLS * ELLIPSOID_OPS
+    if bk.name == "custom_hull_manifold":
+        verts = int(prm_a[:, 1].sum())
+        io += 12 * verts
+        ops += (k * (OPS_PER_PAIR["hull_manifold"] + OPS_PER_HULL["hull_manifold"])
+                + OPS_PER_HULL_VERTEX["hull_manifold"] * verts)
+    else:
+        ops += k * OPS_PER_PAIR["convex_manifold"]
+    return io, ops
+
+
+def random_plane_poses(device, k=EXT_RANDOM_PLANE, seed=13):
+    """``k`` seeded poses of an ellipsoid of seeded semi-axes 0 - 1.1 of its
+    largest semi-axis above a tilted half-space: O's custom instance's
+    inputs (pa, qa, na, pb, qb, prm_b) with 7 parameter lanes."""
+    rng = np.random.default_rng(seed)
+    semi = rng.uniform(0.15, 0.6, (k, 3)).astype(np.float32)
+    qa = rng.normal(size=(k, 4)) * [0.1, 0.1, 0.1, 1.0]
+    qa = (qa / np.linalg.norm(qa, axis=1, keepdims=True)).astype(np.float32)
+    qb = rng.normal(size=(k, 4))
+    qb = (qb / np.linalg.norm(qb, axis=1, keepdims=True)).astype(np.float32)
+    pa = rng.uniform(-1.0, 1.0, (k, 3)).astype(np.float32)
+    up = quat_m.rotate(torch.from_numpy(qa), torch.tensor([0.0, 1.0, 0.0]).expand(k, 3)).numpy()
+    pb = pa + up * (semi.max(1) * rng.uniform(0.0, 1.1, k))[:, None]
+    na = np.zeros((k, 7), np.float32)
+    na[:, 1] = 1.0
+    prm = np.zeros((k, 7), np.float32)
+    prm[:, :3] = semi
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+                 for x in (pa, qa, na, pb.astype(np.float32), qb, prm))
+
+
+def example_worlds(device):
+    """``examples/custom_collider.py``'s world (9 ellipsoids on a half-space,
+    300 steps: every body 0.15 < y < 0.8, a ray down onto the first at y 0.5
+    within 0.06) and ``tests/test_custom_shapes.py::
+    test_ellipsoid_vs_box_and_ellipsoid``'s (300 steps: e2 at y 1.3 within
+    0.08, e3 above 0.45), with their own checks. Returns (the example's world,
+    a line)."""
+    seen = set()
+    world, ids = shared_ext.custom_collider_world(SceneBuilder, shared_ext.ELLIPSOID,
+                                                  device=device)
+    world, ms = ext_steps("custom collider example", world, PhysicsConfig(max_colors=8), 300,
+                          seen)
+    y = world.bodies.pos[ids, 1]
+    if not (bool((y > 0.15).all()) and bool((y < 0.8).all())):
+        raise AssertionError(f"custom collider example: rest heights {y.tolist()}")
+    world = bp_m.update_aabbs(world, PhysicsConfig(), world.custom_shapes)
+    target = world.bodies.pos[ids[0]].tolist()
+    hit = cast_ray(world, (target[0], 3.0, target[2]), (0.0, -1.0, 0.0))
+    if not (bool(hit.hit) and abs(float(hit.point[1]) - 2.0 * EXT_SEMI[1]) < 0.06):
+        raise AssertionError(f"custom collider example: the ray down hit {hit}")
+    if (3, CUSTOM_CODE) not in seen:
+        raise AssertionError("custom collider example: O's custom instance never launched")
+    pworld, (e1, box, e2, e3) = shared_ext.custom_pairs_world(SceneBuilder, shared_ext.ELLIPSOID,
+                                                              device=device)
+    pworld, _ = ext_steps("ellipsoids on a box", pworld, PhysicsConfig(max_colors=4), 300, seen)
+    p = pworld.bodies.pos
+    if not (abs(float(p[e2, 1]) - 1.3) < 0.08 and float(p[e3, 1]) > 0.45):
+        raise AssertionError(f"ellipsoids on a box: e2 at {p[e2].tolist()}, e3 at "
+                             f"{p[e3].tolist()}")
+    line = (f"custom_collider example: 9 ellipsoids rest at y {float(y.min()):.3f}-"
+            f"{float(y.max()):.3f}, the ray down hits y {float(hit.point[1]):.4f} ({ms:.2f} ms a "
+            f"step); ellipsoid on a box at y {float(p[e2, 1]):.4f}, over an ellipsoid at "
+            f"{float(p[e3, 1]):.4f}")
+    return world, line
+
+
+def phase_hooks_and_joints(device, smi):
+    """Hooks: ``cube_pile(10_000)`` at 16 N for 180 steps with the conveyor's
+    ``modify_contacts`` on the ground (body 0) and a ``filter_pairs`` that
+    drops every pair of a cube whose index is divisible by 10: every such
+    cube falls through the ground, and of the others resting on it at most
+    ``HOOK_SLOW_SHARE`` (the reference's reading) move +x at 0.5 m/s or
+    less, their median at the belt's 2 m/s; the
+    one-way platform's and the conveyor belt's
+    example worlds with their checks. Custom joints: 1,024 copies of
+    ``examples/custom_constraint.py``'s pendulum side by side in a world with
+    no joint slots, 120 steps, every pair within 0.05 m of its rest length,
+    and the example's own world and checks."""
+
+    class DropTens:
+        def filter_pairs(self, world, ca, cb, valid):
+            body = world.colliders.body_idx
+            ba, bb = body[ca.long()], body[cb.long()]
+            return valid & ~((ba % HOOK_EVERY == 0) & (ba > 0)) & ~((bb % HOOK_EVERY == 0) & (bb > 0))
+
+    class Hooks(DropTens, shared_ext.Conveyor):
+        pass
+
+    world = pile(N_CUBES, device)
+    seen, drops = set(), [0, 0]
+    # The filtered cubes fall through the pile: their pairs take slots of
+    # the broadphase's buffer before the filter drops them, so at 16 N some
+    # pairs find no slot; the run reports how many.
+    world, hook_ms = ext_steps("hooks", world, PILE_CONFIG.replace(sleep_early_out=False),
+                               HOOK_STEPS, seen, drops=drops, hooks=Hooks(0, HOOK_BELT_SPEED))
+    pos, vel = world.bodies.pos[1:], world.bodies.lin_vel[1:]
+    idx = torch.arange(1, world.bodies.capacity, device=device)
+    dropped = (idx % HOOK_EVERY == 0) & world.bodies.active[1:]
+    # On the ground: a cube's centre within 5 cm of its half extent above the
+    # plane and no vertical motion to speak of.
+    resting = (~dropped & ((pos[:, 1] - 0.5).abs() < 0.05) & (vel[:, 1].abs() < 0.1)
+               & world.bodies.active[1:])
+    if not bool((pos[dropped, 1] < 0.0).all()):
+        raise AssertionError(f"hooks: {int((pos[dropped, 1] >= 0).sum())} filtered cubes above "
+                             "the ground")
+    # At step 180 the upper layers are still coming down, and where they land
+    # by the pile's edges they knock cubes on the ground outward faster than
+    # the belt carries them, in the reference as here: the gate is the
+    # reference's reading (HOOK_SLOW_SHARE).
+    slowest = float(vel[resting, 0].min())
+    quantiles = torch.quantile(vel[resting, 0], torch.tensor([0.01, 0.5], device=device)).tolist()
+    slow = int((vel[resting, 0] <= 0.5).sum())
+    on_ground = int(resting.sum())
+    if not (on_ground > 100 and slow <= HOOK_SLOW_SHARE * on_ground
+            and abs(quantiles[1] - HOOK_BELT_SPEED) < HOOK_MEDIAN_TOL):
+        raise AssertionError(f"hooks: {on_ground} cubes on the ground, slowest along +x "
+                             f"{slowest} m/s, 1 % and 50 % quantiles {quantiles}, "
+                             f"{slow} at most 0.5 m/s")
+    oworld, (above, below) = shared_ext.one_way_world(SceneBuilder, device=device)
+    oworld, _ = ext_steps("one-way platform", oworld, PhysicsConfig(), 240, seen,
+                          hooks=shared_ext.OneWay())
+    ya, yb = float(oworld.bodies.pos[above, 1]), float(oworld.bodies.pos[below, 1])
+    if not (abs(ya - 0.4) < 0.05 and abs(yb - 0.4) < 0.05):
+        raise AssertionError(f"one-way platform: the balls end at y {ya} and {yb}")
+    bworld, box = shared_ext.belt_world(SceneBuilder, -3.0, 0.6, dict(
+        max_bodies=4, max_colliders=4, max_contacts=16), device=device)
+    bworld, _ = ext_steps("conveyor belt", bworld, PhysicsConfig(), 180, seen,
+                          hooks=shared_ext.Conveyor())
+    bx, bv = float(bworld.bodies.pos[box, 0]), float(bworld.bodies.lin_vel[box, 0])
+    if not (bx > -2.0 and bv > 0.5):
+        raise AssertionError(f"conveyor belt: the box ends at x {bx} at {bv} m/s")
+
+    jworld, anchors, cubes = shared_ext.pendulums_world(SceneBuilder, PENDULUMS, device=device)
+    if jworld.joints.capacity:
+        raise AssertionError("pendulums: the world has joint slots")
+    con = shared_ext.CenterDistance(anchors, cubes, PENDULUM_REST)
+    jworld, joint_ms = ext_steps("pendulums", jworld, PhysicsConfig(), PENDULUM_STEPS, seen,
+                                 custom_joints=con)
+    p = jworld.bodies.pos
+    d = (p[cubes] - p[anchors]).norm(dim=1)
+    gap = float((d - PENDULUM_REST).abs().max())
+    low = float(p[cubes, 1].max())
+    if not gap < PENDULUM_TOL:
+        raise AssertionError(f"pendulums: rest length off by {gap}")
+    eworld, (anchor, cube) = shared_ext.pendulum_world(SceneBuilder, device=device)
+    eworld, _ = ext_steps("custom constraint example", eworld, PhysicsConfig(), 180, seen,
+                          custom_joints=shared_ext.CenterDistance(anchor, cube, PENDULUM_REST))
+    ep = eworld.bodies.pos
+    ed = float((ep[cube] - ep[anchor]).norm())
+    if not (abs(ed - PENDULUM_REST) < 0.05 and float(ep[cube, 1]) < -1.0):
+        raise AssertionError(f"custom constraint example: |d| {ed}, cube at {ep[cube].tolist()}")
+    say("extensions", f"hooks: cube_pile({N_CUBES}) {HOOK_STEPS} steps at {hook_ms:.2f} ms a "
+        f"step with the conveyor on the ground and every tenth cube filtered: "
+        f"{int(dropped.sum())} filtered cubes all below the ground (highest "
+        f"{float(pos[dropped, 1].max()):.1f} m), {int(resting.sum())} cubes on the ground at "
+        f"median {quantiles[1]:.3f} m/s along +x, {on_ground - slow} of them faster than 0.5, "
+        f"{slow} ({slow / on_ground:.4f}) not (slowest {slowest:.3f}, 1 % quantile "
+        f"{quantiles[0]:.3f}), at most "
+        f"{drops[0]} pairs dropped and {drops[1]} overflow rows in a step; "
+        f"one-way platform balls at y {ya:.3f} and {yb:.3f}; conveyor box at x {bx:.3f}, "
+        f"{bv:.3f} m/s. Custom joints: {PENDULUMS} pendulums, {PENDULUM_STEPS} steps at "
+        f"{joint_ms:.2f} ms a step, no joint slots, rest length within {gap:.2e} m, highest "
+        f"cube y {low:.3f}; the example's |d| {ed:.4f} m, cube y {float(ep[cube, 1]):.3f} [{smi}]")
+
+
+def phase_extensions(device, smi):
+    """User shapes at full width: ``custom_terrain`` (2,500 of its 10,000 bodies
+    the example's ellipsoid) at 24 N, window 64: 40 steps, then every custom
+    kernel held to its plain version on the same inputs (E's custom pass on
+    every custom collider, M's and P's instances on each custom bucket, O's
+    on seeded ellipsoid/half-space poses, AJ on ``EXT_PLAIN_ROWS`` rays, AF's
+    on ``EXT_PLAIN_ROWS`` points), then 20 more steps (every body above the
+    field, every custom pair bucket launched), 1,024 rays (768 down, 256
+    level) and their ``pick_batch``, and 1,024 points (256 at ellipsoid
+    centres, each inside its ellipsoid) through ``all_hits`` and
+    ``all_point_hits``; the example worlds with their checks; hooks and
+    custom joints (``phase_hooks_and_joints``). The custom kernels' launches
+    are counted over the steps, casts and queries, the comparisons
+    excluded. Returns (measured rows, launches)."""
+    t0 = time.perf_counter()
+    world, ids, ellipsoids = custom_terrain(device)
+    build_s = custom_build.library(world.custom_shapes).build_s  # built in phase_build
+    seen = set()
+    kernels.reset_launches()
+    world, ms40 = ext_steps("custom terrain", world, EXT_CONFIG, EXT_KERNEL_STEPS, seen)
+    counts = kernels.launches()
+    shapes = world.custom_shapes
+    out = {}
+
+    # E's custom pass.
+    col, cfg = world.colliders, EXT_CONFIG
+    args = (cfg.dt, cfg.narrow_phase.default_speculative_margin,
+            cfg.narrow_phase.contact_tolerance * cfg.length_unit)
+    lo, hi, pos, quat = ke.collider_aabbs(world.bodies, col, *args)
+    order, spans = kcs.buckets(col.shape_type, shapes)
+    code, a, b = spans[0]
+    cols = order[a:b].contiguous()
+    rows = [t.clone() for t in (lo, hi, lo, hi)]
+    kcs.custom_aabbs(shapes, code, cols, world.bodies, col, pos, quat, *args, rows[0], rows[1])
+    kcs.custom_aabbs_twin(shapes, code, cols, world.bodies, col, pos, quat, *args, rows[2],
+                          rows[3])
+    err = max(compare("E custom min", rows[0], rows[2]), compare("E custom max", rows[1], rows[3]))
+    k_n = cols.shape[0]
+    out["custom_aabbs"] = measured(
+        err, lambda: kcs.custom_aabbs(shapes, code, cols, world.bodies, col, pos, quat, *args,
+                                      rows[0], rows[1]),
+        lambda: kcs.custom_aabbs_twin(shapes, code, cols, world.bodies, col, pos, quat, *args,
+                                      rows[2], rows[3]), k_n * 108, k_n * (ELLIPSOID_OPS + 60))
+
+    # M's and P's custom instances on the step's buckets.
+    w2, pos, quat = bp_m.update_aabbs_and_poses(world, cfg, shapes)
+    bp = bp_m.broad_phase(w2, cfg)
+    buckets = [bk for bk in manifold_buckets(col.shape_type, col.params, pos, quat,
+                                             bp.collider_a.long(), bp.collider_b.long(),
+                                             bp.valid, cfg.shape_pairs, w2.convex_verts, shapes)
+               if bk.module is kcs]
+    if {bk.pair for bk in buckets} != set(CUSTOM_PAIRS):
+        raise AssertionError(f"extensions: custom buckets {[bk.pair for bk in buckets]}")
+    for name in ("custom_convex_manifold", "custom_hull_manifold"):
+        mine = [bk for bk in buckets if bk.name == name]
+        err = max(custom_bucket_against_twin(bk) for bk in mine)
+        io, ops = (sum(x) for x in zip(*map(custom_pair_work, mine)))
+        out[name] = measured(err, lambda: [bk.run() for bk in mine],
+                             lambda: [bk.run(twin=True) for bk in mine], io, ops)
+        out[name]["pairs"] = sum(bk.slots.shape[0] for bk in mine)
+
+    # O's custom instance on seeded poses.
+    inputs = random_plane_poses(device)
+    pool = w2.convex_verts
+    kind = (shapes, (3, CUSTOM_CODE))
+    got = kcs.custom_plane_manifold(kind, *inputs, pool)
+    want = kcs._pair_twin(kind, *inputs, pool)
+    err = max(compare(f"O custom {i}", g, w) for i, (g, w) in enumerate(zip(got, want)))
+    k_n = inputs[0].shape[0]
+    out["custom_plane_manifold"] = measured(
+        err, lambda: kcs.custom_plane_manifold(kind, *inputs, pool),
+        lambda: kcs._pair_twin(kind, *inputs, pool), nbytes(*inputs) + k_n * 148,
+        k_n * (OPS_PER_PAIR["plane_patch_manifold"] + 9 * ELLIPSOID_OPS))
+
+    # AJ and AF's custom instance on a subset of the rays and points.
+    o, d = query_rays(seed=31)
+    rays = torch.cat([o, d], 1).to(device).contiguous()
+    sub = rays[:EXT_PLAIN_ROWS].contiguous()
+    m = col.capacity
+    posc, quatc, prm = pos.contiguous(), quat.contiguous(), col.params.contiguous()
+
+    def aj(fn, work=None):
+        t = torch.full((EXT_PLAIN_ROWS, m), kt.BIG, device=device)
+        n = torch.zeros((EXT_PLAIN_ROWS, m, 3), device=device)
+        extra = () if work is None else (work,)
+        return fn(shapes, code, cols, sub, True, posc, quatc, prm, t, n, *extra)
+
+    work = torch.zeros((1,), dtype=torch.int64, device=device)
+    got, want = aj(kcs.ray_support, work), aj(kcs.ray_support_twin)
+    err = max(compare("AJ t", got[0], want[0]), compare("AJ normal", got[1], want[1]))
+    calls = int(work)
+    out["ray_support"] = measured(err, lambda: aj(kcs.ray_support), lambda: aj(kcs.ray_support_twin),
+                                  nbytes(sub, cols) + EXT_PLAIN_ROWS * k_n * 16 + k_n * 76,
+                                  calls * (ELLIPSOID_OPS + AJ_STEP_OPS))
+    out["ray_support"]["support_calls"] = calls
+    rng = np.random.default_rng(32)
+    others = torch.from_numpy(np.stack([rng.uniform(-25, 25, 1024 - EXT_CENTRES),
+                                        rng.uniform(0.0, 6.0, 1024 - EXT_CENTRES),
+                                        rng.uniform(-25, 25, 1024 - EXT_CENTRES)], 1)
+                              .astype(np.float32)).to(device)
+    centre_ids = torch.tensor(ellipsoids[:EXT_CENTRES], device=device)
+
+    def query_points(w):
+        """1,024 points: the first ``EXT_CENTRES`` ellipsoids' centres in
+        ``w``, then seeded points over the field."""
+        return torch.cat([w.bodies.pos[centre_ids], others]).contiguous()
+
+    psub = query_points(world)[:EXT_PLAIN_ROWS].contiguous()
+
+    def af(fn):
+        dist = torch.full((EXT_PLAIN_ROWS, m), kaf.BIG, device=device)
+        cl = torch.zeros((EXT_PLAIN_ROWS, m, 3), device=device)
+        ins = torch.zeros((EXT_PLAIN_ROWS, m), dtype=torch.bool, device=device)
+        return fn(shapes, code, cols, psub, posc, quatc, prm, dist, cl, ins)
+
+    got, want = af(kcs.custom_point), af(kcs.custom_point_twin)
+    err = max(compare(f"AF custom {i}", g, w) for i, (g, w) in enumerate(zip(got, want)))
+    pairs = EXT_PLAIN_ROWS * k_n
+    out["custom_point"] = measured(err, lambda: af(kcs.custom_point),
+                                   lambda: af(kcs.custom_point_twin),
+                                   nbytes(psub, cols) + pairs * 17 + k_n * 76,
+                                   pairs * kcs.POINT_SUPPORT_CALLS * (ELLIPSOID_OPS + AF_STEP_OPS))
+    compare_s = time.perf_counter() - t0
+
+    # The rest of the user's run: 20 more steps, the rays, the picks, the points.
+    kernels.reset_launches()
+    world, ms20 = ext_steps("custom terrain", world, EXT_CONFIG, EXT_STEPS - EXT_KERNEL_STEPS,
+                            seen)
+    missing = set(CUSTOM_PAIRS) - seen
+    if missing:
+        raise AssertionError(f"extensions: custom buckets never launched: {sorted(missing)}")
+    above, reach = on_the_field("custom terrain", world, ids)
+    o, d = o.to(device), d.to(device)
+    picks = picking.pick_batch(world, o, d)
+    hits = raycast.first_hits(world, o, vec.normalize_or_rn(d, torch.eye(3, device=device)[0]))
+    if not torch.equal(picks.collider, hits.collider):
+        raise AssertionError("extensions: pick_batch differs from the first ray hits")
+    ell_cols = set(cols.tolist())
+    on_ellipsoids = sum(int(c) in ell_cols for c in hits.collider.tolist())
+    points = query_points(world)
+    dist, _, inside = qpoint.all_point_hits(world, points)
+    body_of = world.colliders.body_idx.long()
+    owner = torch.full((world.bodies.capacity,), -1, dtype=torch.long, device=device)
+    owner[body_of[cols.long()]] = cols.long()
+    mine = owner[centre_ids]
+    rows_c = torch.arange(EXT_CENTRES, device=device)
+    if not bool(inside[rows_c, mine].all()):
+        raise AssertionError(f"extensions: {int((~inside[rows_c, mine]).sum())} ellipsoid centres "
+                             "outside their ellipsoid")
+    projected = project_point(world, points[0])
+    if not (bool(projected["is_inside"]) and int(projected["collider"]) == int(mine[0])):
+        raise AssertionError(f"extensions: project_point of a centre gave {projected}")
+    listed = point_intersections(world, points[0])
+    if int(mine[0]) not in listed.tolist():
+        raise AssertionError("extensions: point_intersections missed the ellipsoid")
+    torch.cuda.synchronize()
+    counts = {k: counts[k] + v for k, v in kernels.launches().items()}
+
+    kernels.reset_launches()
+    _, line = example_worlds(device)
+    counts = {k: counts[k] + v for k, v in kernels.launches().items()}
+    zero = [k for k in CUSTOM_KERNELS if not counts[k]]
+    if zero:
+        raise AssertionError(f"extensions: custom kernels never launched: {zero}")
+    phase_hooks_and_joints(device, smi)
+    say("extensions", f"custom terrain ({TERRAIN_N} bodies, {len(ellipsoids)} ellipsoids "
+        f"{EXT_SEMI}, 24 N, window {TERRAIN_WINDOW}): custom unit built in {build_s:.1f} s; "
+        f"{EXT_KERNEL_STEPS} steps at {ms40:.2f} ms, then {EXT_STEPS - EXT_KERNEL_STEPS} at "
+        f"{ms20:.2f} ms a step; custom buckets {sorted(seen & set(CUSTOM_PAIRS))}; lowest body "
+        f"{above:.4f} m above the field; {on_ellipsoids} of 1,024 rays first hit an ellipsoid, "
+        f"pick_batch equal; {EXT_CENTRES} centres inside their ellipsoids; E's custom pass, M, P, "
+        f"O, AJ and AF's custom instances against their plain versions in {compare_s:.1f} s "
+        f"(AJ {out['ray_support']['support_calls']} support calls for {EXT_PLAIN_ROWS} rays): "
+        + show("times", out) + f"; launches {dict((k, counts[k]) for k in CUSTOM_KERNELS)}; {line} [{smi}]")
+    return out, counts
+
+
 def main():
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -4810,6 +5318,8 @@ def main():
     measured_tools, tools_launches = timed("tools3d", phase_tools3d, device, smi, query_world)
     measured_by_kernel.update(measured_tools)
     del query_world
+    measured_ext, ext_launches = timed("extensions", phase_extensions, device, smi)
+    measured_by_kernel.update(measured_ext)
     measured_by_kernel.update(timed("dim2 kernels", phase_dim2_kernels, device))
     timed("dim2 golden", phase_dim2_golden, device)
     dim2_launches = timed("pyramid2d", phase_pyramid2d, device, smi)
@@ -4848,7 +5358,8 @@ def main():
                 "solve_joints_2d": hinges2d_launches, "swept_toi_2d": ccd2d_launches,
                 **dict.fromkeys(Q2D_KERNELS, q2d_launches),
                 **dict.fromkeys(GRID_KERNELS, grid_launches),
-                **dict.fromkeys(TOOLS_KERNELS, tools_launches)}.get(
+                **dict.fromkeys(TOOLS_KERNELS, tools_launches),
+                **dict.fromkeys(CUSTOM_KERNELS, ext_launches)}.get(
             name, shapes_launches if name in OPS_PER_PAIR else hinge_launches)
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main[name], pile_launches=main_launches[name],
@@ -4865,6 +5376,7 @@ def main():
                          ccd2d_launches=ccd2d_launches[name],
                          queries2d_launches=q2d_launches[name],
                          controller2d_launches=controller_launches[name],
+                         extension_launches=ext_launches[name],
                          **measured_by_kernel[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))

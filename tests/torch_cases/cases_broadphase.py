@@ -1,6 +1,12 @@
 """The port's AABBs and broadphase (Kernel B's twin on CPU) against the JAX
-reference: pair set, slot order and ``dropped`` must match exactly."""
+reference: pair set, slot order and ``dropped`` must match exactly. The
+reference's broadphase results are read from ``broadphase_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_broadphase.py``); its AABBs run live."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +17,24 @@ from avian_tpu.pipeline import broadphase as jbp
 from avian_tpu_torch.kernels import grid_sweep as kb
 from avian_tpu_torch.pipeline import broadphase as tbp
 
-from port_common import assert_columns, pile_configs, to_torch
+from port_common import Recording, assert_columns, pile_configs, to_torch
+
+RECORDING = Recording("broadphase")
+
+
+def _reference(jw, jcfg):
+    """(the reference's world with its AABBs, its ``broad_phase``), from the
+    recording."""
+
+    def run():
+        jw2 = jbp.update_aabbs(jw, jcfg)
+        bp = jbp.broad_phase(jw2, jcfg)
+        return {"world": jax.tree.leaves(jw2),
+                "pairs": {f.name: getattr(bp, f.name) for f in dataclasses.fields(bp)}}
+
+    ref = RECORDING((jw, repr(jcfg)), run)
+    jw2 = jax.tree.unflatten(jax.tree.structure(jw), [jnp.asarray(x) for x in ref.world])
+    return jw2, jbp.BroadPhaseResult(**ref.pairs)
 
 
 def _jumbled_pile(n=64, seed=7, max_contacts=None):
@@ -61,8 +84,7 @@ def test_broad_phase_matches_reference(case):
     seed = case.pop("seed", 7)
     jw = _jumbled_pile(seed=seed, max_contacts=capacity)
     jcfg, tcfg = pile_configs(**case)
-    jw2 = jbp.update_aabbs(jw, jcfg)
-    ref = jbp.broad_phase(jw2, jcfg)
+    jw2, ref = _reference(jw, jcfg)
     port = tbp.broad_phase(to_torch(jw2), tcfg)
     assert_columns(ref, port)
     if capacity is not None or case.get("sap_window") == 4:
@@ -101,8 +123,7 @@ def test_window_64_pairs_the_entries_the_reference_drops():
 
     jw = _crowded_cell(JBuilder())
     jcfg, tcfg = pile_configs()
-    jw2 = jbp.update_aabbs(jw, jcfg)
-    ref = jbp.broad_phase(jw2, jcfg)
+    jw2, ref = _reference(jw, jcfg)
     assert int(ref.dropped) > 0
     assert_columns(ref, tbp.broad_phase(to_torch(jw2), tcfg))
     _, wide = pile_configs(sap_window=64)

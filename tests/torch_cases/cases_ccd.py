@@ -10,7 +10,11 @@ written to a sleeping body, which the port wakes. The swept-CCD terrain is
 
 On the CPU the port's swept CCD runs Kernel R's plain version. The
 reference is compiled one IEEE operation at a time
-(``port_common.ieee_reference``), with the shape pairs each world needs."""
+(``port_common.ieee_reference``), with the shape pairs each world needs. Its
+sweeps and steps are read from ``ccd_reference.npz`` (``port_common.
+Recording``, keyed by a digest of the reference's inputs; rerecord with
+``record_references.py cases_ccd.py cases_ccd_terrain.py``); the sweeps of
+the two repaired faults run it live."""
 
 from port_common import ieee_reference
 
@@ -39,7 +43,7 @@ from avian_tpu_torch.pipeline import ccd as tccd  # noqa: E402
 from avian_tpu_torch.pipeline import solver_body as tsb  # noqa: E402
 from avian_tpu_torch.pipeline.step import physics_step as t_step  # noqa: E402
 
-from port_common import as_numpy, quats, to_torch  # noqa: E402
+from port_common import Recording, as_numpy, quats, to_torch  # noqa: E402
 
 # Scaled delta positions: the linear sweeps agree to the bit; the nonlinear
 # ones round the rotation's sin/cos and atan2 in each package's own way.
@@ -50,6 +54,7 @@ SMALL_PAIRS = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 3), (2, 2), (2, 3))
 _J_CCD = jax.jit(jccd.solve_swept_ccd, static_argnums=2)
 _J_AABBS = jax.jit(jbp.update_aabbs, static_argnums=1)
 _J_STEP = jax.jit(j_step, static_argnums=1)
+RECORDING = Recording("ccd")
 
 
 def test_to_scaled_axis_matches_reference():
@@ -125,21 +130,40 @@ def _forty():
 
 # ---- solve_swept_ccd on one solver state ----------------------------------------
 
-def _solver_states(jw, seed, dt):
-    """The same solver state in both packages: each awake body's delta pose
-    of one step at its velocities (its delta quaternion from the angular
-    velocity), with a seeded jitter of up to 1 cm on the delta position."""
+def _delta_poses(jw, seed, dt):
+    """Each awake body's delta pose of one step at its velocities (its delta
+    quaternion from the angular velocity), with a seeded jitter of up to 1 cm
+    on the delta position."""
     rng = np.random.default_rng(seed)
     b = jax.tree.map(np.asarray, jw.bodies)
     n = b.pos.shape[0]
     dpos = (b.lin_vel * dt + rng.uniform(-0.01, 0.01, (n, 3))).astype(np.float32)
     dquat = np.asarray(jquat.from_scaled_axis(jnp.asarray(b.ang_vel * dt, jnp.float32)))
-    s_ref = jsb.prepare(jw.bodies).replace(delta_pos=jnp.asarray(dpos),
-                                           delta_quat=jnp.asarray(dquat))
+    return dpos, dquat
+
+
+def _port_state(jw, dpos, dquat):
     s_port = tsb.prepare(to_torch(jw).bodies)
     s_port.state[:, tsb.DPOS:tsb.DPOS + 3] = torch.from_numpy(dpos)
     s_port.state[:, tsb.DQUAT:tsb.DQUAT + 4] = torch.from_numpy(dquat.copy())
-    return s_ref, s_port
+    return s_port
+
+
+def _reference_sweep(jw, jcfg, dpos, dquat, k_cap):
+    """The reference's ``solve_swept_ccd`` on the delta poses: the scaled
+    delta positions, and its swept colliders (``top_k`` on -index over the
+    flagged) with their flags."""
+    s_ref = jsb.prepare(jw.bodies).replace(delta_pos=jnp.asarray(dpos),
+                                           delta_quat=jnp.asarray(dquat))
+    jw2 = _J_AABBS(jw, jcfg)
+    col, b = jw2.colliders, jw2.bodies
+    sweep = s_ref.delta_pos[col.body_idx]
+    flagged = (b.swept_ccd[col.body_idx] & b.active[col.body_idx] & col.active
+               & (jnp.sum(sweep * sweep, -1) > 1e-12))
+    m = col.capacity
+    score = jnp.where(flagged, -jnp.arange(m, dtype=jnp.float32), -jnp.inf)
+    idx = jax.lax.top_k(score, min(k_cap, m))[1]
+    return {"delta_pos": _J_CCD(jw2, s_ref, jcfg).delta_pos, "idx": idx, "ok": flagged[idx]}
 
 
 # Each world: its builder and the time its solver state sweeps (long
@@ -152,8 +176,8 @@ WORLDS = {
 }
 
 
-def check_swept_ccd(jw, pairs, k_cap, dt, seed):
-    """``solve_swept_ccd`` on ``_solver_states(jw, seed, dt)`` by both
+def check_swept_ccd(jw, pairs, k_cap, dt, seed, recording=RECORDING):
+    """``solve_swept_ccd`` on ``_delta_poses(jw, seed, dt)`` by both
     packages: the swept colliders exactly and the scaled delta positions
     within ``CCD_TOL``. Returns which bodies the reference rewound. The
     world's static ``shape_pairs`` is set to ``pairs``, so that worlds of one
@@ -161,24 +185,17 @@ def check_swept_ccd(jw, pairs, k_cap, dt, seed):
     jw = jw.replace(shape_pairs=pairs)
     kw = dict(max_colors=4, swept_ccd=True, shape_pairs=pairs, max_swept_colliders=k_cap)
     jcfg, tcfg = JConfig(**kw), TConfig(**kw)
-    s_ref, s_port = _solver_states(jw, seed, dt)
-    jw2 = _J_AABBS(jw, jcfg)
-    want = np.asarray(_J_CCD(jw2, s_ref, jcfg).delta_pos)
+    dpos, dquat = _delta_poses(jw, seed, dt)
+    s_port = _port_state(jw, dpos, dquat)
+    ref = recording((jw, repr(jcfg), dpos, dquat, k_cap),
+                    lambda: _reference_sweep(jw, jcfg, dpos, dquat, k_cap))
+    want, idx, ok = ref.delta_pos, ref.idx, ref.ok
     tw2, pos, quat = tbp.update_aabbs_and_poses(to_torch(jw), tcfg)
     grid = tccd.swept_grid(tw2, s_port, pos, quat, tcfg)
     got = as_numpy(tccd.solve_swept_ccd(tw2, s_port, pos, quat, tcfg)[0].delta_pos)
-    # The reference's swept colliders: top_k on -index over the flagged.
-    col, b = jw2.colliders, jw2.bodies
-    sweep = s_ref.delta_pos[col.body_idx]
-    flagged = (b.swept_ccd[col.body_idx] & b.active[col.body_idx] & col.active
-               & (jnp.sum(sweep * sweep, -1) > 1e-12))
-    m = col.capacity
-    score = jnp.where(flagged, -jnp.arange(m, dtype=jnp.float32), -jnp.inf)
-    idx = np.asarray(jax.lax.top_k(score, min(k_cap, m))[1])
-    ok = np.asarray(flagged)[idx]
     assert grid.k_ok == int(ok.sum()) and ok[:grid.k_ok].all()
     np.testing.assert_array_equal(as_numpy(grid.swept)[:grid.k_ok], idx[ok])
-    rewound = np.abs(np.asarray(s_ref.delta_pos) - want).max(1) > 0
+    rewound = np.abs(dpos - want).max(1) > 0
     assert rewound.any(), "no body was rewound"
     np.testing.assert_allclose(got, want, atol=CCD_TOL, rtol=0)
     return rewound, int(ok.sum())
@@ -200,20 +217,28 @@ def _step_configs(swept):
     return JConfig(**kw), TConfig(**kw)
 
 
+def _reference_steps(jw, jcfg, n_steps):
+    pos, lin_vel = [], []
+    for _ in range(n_steps):
+        jw = _J_STEP(jw, jcfg)
+        pos.append(jw.bodies.pos)
+        lin_vel.append(jw.bodies.lin_vel)
+    return {"pos": jnp.stack(pos), "lin_vel": jnp.stack(lin_vel)}
+
+
 def _steps_match(jw, n_steps, swept):
     """``n_steps`` steps of ``jw`` by both packages, every body within
-    ``STEP_TOL`` after each; the reference's final world."""
+    ``STEP_TOL`` after each; the port's final world."""
     jw = jw.replace(shape_pairs=SMALL_PAIRS)
     jcfg, tcfg = _step_configs(swept)
+    ref = RECORDING((jw, repr(jcfg), n_steps), lambda: _reference_steps(jw, jcfg, n_steps))
     tw = to_torch(jw)
     for k in range(n_steps):
-        jw = _J_STEP(jw, jcfg)
         tw = t_step(tw, tcfg)
         for name in ("pos", "lin_vel"):
-            np.testing.assert_allclose(as_numpy(getattr(tw.bodies, name)),
-                                       np.asarray(getattr(jw.bodies, name)), atol=STEP_TOL,
-                                       rtol=0, err_msg=f"step {k + 1} {name}")
-    return jw, tw
+            np.testing.assert_allclose(as_numpy(getattr(tw.bodies, name)), ref[name][k],
+                                       atol=STEP_TOL, rtol=0, err_msg=f"step {k + 1} {name}")
+    return tw
 
 
 def _example_ccd(swept):
@@ -230,14 +255,14 @@ def _example_ccd(swept):
 def test_swept_bullet_steps_match_reference():
     """test_scenes.py::test_swept_ccd_rewinds_fast_body: 10 steps, x < 5."""
     jw, bullet = _wall_bullet()
-    _, tw = _steps_match(jw, 10, True)
+    tw = _steps_match(jw, 10, True)
     assert float(tw.bodies.pos[bullet][0]) < 5.0
 
 
 def test_swept_pair_steps_match_reference():
     """test_scenes.py::test_swept_ccd_vs_swept_ccd: 12 steps, no crossing."""
     jw, (left, right) = _two_bullets()
-    _, tw = _steps_match(jw, 12, True)
+    tw = _steps_match(jw, 12, True)
     xl, xr = float(tw.bodies.pos[left][0]), float(tw.bodies.pos[right][0])
     assert xl <= xr + 0.2 and np.isfinite([xl, xr]).all()
 
@@ -246,7 +271,7 @@ def test_swept_pair_steps_match_reference():
 def test_example_ccd_steps_match_reference(swept):
     """examples/ccd.py: 30 steps in its mode, x < 5."""
     jw, bullet = _example_ccd(swept)
-    _, tw = _steps_match(jw, 30, swept)
+    tw = _steps_match(jw, 30, swept)
     assert float(tw.bodies.pos[bullet][0]) < 5.0
 
 
@@ -263,7 +288,7 @@ def test_ccd_stress_steps_match_reference():
     port, port_ids = scenes.ccd_stress(32, 80.0, device="cpu")
     assert_worlds_equal(jw, port)
     assert port_ids == ids
-    _, tw = _steps_match(jw, 30, False)
+    tw = _steps_match(jw, 30, False)
     assert np.all(np.isfinite(as_numpy(tw.bodies.pos)))
 
 
@@ -318,7 +343,8 @@ def _both_sweeps(jw, dpos, dangle):
     jw = jw.replace(shape_pairs=SMALL_PAIRS)
     kw = dict(max_colors=4, swept_ccd=True, shape_pairs=SMALL_PAIRS)
     jcfg, tcfg = JConfig(**kw), TConfig(**kw)
-    s_ref, s_port = _solver_states(jw, 0, 0.0)
+    s_ref = jsb.prepare(jw.bodies)
+    s_port = tsb.prepare(to_torch(jw).bodies)
     dq = np.asarray(jquat.from_scaled_axis(jnp.asarray([0.0, 0.0, dangle], jnp.float32)))
     d = np.zeros((jw.bodies.capacity, 3), np.float32)
     q = np.tile(np.asarray([0.0, 0.0, 0.0, 1.0], np.float32), (jw.bodies.capacity, 1))

@@ -9,7 +9,10 @@ scaled delta positions within ``cases_ccd.CCD_TOL``.
 
 The reference compiles every shape pair of the bullets against the
 terrain's shapes (``TERRAIN_PAIRS``), seven of them support-map pipelines;
-that compile takes most of this file's minute, hence a file of its own."""
+that compile took most of this file's minute, so the sweep is read from
+``ccd_terrain_reference.npz`` (``port_common.Recording``; rerecord with
+``record_references.py cases_ccd_terrain.py``), and the world built with the
+reference's builder is the file's live reference case."""
 
 from port_common import ieee_reference
 
@@ -21,7 +24,7 @@ from avian_tpu import BodyType, SceneBuilder as JBuilder  # noqa: E402
 from avian_tpu_torch import scenes  # noqa: E402
 
 from cases_ccd import check_swept_ccd  # noqa: E402
-from port_common import assert_worlds_equal  # noqa: E402
+from port_common import Recording, assert_worlds_equal  # noqa: E402
 
 # Bullets (spheres, capsules) against the terrain's shapes.
 TERRAIN_PAIRS = ((0, 0), (0, 1), (0, 2), (0, 4), (0, 5), (0, 8), (1, 1), (1, 2), (1, 4), (1, 5),
@@ -90,5 +93,5 @@ def test_solve_swept_ccd_matches_reference_on_the_terrain():
     however many are flagged, and 4 keep its run short. Three of the four
     bullets reach the pile or the field within the sweep."""
     rewound, swept = check_swept_ccd(_j_terrain_ccd(**WORLD), TERRAIN_PAIRS, 4, 2.0 / 60.0,
-                                     seed=7)
+                                     seed=7, recording=Recording("ccd_terrain"))
     assert swept == 4 and int(rewound[301:305].sum()) == 3

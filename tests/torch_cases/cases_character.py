@@ -25,9 +25,11 @@ one IEEE operation at a time (``port_common.ieee_reference``).
   three spheres, ``examples/picking_demo.py``'s world and a small 2D world,
   with and without pickable masks, exactly; and the two files' checks.
 
-The reference runs in two processes of its own while the port runs (in
-threads, its tracing and the port's Python would share one interpreter
-lock)."""
+The reference's outputs are read from ``character_reference.npz``
+(``port_common.Recording``, keyed by a digest of the reference's inputs;
+rerecord with ``record_references.py cases_character.py``): compiling its
+120 frames took some 35 s. ``project_velocity``'s reference runs live and
+is held to the recording."""
 
 from port_common import ieee_reference
 
@@ -35,8 +37,6 @@ ieee_reference()
 
 import dataclasses  # noqa: E402
 import functools  # noqa: E402
-import multiprocessing  # noqa: E402
-from concurrent.futures import ProcessPoolExecutor  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -52,7 +52,7 @@ from avian_tpu_torch import picking as tpick  # noqa: E402
 from avian_tpu_torch.dim2 import SceneBuilder2D  # noqa: E402
 
 from cases_dim2 import to_jax2d  # noqa: E402
-from port_common import as_numpy, quats, to_torch  # noqa: E402
+from port_common import Recording, as_numpy, quats, to_torch  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -179,8 +179,10 @@ def pointer_rays(n=16, seed=9):
 
 
 # ---------------------------------------------------------------------------
-# The reference, in processes of its own (numpy results)
+# The reference (numpy results), recorded
 # ---------------------------------------------------------------------------
+
+RECORDING = Recording("character")
 
 _MAS = jax.jit(jchar.move_and_slide, static_argnames=("shape_type", "config"))
 
@@ -223,8 +225,9 @@ def _ref_depenetration():
 
 def _ref_cubes():
     start = jnp.asarray([0.0, 1.2, 0.0], jnp.float32)
-    return {hull: np.asarray(jax.jit(lambda p, w=cube_world(hull): jchar.depenetrate(
-        w, int(ShapeType.SPHERE), (0.5,), p, ID))(start)) for hull in (True, False)}
+    return {("hull" if hull else "box"): np.asarray(jax.jit(
+        lambda p, w=cube_world(hull): jchar.depenetrate(w, int(ShapeType.SPHERE), (0.5,), p, ID)
+    )(start)) for hull in (True, False)}
 
 
 def _numpy_hit(hit):
@@ -256,17 +259,31 @@ def _ref_picks():
     return {name: _numpy_hit(hit) for name, hit in hits.items()}
 
 
+class _Done:
+    def __init__(self, value):
+        self.value = value
+
+    def result(self):
+        return self.value
+
+
 @functools.cache
 def _jobs():
-    """Every reference computation, started at once: the 120 frames in one
-    process, the rest one after the other in another."""
-    ctx = multiprocessing.get_context("spawn")
-    frames, rest = (ProcessPoolExecutor(1, mp_context=ctx) for _ in range(2))
-    jobs = {"frames": frames.submit(_ref_frames)}
-    for name, fn in (("projection", _ref_projection), ("depenetration", _ref_depenetration),
-                     ("cubes", _ref_cubes), ("picks", _ref_picks)):
-        jobs[name] = rest.submit(fn)
-    return jobs
+    """Every reference computation, by name, each from the recording of its
+    inputs (the worlds and seeded arrays it builds), ``projection`` run
+    live."""
+    inputs = {
+        "frames": ("frames", kinematic_world(), FRAMES, DT, WALK, CAPSULE),
+        "projection": ("projection", projection_inputs()),
+        "depenetration": ("depenetration", [c[1:] for c in depenetration_cases()]),
+        "cubes": ("cubes", cube_world(True), cube_world(False)),
+        "picks": ("picks", spheres_world((-2.0, 0.0, 2.0)), pointer_rays(),
+                  jax.tree.map(np.asarray, to_jax2d(world_2d()))),
+    }
+    fns = {"frames": _ref_frames, "projection": _ref_projection,
+           "depenetration": _ref_depenetration, "cubes": _ref_cubes, "picks": _ref_picks}
+    return {name: _Done(RECORDING(inputs[name], fns[name], live=name == "projection"))
+            for name in fns}
 
 
 def _close(what, got, want, tol=TOL):
@@ -318,10 +335,10 @@ def test_depenetrate_pushes_out_of_a_hull():
                                             (0.5,), (0.0, 1.2, 0.0), ID))
            for hull in (True, False)}
     ref = jobs["cubes"].result()
-    _close("box", got[False], ref[False])
+    _close("box", got[False], ref["box"])
     assert abs(float(got[False][1]) - 1.51) < 1e-5
     _close("hull against the box", got[True], got[False])
-    np.testing.assert_array_equal(ref[True], np.asarray([0.0, 1.2, 0.0], np.float32))
+    np.testing.assert_array_equal(ref["hull"], np.asarray([0.0, 1.2, 0.0], np.float32))
 
 
 def _frame(world, pos):

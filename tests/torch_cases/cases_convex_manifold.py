@@ -17,7 +17,12 @@ approximate ``1 / sqrt`` its Frank-Wolfe iteration decides the degenerate
 first triangle by the sign of a rounding residual, and its results move by
 up to 1e-3 with what a program fuses. With IEEE operations the plain
 versions agree with it to the last bit on every pair here, so no pair is
-exempt."""
+exempt.
+
+The reference's manifolds are read from ``convex_manifold_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_convex_manifold.py``), except the
+half-space/cylinder pair's, which run live and are held to the recording."""
 
 from port_common import ieee_reference
 
@@ -32,7 +37,7 @@ from avian_tpu.geometry import narrowphase as jgeo  # noqa: E402
 from avian_tpu_torch.geometry import narrowphase as tgeo  # noqa: E402
 from avian_tpu_torch.kernels import convex_manifold as km  # noqa: E402
 
-from port_common import assert_manifolds_equal, pad8, quats, rotate_np  # noqa: E402
+from port_common import Recording, assert_manifolds_equal, pad8, quats, rotate_np  # noqa: E402
 
 TOL = 1e-5
 K = 64  # pairs in every batch, so that each reference compiles once
@@ -42,6 +47,8 @@ SEGMENT = 6
 # in cases_hull_manifold.py) and the two half-space pairs.
 PAIRS = tuple(p for p in km.GENERIC_PAIRS if SEGMENT not in p) + ((PLANE, CYLINDER), (PLANE, CONE))
 _TABLE = {(int(a), int(b)): fn for a, b, fn in jgeo._CANONICAL}
+RECORDING = Recording("convex_manifold")
+LIVE_PAIR = (PLANE, CYLINDER)  # the one pair whose reference runs live
 _UP = np.asarray([0.0, 0.0, 0.0, 1.0], np.float32)
 _LYING = np.asarray([0.0, 0.0, np.sin(np.pi / 4), np.cos(np.pi / 4)], np.float32)  # Y -> -X
 _FLIPPED = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)  # 180 degrees about X
@@ -185,8 +192,15 @@ def _corner_case():
 
 
 def _reference(pair):
+    """The reference's manifolds of K pairs, from the recording, or run live
+    for ``LIVE_PAIR`` and held to it."""
     fn = jax.jit(jax.vmap(_TABLE[pair]))
-    return lambda pa, qa, prm_a, pb, qb, prm_b: fn(pa, qa, pad8(prm_a), pb, qb, pad8(prm_b))
+
+    def ref(pa, qa, prm_a, pb, qb, prm_b):
+        args = (pa, qa, pad8(prm_a), pb, qb, pad8(prm_b))
+        return RECORDING((pair, list(args)), lambda: fn(*args), live=pair == LIVE_PAIR)
+
+    return ref
 
 
 def _port(pair, inputs):

@@ -12,7 +12,10 @@ Tolerances: the rewound delta positions, the times of impact and the poses
 1e-5 (the sweeps are linear or turn with ``cos``/``sin`` that PyTorch's CPU
 rounds a few ulp off XLA's); the pyramid's poses 1e-4 m (its contacts sum
 impulses per body in another order). The reference is compiled one IEEE
-operation at a time (``port_common.ieee_reference``).
+operation at a time (``port_common.ieee_reference``); its runs are read from
+``dim2_ccd_reference.npz`` (``port_common.Recording``, keyed by a digest of
+its inputs; rerecord with ``record_references.py cases_dim2_ccd.py``), but
+for the bullets' worlds, built by both builders leaf for leaf.
 """
 
 from port_common import ieee_reference
@@ -45,7 +48,7 @@ from avian_tpu_torch.kernels import swept_toi_2d as kab  # noqa: E402
 
 from cases_dim2 import assert_worlds_equal, to_jax2d, to_torch2d  # noqa: E402
 from shared_2d import inside_polygons  # noqa: E402
-from port_common import as_numpy  # noqa: E402
+from port_common import Recording, as_numpy  # noqa: E402
 
 torch.set_num_threads(1)
 CCD_TOL, PYRAMID_TOL = 1e-5, 1e-4
@@ -130,6 +133,21 @@ FAULTS = [7, 9]            # the two capsules of the reference's faults
 CAPSULE_HELD_STEPS = 2
 
 
+RECORDING = Recording("dim2_ccd")
+_POSE = ("pos", "angle", "lin_vel", "ang_vel")
+
+
+def _ref_bullets(jw, steps):
+    """The reference's sweeps and steps: each step's delta positions before
+    and after its sweep, and its bodies' poses after it."""
+    out = []
+    for _ in range(steps):
+        d_in, d_out = _j_presweep(jw)
+        jw = j_step(jw, JCFG)
+        out.append({"d_in": d_in, "d_out": d_out, **{n: getattr(jw.bodies, n) for n in _POSE}})
+    return out
+
+
 def test_bullets_spinning_capsules_and_the_repairs():
     """Every step: the delta positions after the substeps, and after the
     sweep, and each swept body's TOI (where the reference cuts, ``scale /
@@ -151,9 +169,10 @@ def test_bullets_spinning_capsules_and_the_repairs():
     sep0 = man.separation.amin(1)
     assert float(sep0[0]) > 0.1 and float(sep0[1]) <= 1e-4
     cut_steps = 0
+    ref = RECORDING((jw, repr(JCFG), 12), lambda: _ref_bullets(jw, 12))
     for i in range(12):
         held = HELD if i < CAPSULE_HELD_STEPS else BULLETS
-        d_in, d_out = (np.asarray(x) for x in _j_presweep(jw))
+        d_in, d_out = ref[i]["d_in"], ref[i]["d_out"]
         port_in, port_out, body_toi = _t_presweep(tw)
         _close(port_in[held], d_in[held], CCD_TOL, f"step {i + 1} delta pos")
         _close(port_out[held], d_out[held], CCD_TOL, f"step {i + 1} rewound delta pos")
@@ -167,12 +186,12 @@ def test_bullets_spinning_capsules_and_the_repairs():
         if i == 0:
             np.testing.assert_array_equal(d_out[FAULTS], d_in[FAULTS])
             assert bool((body_toi[FAULTS] < 1.0).all())
-        jw, tw = j_step(jw, JCFG), physics_step_2d(tw, TCFG)
-        for name in ("pos", "angle", "lin_vel", "ang_vel"):
-            _close(getattr(tw.bodies, name)[held], np.asarray(getattr(jw.bodies, name))[held],
-                   CCD_TOL, f"step {i + 1} {name}")
+        tw = physics_step_2d(tw, TCFG)
+        for name in _POSE:
+            _close(getattr(tw.bodies, name)[held], ref[i][name][held], CCD_TOL,
+                   f"step {i + 1} {name}")
         if i == 5:
-            ref_x = np.asarray(jw.bodies.pos)[FAULTS, 0]
+            ref_x = ref[i]["pos"][FAULTS, 0]
             port_x = as_numpy(tw.bodies.pos)[FAULTS, 0]
             assert (ref_x > 1.05).all(), ref_x   # through the wall
             assert (port_x < 1.0).all(), port_x  # the centre short of the wall's middle
@@ -191,15 +210,25 @@ def test_pyramid_ccd_2d_matches_reference():
     tw, ids, shots = tscenes.pyramid_ccd_2d(6, 4, device="cpu")
     jw = to_jax2d(tw)
     assert int(tw.bodies.swept_ccd_nonlinear.sum()) == 2 and len(shots) == 4
+
+    def reference():
+        w, out = jw, []
+        for _ in range(4):
+            w = j_step(w, JCFG)
+            out.append({"pos": w.bodies.pos, "angle": w.bodies.angle})
+        return {"steps": out, "fourth": jax.tree.leaves(w)}
+
+    ref = RECORDING((jw, repr(JCFG), 4), reference)
+    fourth = jax.tree.unflatten(jax.tree.structure(jw), list(ref.fourth))
     for i in range(6):
-        jw, tw = j_step(jw, JCFG), physics_step_2d(tw, TCFG)
+        tw = physics_step_2d(tw, TCFG)
         if i < 3:
             for name in ("pos", "angle"):
-                _close(getattr(tw.bodies, name), getattr(jw.bodies, name), PYRAMID_TOL,
+                _close(getattr(tw.bodies, name), ref.steps[i][name], PYRAMID_TOL,
                        f"step {i + 1} {name}")
         if i == 3:
-            ref = torch.from_numpy(np.asarray(jw.bodies.pos))
-            assert bool(inside_polygons(ref[shots], to_torch2d(jw)).any())
+            pos = torch.from_numpy(np.asarray(ref.steps[3]["pos"]))
+            assert bool(inside_polygons(pos[shots], to_torch2d(fourth)).any())
         bullets = tw.bodies.pos[shots]
         assert not bool(inside_polygons(bullets, tw).any()) and bool((bullets[:, 1] > 0).all())
     assert float(tw.bodies.pos[shots, 1].max()) < 18.0 - 2 * 5.0  # they flew down

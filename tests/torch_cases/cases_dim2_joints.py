@@ -17,6 +17,11 @@ chain link spins at 70 rad/s as it straightens); the hinges' Lagrange
 totals 1e-3 of
 their largest (a total is the sum of a step's corrections over h^2).
 Colours, masks and flags exactly.
+
+The reference's whole-step runs are read from ``dim2_joints_reference.npz``
+(``port_common.Recording``, keyed by a digest of their inputs; rerecord with
+``record_references.py cases_dim2_joints.py``); its prepared joints and one
+substep run live.
 """
 
 from port_common import ieee_reference
@@ -51,12 +56,18 @@ from avian_tpu_torch.dim2.dynamics import prepare as t_prepare  # noqa: E402
 
 import shared_2d as examples2d  # noqa: E402
 from cases_dim2 import assert_worlds_equal, to_jax2d  # noqa: E402
-from port_common import as_numpy  # noqa: E402
+from port_common import Recording, as_numpy  # noqa: E402
 
 torch.set_num_threads(1)
 ROW_TOL, SUBSTEP_TOL, STEP_TOL, VEL_TOL, VEL_RTOL = 1e-6, 1e-5, 1e-4, 1e-3, 1e-4
 HINGE_STEPS, EXAMPLE_STEPS = 40, 60
 KW = dict(substeps=4, max_colors=8)
+RECORDING = Recording("dim2_joints")
+# The bodies' columns a lockstep holds after each step, and what the forces'
+# writes are held on besides.
+STEP_COLS = ("pos", "angle", "lin_vel", "ang_vel")
+WRITE_COLS = STEP_COLS + ("force", "torque", "const_force", "const_torque", "sleep_timer",
+                          "sleeping")
 
 
 def _close(port, ref, atol, what, rtol=0.0):
@@ -72,18 +83,36 @@ def _both(make):
     return jw, tw
 
 
-def _lockstep(jw, tw, jcfg, tcfg, steps, j_kw=None, t_kw=None):
-    """Step both ``steps`` times; every step's positions and angles within
-    ``STEP_TOL``, velocities within ``VEL_TOL`` and ``VEL_RTOL`` of their
-    size. Returns both worlds."""
+def _cols(world, names):
+    return {name: getattr(world.bodies, name) for name in names}
+
+
+def _ref_steps(jw, jcfg, steps):
+    """The reference's ``steps`` steps from ``jw``: each step's ``STEP_COLS``
+    stacked, and the last world."""
+    out = []
+    for _ in range(steps):
+        jw = j_step(jw, jcfg)
+        out.append(_cols(jw, STEP_COLS))
+    return {k: jnp.stack([o[k] for o in out]) for k in STEP_COLS}, jw
+
+
+def _hold_step(tw, ref, i):
+    """Step ``i``'s positions and angles within ``STEP_TOL``, velocities
+    within ``VEL_TOL`` and ``VEL_RTOL`` of their size."""
+    for name, tol, rtol in (("pos", STEP_TOL, 0.0), ("angle", STEP_TOL, 0.0),
+                            ("lin_vel", VEL_TOL, VEL_RTOL), ("ang_vel", VEL_TOL, VEL_RTOL)):
+        _close(getattr(tw.bodies, name), ref[name][i], tol, f"step {i + 1} {name}", rtol)
+
+
+def _lockstep(ref, tw, tcfg, steps, **t_kw):
+    """Step the port ``steps`` times, each step held to the reference's
+    recorded step ``ref`` (``_ref_steps``' stack). Returns the port's
+    world."""
     for i in range(steps):
-        jw = j_step(jw, jcfg, **(j_kw or {}))
-        tw = physics_step_2d(tw, tcfg, **(t_kw or {}))
-        for name, tol, rtol in (("pos", STEP_TOL, 0.0), ("angle", STEP_TOL, 0.0),
-                                ("lin_vel", VEL_TOL, VEL_RTOL), ("ang_vel", VEL_TOL, VEL_RTOL)):
-            _close(getattr(tw.bodies, name), getattr(jw.bodies, name), tol,
-                   f"step {i + 1} {name}", rtol)
-    return jw, tw
+        tw = physics_step_2d(tw, tcfg, **t_kw)
+        _hold_step(tw, ref, i)
+    return tw
 
 
 def _joint_zoo(b, **finalize_kw):
@@ -204,10 +233,18 @@ def test_falling_hinges_2d_matches_reference():
     jw = make(JBuilder2D())
     tw, ids = tscenes.falling_hinges_2d(4, 4, device="cpu")
     assert_worlds_equal(jw, tw)
-    jw, tw = _lockstep(jw, tw, JConfig(**KW), TConfig(**KW), HINGE_STEPS)
-    lam = np.asarray(jw.joints.total_lambda)
+    jcfg = JConfig(**KW)
+
+    def reference():
+        steps, last = _ref_steps(jw, jcfg, HINGE_STEPS)
+        return {"steps": steps, "total_lambda": last.joints.total_lambda,
+                "color": last.joints.color}
+
+    ref = RECORDING((jw, repr(jcfg), HINGE_STEPS), reference)
+    tw = _lockstep(ref.steps, tw, TConfig(**KW), HINGE_STEPS)
+    lam = ref.total_lambda
     _close(tw.joints.total_lambda, lam, 1e-3 * np.abs(lam).max(), "total_lambda")
-    np.testing.assert_array_equal(as_numpy(tw.joints.color), np.asarray(jw.joints.color))
+    np.testing.assert_array_equal(as_numpy(tw.joints.color), ref.color)
     assert float(tw.bodies.pos[1:, 1].min()) < 0.5  # landed
 
 
@@ -346,25 +383,34 @@ def test_examples_custom_joint_and_hooks_match_reference():
     hooks = JHooks(ghost, slider), THooks(ghost, slider)
     custom = JCenterDistance2D(bob - 1, bob, 2.0), TCenterDistance2D(bob - 1, bob, 2.0)
     jcfg, tcfg = JConfig(max_colors=8), TConfig(max_colors=8)
-    j_kw = dict(hooks=hooks[0], custom_joints=custom[0])
+
+    def reference():
+        runs = {"ref": [], "nudged": []}
+        for w, run in ((jw, runs["ref"]), (jn, runs["nudged"])):
+            for _ in range(EXAMPLE_STEPS):
+                w = j_step(w, jcfg, hooks=hooks[0], custom_joints=custom[0])
+                run.append(_cols(w, STEP_COLS))
+        return {name: {k: jnp.stack([o[k] for o in run]) for k in STEP_COLS}
+                for name, run in runs.items()}
+
+    user = repr((vars(hooks[0]), vars(custom[0]), EXAMPLE_STEPS))
+    ref = RECORDING((jw, jn, repr(jcfg), user), reference)
     parted = {}
     for i in range(EXAMPLE_STEPS):
-        jw, jn = j_step(jw, jcfg, **j_kw), j_step(jn, jcfg, **j_kw)
         tw = physics_step_2d(tw, tcfg, hooks=hooks[1], custom_joints=custom[1])
         for name, ids in groups.items():
             for col in ("pos", "angle"):
-                ref = np.asarray(getattr(jw.bodies, col))[ids]
+                want = ref.ref[col][i][ids]
                 port = as_numpy(getattr(tw.bodies, col))[ids]
-                own = float(np.abs(np.asarray(getattr(jn.bodies, col))[ids] - ref).max())
+                own = float(np.abs(ref.nudged[col][i][ids] - want).max())
                 if own > OWN_TOL:
                     parted.setdefault(name, i + 1)
                 tol = PART_FACTOR * own + STEP_TOL if name in parted else STEP_TOL
-                _close(port, ref, tol, f"step {i + 1} {name} {col}")
+                _close(port, want, tol, f"step {i + 1} {name} {col}")
             if name not in parted:
                 for col in ("lin_vel", "ang_vel"):
-                    _close(as_numpy(getattr(tw.bodies, col))[ids],
-                           np.asarray(getattr(jw.bodies, col))[ids], VEL_TOL,
-                           f"step {i + 1} {name} {col}", VEL_RTOL)
+                    _close(as_numpy(getattr(tw.bodies, col))[ids], ref.ref[col][i][ids],
+                           VEL_TOL, f"step {i + 1} {name} {col}", VEL_RTOL)
     assert "pendulum" not in parted and "boxes" not in parted
     pos = as_numpy(tw.bodies.pos)
     assert abs(float(np.linalg.norm(pos[bob] - pos[bob - 1])) - 2.0) < 0.05
@@ -384,6 +430,45 @@ def _forces_world(b, **kw):
     return b.finalize(max_bodies=3, max_colliders=3, max_contacts=8, **kw)
 
 
+def _forces_run(forces, step, w0, cfg, ball, box, mass, inertia):
+    """The forces test's writes and steps in one package (its ``forces``
+    module and ``step``) from ``w0``: ``[(what, kind, world)]`` after each
+    write and step, ``kind`` "write" (held on ``WRITE_COLS``), "step" (held
+    as a lockstep holds it) or "free" (not held)."""
+    out = []
+
+    def at(what, kind, w):
+        out.append((what, kind, w))
+        return w
+
+    def steps(what, w, n, kind="step"):
+        for k in range(n):
+            w = at(f"{what} step {k + 1}", kind, step(w, cfg))
+        return w
+
+    # apply_force accelerates; the accumulator is cleared after a step.
+    steps("force", at("force", "write", forces.apply_force(w0, ball, (mass * 3.0, 0.0))), 2)
+    # apply_torque, then a constant torque.
+    w = steps("torque", forces.apply_torque(w0, ball, inertia * 2.0), 1)
+    steps("constant torque",
+          at("constant torque", "free", forces.set_constant_torque(w, ball, inertia * 2.0)), 2)
+    # Impulses, and an impulse at a point (above the centre: clockwise).
+    at("impulses", "write", forces.apply_angular_impulse(
+        forces.apply_linear_impulse(w0, ball, (2.0, 0.0)), ball, 3.0))
+    at("impulse at point", "write",
+       forces.apply_impulse_at_point(w0, ball, (1.0, 0.0), (0.0, 10.5)))
+    # The duplicate index accumulates, as .at[].add does.
+    w = at("forces at point", "write", forces.set_constant_force(
+        forces.apply_force_at_point(w0, np.asarray([ball, ball]), (1.0, 2.0), (0.3, 10.0)), ball,
+        (0.5, 0.0)))
+    steps("forces at point", w, 2)
+    # At rest from the start: asleep after 0.5 s; then a constant push.
+    w = steps("rest", w0, 32)
+    w = at("push", "free", forces.set_constant_force(w, box, (200.0, 0.0)))
+    steps("push", w, 30, kind="free")
+    return out
+
+
 def test_forces_and_a_constant_force_on_a_sleeper_match_reference():
     """``tests/test_dim2_api.py:34-88``'s four tests, each write and its steps
     in both packages, with their own checks; then the box rests until it
@@ -396,59 +481,43 @@ def test_forces_and_a_constant_force_on_a_sleeper_match_reference():
     ball, box = 0, 2
     mass = 1.0 / float(jw0.bodies.inv_mass[ball])
     inertia = 1.0 / float(jw0.bodies.inv_inertia[ball])
+    args = (ball, box, mass, inertia)
 
-    def same(jw, tw):
-        for name in ("pos", "angle", "lin_vel", "ang_vel", "force", "torque", "const_force",
-                     "const_torque", "sleep_timer"):
-            _close(getattr(tw.bodies, name), getattr(jw.bodies, name), 1e-6, name)
-        np.testing.assert_array_equal(as_numpy(tw.bodies.sleeping), np.asarray(jw.bodies.sleeping))
+    def reference():
+        return {what: _cols(w, WRITE_COLS)
+                for what, _, w in _forces_run(jforces, j_step, jw0, jcfg, *args)}
 
-    # apply_force accelerates; the accumulator is cleared after a step.
-    jw = jforces.apply_force(jw0, ball, (mass * 3.0, 0.0))
-    tw = tforces.apply_force(tw0, ball, (mass * 3.0, 0.0))
-    same(jw, tw)
-    jw, tw = _lockstep(jw, tw, jcfg, tcfg, 2)
-    assert float(tw.bodies.lin_vel[ball, 0]) == pytest.approx(3.0 / 60.0, rel=1e-4)
-    # apply_torque, then a constant torque.
-    jw = jforces.apply_torque(jw0, ball, inertia * 2.0)
-    tw = tforces.apply_torque(tw0, ball, inertia * 2.0)
-    jw, tw = _lockstep(jw, tw, jcfg, tcfg, 1)
-    assert float(tw.bodies.ang_vel[ball]) == pytest.approx(2.0 / 60.0, rel=1e-4)
-    jw = jforces.set_constant_torque(jw, ball, inertia * 2.0)
-    tw = tforces.set_constant_torque(tw, ball, inertia * 2.0)
-    w0 = float(tw.bodies.ang_vel[ball])
-    jw, tw = _lockstep(jw, tw, jcfg, tcfg, 2)
-    assert float(tw.bodies.ang_vel[ball]) == pytest.approx(w0 + 2.0 * 2.0 / 60.0, rel=1e-3)
-    # Impulses, and an impulse at a point (above the centre: clockwise).
-    jw = jforces.apply_angular_impulse(jforces.apply_linear_impulse(jw0, ball, (2.0, 0.0)),
-                                       ball, 3.0)
-    tw = tforces.apply_angular_impulse(tforces.apply_linear_impulse(tw0, ball, (2.0, 0.0)),
-                                       ball, 3.0)
-    same(jw, tw)
-    assert float(tw.bodies.lin_vel[ball, 0]) == pytest.approx(2.0 / mass, rel=1e-5)
-    assert float(tw.bodies.ang_vel[ball]) == pytest.approx(3.0 / inertia, rel=1e-5)
-    jw = jforces.apply_impulse_at_point(jw0, ball, (1.0, 0.0), (0.0, 10.5))
-    tw = tforces.apply_impulse_at_point(tw0, ball, (1.0, 0.0), (0.0, 10.5))
-    same(jw, tw)
-    assert float(tw.bodies.ang_vel[ball]) < 0.0 < float(tw.bodies.lin_vel[ball, 0])
-    jw = jforces.set_constant_force(
-        jforces.apply_force_at_point(jw0, np.asarray([ball, ball]), (1.0, 2.0), (0.3, 10.0)), ball,
-        (0.5, 0.0))
-    tw = tforces.set_constant_force(
-        tforces.apply_force_at_point(tw0, np.asarray([ball, ball]), (1.0, 2.0), (0.3, 10.0)), ball,
-        (0.5, 0.0))
-    same(jw, tw)  # the duplicate index accumulates, as .at[].add does
-    _lockstep(jw, tw, jcfg, tcfg, 2)
+    ref = RECORDING((jw0, repr(jcfg), args), reference)
+    run = _forces_run(tforces, physics_step_2d, tw0, tcfg, *args)
+    for what, kind, tw in run:
+        want = ref[what]
+        if kind == "write":
+            for name in WRITE_COLS[:-1]:
+                _close(getattr(tw.bodies, name), want[name], 1e-6, f"{what} {name}")
+            np.testing.assert_array_equal(as_numpy(tw.bodies.sleeping), want.sleeping)
+        elif kind == "step":
+            for name, tol, rtol in (("pos", STEP_TOL, 0.0), ("angle", STEP_TOL, 0.0),
+                                    ("lin_vel", VEL_TOL, VEL_RTOL),
+                                    ("ang_vel", VEL_TOL, VEL_RTOL)):
+                _close(getattr(tw.bodies, name), want[name], tol, f"{what} {name}", rtol)
+    port = {what: tw.bodies for what, _, tw in run}
 
-    jw, tw = _lockstep(jw0, tw0, jcfg, tcfg, 32)  # at rest from the start: asleep after 0.5 s
-    assert bool(jw.bodies.sleeping[box]) and bool(tw.bodies.sleeping[box])
-    jw = jforces.set_constant_force(jw, box, (200.0, 0.0))
-    tw = tforces.set_constant_force(tw, box, (200.0, 0.0))
-    x0 = float(tw.bodies.pos[box, 0])
-    for _ in range(30):
-        jw, tw = j_step(jw, jcfg), physics_step_2d(tw, tcfg)
-    assert float(jw.bodies.pos[box, 0]) - x0 == 0.0 and bool(jw.bodies.sleeping[box])
-    assert float(tw.bodies.pos[box, 0]) - x0 > 0.5 and not bool(tw.bodies.sleeping[box])
+    assert float(port["force step 2"].lin_vel[ball, 0]) == pytest.approx(3.0 / 60.0, rel=1e-4)
+    assert float(port["torque step 1"].ang_vel[ball]) == pytest.approx(2.0 / 60.0, rel=1e-4)
+    w0 = float(port["constant torque"].ang_vel[ball])
+    assert float(port["constant torque step 2"].ang_vel[ball]) == pytest.approx(
+        w0 + 2.0 * 2.0 / 60.0, rel=1e-3)
+    assert float(port["impulses"].lin_vel[ball, 0]) == pytest.approx(2.0 / mass, rel=1e-5)
+    assert float(port["impulses"].ang_vel[ball]) == pytest.approx(3.0 / inertia, rel=1e-5)
+    assert float(port["impulse at point"].ang_vel[ball]) < 0.0 < float(
+        port["impulse at point"].lin_vel[ball, 0])
+
+    assert bool(ref["rest step 32"].sleeping[box]) and bool(port["rest step 32"].sleeping[box])
+    x0 = float(port["push"].pos[box, 0])
+    assert float(ref["push step 30"].pos[box, 0]) - x0 == 0.0
+    assert bool(ref["push step 30"].sleeping[box])
+    assert float(port["push step 30"].pos[box, 0]) - x0 > 0.5
+    assert not bool(port["push step 30"].sleeping[box])
 
 
 def test_to_jax2d_round_trip_carries_the_joint_columns():

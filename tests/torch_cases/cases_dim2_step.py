@@ -11,6 +11,11 @@ Tolerances: 1e-4 on poses and velocities after one step (PyTorch's CPU
 start sums per body in another order), 1e-3 after 60 steps of the
 every-shape worlds (their largest difference over those steps was 7e-5); pairs, contact counts, colours, islands and sleep flags
 exactly.
+
+The reference's 60-step runs are read from ``dim2_step_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_dim2_step.py``); its step of the base-20
+pyramid runs live and is held to the recording.
 """
 
 from port_common import ieee_reference
@@ -32,17 +37,29 @@ from avian_tpu_torch.dim2 import SceneBuilder2D, physics_step_2d, rollout_2d  # 
 from avian_tpu_torch.dim2 import scenes as tscenes  # noqa: E402
 
 from cases_dim2 import every_shape_worlds, to_jax2d, to_torch2d  # noqa: E402
-from port_common import as_numpy  # noqa: E402
+from port_common import Recording, as_numpy  # noqa: E402
 
 torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "golden",
                       "pyramid2d_native.npz")
 DIAGNOSTICS = ("num_pairs", "dropped_pairs", "overflow_dropped", "num_overflow",
                "num_touching", "num_sleeping", "nonfinite_bodies")
+RECORDING = Recording("dim2_step")
+_BODY = ("pos", "angle", "lin_vel", "ang_vel", "sleep_timer", "sleeping", "island")
+_CONTACT = ("pair_key", "collider_a", "collider_b", "active", "touching", "num_points", "color",
+            "contact_id", "was_touching", "feature_id", "evicted", "next_contact_id")
+
+
+def _fields(jw):
+    """What ``_hold`` reads of a reference world."""
+    return {"bodies": {n: getattr(jw.bodies, n) for n in _BODY},
+            "contacts": {n: getattr(jw.contacts, n) for n in _CONTACT}, "time": jw.time}
 
 
 def _hold(port_world, ref_world, atol):
-    r, p = jax.tree.map(np.asarray, ref_world), port_world
+    """``ref_world``: a reference world or its recorded ``_fields``."""
+    p = port_world
+    r = ref_world if isinstance(ref_world, dict) else jax.tree.map(np.asarray, ref_world)
     for name in ("pos", "angle", "lin_vel", "ang_vel", "sleep_timer"):
         np.testing.assert_allclose(as_numpy(getattr(p.bodies, name)),
                                    getattr(r.bodies, name), atol=atol, rtol=0, err_msg=name)
@@ -65,7 +82,14 @@ def test_one_step_of_a_base_20_pyramid_matches_reference():
     jcfg, tcfg = JConfig(**kw), TConfig(**kw)
     for _ in range(2):  # warm contacts, colours and impulses
         tw = physics_step_2d(tw, tcfg)
-    jw, jd = j_step(to_jax2d(tw), jcfg, return_diagnostics=True)
+    start = to_jax2d(tw)
+
+    def reference():
+        jw, jd = j_step(start, jcfg, return_diagnostics=True)
+        return {"world": _fields(jw), "diag": dict(jd)}
+
+    ref = RECORDING((start, repr(jcfg)), reference, live=True)
+    jw, jd = ref.world, ref.diag
     pw, pd = physics_step_2d(tw, tcfg, return_diagnostics=True)
     _hold(pw, jw, 1e-4)
     assert set(pd) == set(jd)
@@ -107,12 +131,21 @@ def test_sixty_steps_of_every_shape_match_reference(world):
     cfg = dict(max_colors=4)
     jcfg, tcfg = JConfig(**cfg), TConfig(**cfg)
     tw = to_torch2d(jw) if world == "test_dim2_all_shapes" else tw
+    start = jw
+
+    def reference():
+        w, diags = start, []
+        for _ in range(60):
+            w, d = j_step(w, jcfg, return_diagnostics=True)
+            diags.append({k: d[k] for k in DIAGNOSTICS})
+        return {"world": _fields(w), "diags": diags}
+
+    ref = RECORDING((start, repr(jcfg), 60), reference)
     for i in range(60):
-        jw, jd = j_step(jw, jcfg, return_diagnostics=True)
         tw, td = physics_step_2d(tw, tcfg, return_diagnostics=True)
         for key in DIAGNOSTICS:
-            assert int(td[key]) == int(jd[key]), (i, key)
-    _hold(tw, jw, 1e-3)
+            assert int(td[key]) == int(ref.diags[i][key]), (i, key)
+    _hold(tw, ref.world, 1e-3)
     assert int(td["num_touching"]) >= 8
 
 

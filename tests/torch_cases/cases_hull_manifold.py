@@ -27,7 +27,13 @@ that face, which at a concave fold of a mesh pushes a body resting on the
 next triangle through the mesh; the port applies the rule only where the
 centre lies in front. A pair where the two differ must show the fault in
 the reference (its snapped normal has the other centre behind the face)
-and must equal the reference with that triangle's flat flag cleared."""
+and must equal the reference with that triangle's flat flag cleared.
+
+The reference's manifolds are read from ``hull_manifold_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_hull_manifold.py``, which compiles the 15
+references in threads), except the sphere/segment pair's, which runs live
+and is held to the recording."""
 
 from port_common import ieee_reference
 
@@ -47,7 +53,7 @@ from avian_tpu.geometry import narrowphase as jgeo  # noqa: E402
 from avian_tpu_torch.geometry import narrowphase as tgeo  # noqa: E402
 from avian_tpu_torch.kernels import hull_manifold as kpq  # noqa: E402
 
-from port_common import assert_manifolds_equal, quats, rotate_np  # noqa: E402
+from port_common import Recording, assert_manifolds_equal, quats, rotate_np  # noqa: E402
 
 TOL = 1e-5
 K = 64  # pairs in every batch, so that each reference compiles once
@@ -57,6 +63,8 @@ PAIRS = tuple((a, SEGMENT) for a in (SPHERE, CAPSULE, BOX, PLANE, CYLINDER, CONE
     tuple((a, CONVEX) for a in (SPHERE, CAPSULE, BOX, PLANE, CYLINDER, CONE, SEGMENT, CONVEX))
 _TABLE = {(int(a), int(b)): fn for a, b, fn in jgeo._CANONICAL}
 # Pairs whose manifold has at most 2 points (no face meets a face).
+RECORDING = Recording("hull_manifold")
+LIVE_PAIR = (SPHERE, SEGMENT)  # the one pair whose reference runs live
 _NO_FACE = {(CAPSULE, SEGMENT), (PLANE, SEGMENT), (SEGMENT, SEGMENT)}
 _UP = np.asarray([0.0, 0.0, 0.0, 1.0], np.float32)
 _LYING = np.asarray([0.0, 0.0, np.sin(np.pi / 4), np.cos(np.pi / 4)], np.float32)  # Y -> -X
@@ -243,18 +251,29 @@ def _compile(pair):
 @functools.cache
 def _compiled():
     """Every pair's reference, compiled at once in threads (XLA's compiles
-    overlap; one after the other they take most of this file's time)."""
+    overlap; one after the other they take most of a recording's time)."""
     with ThreadPoolExecutor(8) as ex:
         return dict(zip(PAIRS, ex.map(_compile, PAIRS)))
 
 
+@functools.cache
+def _compiled_one(pair):
+    return _compiled()[pair] if RECORDING.mode == "record" else _compile(pair)
+
+
 def _reference(pair):
-    fn = _compiled()[pair]
-    if getattr(_TABLE[pair], "needs_pool", False):
-        # compute_manifold pads the pool with 32 more zero rows.
-        return lambda inputs, pool: fn(*inputs, np.concatenate(
-            [pool, np.zeros((32, 3), np.float32)]))
-    return lambda inputs, pool: fn(*inputs)
+    """The reference's manifolds of K pairs ``(inputs, pool)``, from the
+    recording, or run live for ``LIVE_PAIR`` and held to it."""
+
+    def run(inputs, pool):
+        fn = _compiled_one(pair)
+        if getattr(_TABLE[pair], "needs_pool", False):
+            # compute_manifold pads the pool with 32 more zero rows.
+            return fn(*inputs, np.concatenate([pool, np.zeros((32, 3), np.float32)]))
+        return fn(*inputs)
+
+    return lambda inputs, pool: RECORDING((pair, list(inputs), pool),
+                                          lambda: run(inputs, pool), live=pair == LIVE_PAIR)
 
 
 def _port(pair, inputs, pool):
@@ -268,11 +287,11 @@ def _port(pair, inputs, pool):
 
 
 def _rows(m, i):
-    """Pair ``i`` of K manifolds (a reference ``Manifold`` or the port's
-    tuple), as a batch of one."""
+    """Pair ``i`` of K manifolds (a recorded reference ``Manifold`` or the
+    port's tuple), as a batch of one."""
     if isinstance(m, tuple):
         return tuple(x[i:i + 1] for x in m)
-    return jax.tree.map(lambda x: np.asarray(x)[i:i + 1], m)
+    return type(m)({k: np.asarray(x)[i:i + 1] for k, x in m.items()})
 
 
 def _agrees(ref, port, i):

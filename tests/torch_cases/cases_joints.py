@@ -16,6 +16,10 @@ reference reproduces to the bit), and how far one port step from the
 reference's state lands from the reference's next state: the parting is the
 reference's own sensitivity to a last-bit difference, not a difference of
 the dynamics.
+
+The settled hinged scene's reference steps are read from
+``joints_reference.npz`` (``port_common.Recording``, keyed by a digest of
+its inputs; rerecord with ``record_references.py cases_joints.py``).
 """
 
 import dataclasses
@@ -46,7 +50,8 @@ from avian_tpu_torch.pipeline import sleeping as tsleep
 from avian_tpu_torch.pipeline import solver_body as tsb
 from avian_tpu_torch.pipeline import xpbd as txpbd
 
-from port_common import PAIRS, as_numpy, assert_columns, assert_worlds_equal, to_torch
+from port_common import (PAIRS, Recording, as_numpy, assert_columns, assert_worlds_equal,
+                         to_torch)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "golden", "falling_hinges.npz")
@@ -66,6 +71,7 @@ def _golden_configs():
 
 
 _J_STEP = jax.jit(partial(j_step, return_diagnostics=True), static_argnums=1)
+RECORDING = Recording("joints")
 
 
 def test_falling_hinges_matches_reference_leaf_for_leaf():
@@ -322,11 +328,26 @@ def test_one_step_of_a_settled_hinged_scene_matches_reference():
     overflow color."""
     jcfg = JConfig(dt=GOLDEN_DT, max_colors=2, substeps=2, shape_pairs=PAIRS)
     tcfg = TConfig(dt=GOLDEN_DT, max_colors=2, substeps=2, shape_pairs=PAIRS)
-    jw, _ = jscenes.falling_hinges(10, 4)
-    for _ in range(45):  # landed: contacts warm, joints colored
-        jw, jd = _J_STEP(jw, jcfg)
+    start, _ = jscenes.falling_hinges(10, 4)
+
+    def reference():
+        w = start
+        for _ in range(45):  # landed: contacts warm, joints colored
+            w, d = _J_STEP(w, jcfg)
+        w2, d2 = _J_STEP(w, jcfg)
+        return {"landed": jax.tree.leaves(w), "landed_diag": dict(d), "next": {
+            "bodies": {n: getattr(w2.bodies, n) for n in (
+                "pos", "quat", "lin_vel", "ang_vel", "sleep_timer", "sleeping", "island")},
+            "contacts": {n: getattr(w2.contacts, n) for n in (
+                "pair_key", "collider_a", "collider_b", "touching", "color")},
+            "joints": {n: getattr(w2.joints, n) for n in ("color", "total_lambda")}},
+            "diag": dict(d2)}
+
+    ref = RECORDING((start, repr(jcfg)), reference)
+    jw = jax.tree.unflatten(jax.tree.structure(start), [jnp.asarray(x) for x in ref.landed])
+    jd = ref.landed_diag
     assert int(jd["num_touching"]) > 30 and int(jd["num_overflow"]) > 0
-    jw2, jd = _J_STEP(jw, jcfg)
+    jw2, jd = ref.next, ref.diag
     pw, pd = physics_step(to_torch(jw), tcfg, return_diagnostics=True)
     assert (as_numpy(pw.joints.color) == 1).sum() >= 10
     # Angular velocities are delta rotations over h = 1/128 s: one unit in

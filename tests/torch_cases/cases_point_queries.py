@@ -27,8 +27,12 @@ Indices and flags are compared exactly, distances and points within ``TOL``.
 The reference is compiled one IEEE operation at a time
 (``port_common.ieee_reference``), each function once for the small worlds
 (one capacity) and once for each large world, in a thread while the port
-runs. The terrain's shape intersections are left to the card's smoke run:
-its support-map pairs would compile for some 20 s more.
+runs. Its outputs are read from ``point_queries_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_point_queries.py``), except the small worlds'
+point function's, which runs live and is held to the recording. The
+terrain's shape intersections are left to the card's smoke run: its
+support-map pairs would compile for some 20 s more.
 """
 
 from port_common import ieee_reference
@@ -57,7 +61,7 @@ from avian_tpu_torch.queries import intersect as tintersect  # noqa: E402
 from avian_tpu_torch.queries.filter import collider_query_mask  # noqa: E402
 from avian_tpu_torch.queries import point as tpoint  # noqa: E402
 
-from port_common import as_numpy, quats  # noqa: E402
+from port_common import Recording, as_numpy, quats  # noqa: E402
 from query_worlds import HULL_CENTRES, SMALL, queries_world, world  # noqa: E402
 
 torch.set_num_threads(1)
@@ -179,16 +183,30 @@ def _submit(kind, name):
     _JOBS[(kind, name)] = _POOL.submit(lambda: jax.jit(fn).lower(*args).compile())
 
 
+RECORDING = Recording("point_queries")
+LIVE = ("points", SMALL[0])  # the one function whose reference runs live
+
+
 def _ref(kind, name):
-    fn = _JOBS[(kind, SMALL[0] if name in SMALL else name)].result()
-    return lambda *args: jax.tree.map(np.asarray, fn(*args))
+    """The reference's ``kind`` function for world ``name``: its outputs from
+    the recording, or run live for ``LIVE`` and held to it."""
+    key = (kind, SMALL[0] if name in SMALL else name)
+
+    def run(*args):
+        return RECORDING((kind, list(args)),
+                         lambda: jax.tree.map(np.asarray, _JOBS[key].result()(*args)),
+                         live=key == LIVE)
+
+    return run
 
 
 # Start compiling as the module loads, the small worlds' functions first, while
-# the large worlds are built.
+# the large worlds are built: the live one, or all where the reference is
+# being recorded or checked.
 for _kind, _name in (("points", SMALL[0]), ("shapes", SMALL[0]), ("points", "pile"),
                      ("shapes", "pile"), ("points", "terrain")):
-    _submit(_kind, _name)
+    if RECORDING.mode or (_kind, _name) == LIVE:
+        _submit(_kind, _name)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,11 @@ rows it had no room for after every step, reference and port side by side), at
 
 The JAX side runs jitted at ``max_colors=6``: a base-6 pyramid's boxes have
 at most six dynamic neighbours, so five proper colors and the overflow color
-are all used, and one compile of the reference covers each scene. Each
-reference function is traced and compiled in a thread as the module loads,
-while the port steps (``_warm``). The port runs under
+are all used. Its outputs are read from ``pyramid_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_pyramid.py``), except ``many_pyramids(2, 3)``'s
+step, which runs live, traced and compiled in a thread as the module loads
+while the port steps (``_warm``), and is held to the recording. The port runs under
 ``torch.inference_mode`` (it keeps no autograd state; the results are the
 same bit for bit), and each small scene's 60 steps run once (``_stand``):
 the settled states the other cases start from are its steps."""
@@ -45,7 +47,7 @@ from avian_tpu_torch.kernels import pack_constraints as kh
 from avian_tpu_torch.pipeline import solver as tsol
 from avian_tpu_torch.pipeline import solver_body as tsb
 
-from port_common import (as_numpy, assert_packed_rows_close, assert_worlds_equal,
+from port_common import (Recording, as_numpy, assert_packed_rows_close, assert_worlds_equal,
                          pile_configs, to_jax, to_torch)
 
 MAX_COLORS = 6
@@ -57,6 +59,14 @@ _J_STEP = jax.jit(partial(j_step, return_diagnostics=True), static_argnums=1)
 STAND_STEPS = 60
 SAG_SLOTS_PER_BOX = 24
 SAG_TOL = 1e-3
+RECORDING = Recording("pyramid")
+_BODY = ("pos", "quat", "lin_vel", "ang_vel", "sleep_timer", "sleeping", "island")
+_CONTACT = ("pair_key", "collider_a", "collider_b", "active", "touching", "num_points", "color",
+            "contact_id", "was_touching", "normal_impulse")
+_DIAG = ("num_pairs", "dropped_pairs", "overflow_dropped", "num_overflow", "num_touching",
+         "num_contact_points", "num_sleeping", "nonfinite_bodies")
+_RC = ("color_c", "buckets", "bucket_valid", "bucket_a", "bucket_b", "overflow_dropped",
+       "num_overflow", "relax", "data", "imp")
 
 
 @partial(jax.jit, static_argnums=1)
@@ -68,30 +78,31 @@ def _ref_prepare(world, config):
 
 
 def _warm():
-    """Run each reference function once, in the order the cases need them,
-    on a world of the shapes they pass (so that its trace and compile are
-    cached): {name: future}, run one after the other in a thread while the
-    port steps. A case waits for its function's future before it calls it."""
+    """Run the live reference function once on a world of the shapes it
+    gets (so that its trace and compile are cached): {name: future}, run in
+    a thread while the port steps. A case waits for its function's future
+    before it calls it."""
     jcfg6, _ = pile_configs(max_colors=MAX_COLORS)
-    jcfg, _ = pile_configs()
+    template, _ = jscenes.many_pyramids(grid=2, base=3)
+    world, _ = scenes.many_pyramids(grid=2, base=3, device="cpu")
+    job = lambda: jax.block_until_ready(_J_STEP(to_jax(world, template), jcfg6))  # noqa: E731
+    return {"many": ThreadPoolExecutor(1).submit(job)}
 
-    def start(scene, **kw):
-        template, _ = getattr(jscenes, scene)(**{k: v for k, v in kw.items()
-                                                 if k != "max_contacts"})
-        world, _ = getattr(scenes, scene)(device="cpu", **kw)
-        return to_jax(world, template)
 
-    n20 = 20 * 21 // 2 + 1
-    jobs = {
-        "pyramid": lambda: _J_STEP(start("box_pyramid", base=6), jcfg6),
-        "many": lambda: _J_STEP(start("many_pyramids", grid=2, base=3), jcfg6),
-        "prepare": lambda: _ref_prepare(start("box_pyramid", base=6), jcfg6),
-        "sag": lambda: _J_STEP(start("box_pyramid", base=20,
-                                     max_contacts=SAG_SLOTS_PER_BOX * n20), jcfg),
-    }
-    pool = ThreadPoolExecutor(1)
-    return {name: pool.submit(lambda job=job: jax.block_until_ready(job()))
-            for name, job in jobs.items()}
+def _ref_step(jw, jcfg):
+    """The reference's step: the bodies' and contacts' columns the cases
+    compare, and its diagnostics."""
+    jw, jd = _J_STEP(jw, jcfg)
+    return {"bodies": {n: getattr(jw.bodies, n) for n in _BODY},
+            "contacts": {n: getattr(jw.contacts, n) for n in _CONTACT},
+            "diag": {k: jd[k] for k in _DIAG}}
+
+
+def _ref_prepare_np(jw, jcfg):
+    w2, contacts, s, rc = _ref_prepare(jw, jcfg)
+    return {"w2": jax.tree.leaves(w2), "contacts": jax.tree.leaves(contacts),
+            "inv_mass": s.inv_mass, "inv_inertia": s.inv_inertia,
+            "rc": {n: getattr(rc, n) for n in _RC}}
 
 
 _WARM = _warm() if __name__ != "__main__" else {}
@@ -163,27 +174,26 @@ def test_add_body_2d_locks_the_plane_and_turns_about_z():
 
 
 def _assert_step_matches(tw, template, ready):
+    """One step of ``tw`` by both packages; the reference's live where
+    ``ready`` names its warm-up, else from the recording."""
     _ready(ready)
     jcfg, tcfg = pile_configs(max_colors=MAX_COLORS)
-    jw, jd = _J_STEP(to_jax(tw, template), jcfg)
+    jw = to_jax(tw, template)
+    ref = RECORDING((jw, repr(jcfg)), lambda: _ref_step(jw, jcfg), live=ready in _WARM)
+    jb, jc, jd = ref.bodies, ref.contacts, ref.diag
     pw, pd = physics_step(tw, tcfg, return_diagnostics=True)
     for name in ("pos", "quat", "lin_vel", "ang_vel", "sleep_timer"):
-        np.testing.assert_allclose(as_numpy(getattr(pw.bodies, name)),
-                                   as_numpy(getattr(jw.bodies, name)),
+        np.testing.assert_allclose(as_numpy(getattr(pw.bodies, name)), jb[name],
                                    atol=STEP_TOL, rtol=0, err_msg=name)
     for name in ("sleeping", "island"):
-        np.testing.assert_array_equal(as_numpy(getattr(pw.bodies, name)),
-                                      as_numpy(getattr(jw.bodies, name)), err_msg=name)
-    for name in ("pair_key", "collider_a", "collider_b", "active", "touching", "num_points",
-                 "color", "contact_id", "was_touching"):
-        p = as_numpy(getattr(pw.contacts, name))
-        np.testing.assert_array_equal(p, as_numpy(getattr(jw.contacts, name)).astype(p.dtype),
+        np.testing.assert_array_equal(as_numpy(getattr(pw.bodies, name)), jb[name],
                                       err_msg=name)
+    for name in _CONTACT[:-1]:
+        p = as_numpy(getattr(pw.contacts, name))
+        np.testing.assert_array_equal(p, jc[name].astype(p.dtype), err_msg=name)
     np.testing.assert_allclose(as_numpy(pw.contacts.normal_impulse).sum(1),
-                               as_numpy(jw.contacts.normal_impulse).sum(1),
-                               atol=STEP_TOL, rtol=0)
-    for key in ("num_pairs", "dropped_pairs", "overflow_dropped", "num_overflow",
-                "num_touching", "num_contact_points", "num_sleeping", "nonfinite_bodies"):
+                               jc["normal_impulse"].sum(1), atol=STEP_TOL, rtol=0)
+    for key in _DIAG:
         assert int(pd[key]) == int(jd[key]), key
     return pw, pd
 
@@ -218,27 +228,27 @@ def test_packing_with_locked_axes_matches_reference():
     worlds, _, _, template = _stand("pyramid2d")
     tw = worlds[8]
     jcfg, tcfg = pile_configs(max_colors=MAX_COLORS)
-    _ready("prepare")
-    jw2, jcontacts_, js, rc = _ref_prepare(to_jax(tw, template), jcfg)
+    jw = to_jax(tw, template)
+    ref = RECORDING((jw, repr(jcfg), "prepare"), lambda: _ref_prepare_np(jw, jcfg))
+    jw2 = jax.tree.unflatten(jax.tree.structure(jw), ref.w2)
+    jcontacts_ = jax.tree.unflatten(jax.tree.structure(jw.contacts), ref.contacts)
+    rc = ref.rc
     w2 = to_torch(jw2)
-    contacts = TContacts.from_numpy(jax.tree.map(np.asarray, jcontacts_),
-                                    n_colliders=w2.colliders.capacity, device="cpu")
+    contacts = TContacts.from_numpy(jcontacts_, n_colliders=w2.colliders.capacity, device="cpu")
     s = tsb.prepare(w2.bodies)
-    np.testing.assert_allclose(s.inv_mass.numpy(), np.asarray(js.inv_mass), atol=PACK_TOL)
-    np.testing.assert_allclose(s.inv_inertia.numpy(), np.asarray(js.inv_inertia),
-                               atol=PACK_TOL)
+    np.testing.assert_allclose(s.inv_mass.numpy(), ref.inv_mass, atol=PACK_TOL)
+    np.testing.assert_allclose(s.inv_inertia.numpy(), ref.inv_inertia, atol=PACK_TOL)
     assert float(s.inv_mass[1:, 2].abs().max()) == 0.0 and float(s.inv_mass[1:, 0].min()) > 0
     assert float(s.inv_inertia[1:, [0, 1, 3, 4, 5]].abs().max()) == 0.0
 
     con = tsol.prepare_constraints(w2, contacts, s, tcfg)
     for name in ("color_c", "buckets", "bucket_valid", "bucket_a", "bucket_b"):
-        np.testing.assert_array_equal(as_numpy(getattr(con, name)), np.asarray(getattr(rc, name)),
-                                      err_msg=name)
+        np.testing.assert_array_equal(as_numpy(getattr(con, name)), rc[name], err_msg=name)
     assert int(con.overflow_dropped) == int(rc.overflow_dropped) == 0
     assert int(con.num_overflow) == int(rc.num_overflow)
-    np.testing.assert_allclose(con.relax.numpy(), np.asarray(rc.relax), atol=PACK_TOL)
+    np.testing.assert_allclose(con.relax.numpy(), rc.relax, atol=PACK_TOL)
     assert_packed_rows_close(con.data, rc.data, rc.bucket_valid, PACK_TOL)
-    np.testing.assert_allclose(con.imp.numpy(), np.asarray(rc.imp), atol=PACK_TOL)
+    np.testing.assert_allclose(con.imp.numpy(), rc.imp, atol=PACK_TOL)
     assert int(rc.bucket_valid.sum()) > 40 and int(rc.bucket_valid[:-1].sum()) > 0
 
     # The wrapper is the plain version on the CPU, and refuses other devices.
@@ -281,13 +291,20 @@ def sag_series(base, steps, slots_per_box=SAG_SLOTS_PER_BOX):
     jw = to_jax(tw, template)
     start = tw.bodies.pos.numpy().copy()
     apex = ids[int(np.argmax(start[ids, 1]))]
+
+    def reference():
+        out, w = [], jw
+        for _ in range(steps):
+            w, jd = _J_STEP(w, jcfg)
+            out.append({"pos": w.bodies.pos, **{k: jd[k] for k in _DIAG}})
+        return out
+
+    ref = RECORDING((jw, repr(jcfg), steps), reference)
     rows = []
-    _ready("sag")
-    for _ in range(steps):
-        jw, jd = _J_STEP(jw, jcfg)
+    for jd in ref:
         tw, td = physics_step(tw, tcfg, return_diagnostics=True)
         assert int(jd["dropped_pairs"]) == 0 and int(td["dropped_pairs"]) == 0
-        jp, tp = np.asarray(jw.bodies.pos), tw.bodies.pos.numpy()
+        jp, tp = jd["pos"], tw.bodies.pos.numpy()
         rows.append((float(jp[apex, 1] - start[apex, 1]), float(tp[apex, 1] - start[apex, 1]),
                      float(np.abs(jp - tp).max()), int(jd["num_overflow"]),
                      int(td["num_overflow"]), int(jd["overflow_dropped"]),
@@ -312,6 +329,7 @@ def test_deep_pyramid_sags_as_the_reference_s():
 
 
 if __name__ == "__main__":
+    RECORDING.mode = "run"
     for step, row in enumerate(sag_series(*map(int, sys.argv[1:])), start=1):
         print(step, "apex y: reference %.4f port %.4f; largest difference %.2e m; "
               "overflow rows: reference %d port %d; dropped: reference %d port %d" % row)

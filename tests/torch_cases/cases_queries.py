@@ -16,7 +16,10 @@ The shape casts through these worlds are ``cases_shape_casts.py``'s and
 
 Collider indices and hit flags must match exactly, distances, points and
 normals within ``TOL``. The reference is compiled one IEEE operation at a
-time (``port_common.ieee_reference``)."""
+time (``port_common.ieee_reference``). Its 64-ray batches are read from
+``queries_reference.npz`` (``port_common.Recording``, keyed by a digest of
+its inputs; rerecord with ``record_references.py cases_queries.py``),
+except the walls', which run live and are held to the recording."""
 
 from port_common import ieee_reference
 
@@ -34,7 +37,7 @@ from avian_tpu.queries import raycast as jraycast  # noqa: E402
 from avian_tpu_torch import PhysicsConfig, physics_step, queries as tq, scenes  # noqa: E402
 
 from cases_ccd_terrain import _j_terrain_ccd  # noqa: E402
-from port_common import as_numpy, to_jax, to_torch  # noqa: E402
+from port_common import Recording, as_numpy, to_jax, to_torch  # noqa: E402
 
 # Distances, points and normals: the analytic tests round alike in both
 # packages; the hull march's 24 x 12 Frank-Wolfe steps and its face fit
@@ -158,6 +161,9 @@ def rays(name, n, seed):
 
 # ---- rays ----------------------------------------------------------------------
 
+RAYS = Recording("queries")
+
+
 @jax.jit
 def _j_all_hits(jw, origins, dirs, solid, mask, excluded):
     qf = jq.QueryFilter(mask=mask, excluded=excluded)
@@ -186,9 +192,9 @@ def test_rays_match_reference(name, solid):
     jw, tw = world(name)
     o, d = rays(name, N_RAYS, seed=len(name))
     (mask, excl), qf = _filters(name, len(name))
-    jt, jn = _j_all_hits(jw, jnp.asarray(o), jnp.asarray(d), jnp.asarray(solid), mask, excl)
+    args = (jw, jnp.asarray(o), jnp.asarray(d), jnp.asarray(solid), mask, excl)
+    jt, jn = RAYS(args, lambda: _j_all_hits(*args), live=name == "walls")
     tt, tn = tq.raycast.all_hits(tw, torch.from_numpy(o), torch.from_numpy(d), solid, qf)
-    jt, jn = np.asarray(jt), np.asarray(jn)
     np.testing.assert_array_equal(as_numpy(tt) < jraycast._BIG, jt < jraycast._BIG)
     hit = jt < jraycast._BIG
     assert hit.sum() >= 4, hit.sum()

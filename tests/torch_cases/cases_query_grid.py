@@ -27,7 +27,11 @@ The casters cross from the reference with ``from_numpy``, as worlds do.
 Indices and flags are compared exactly, distances, points and normals within
 ``TOL``. The reference is compiled one IEEE operation at a time
 (``port_common.ieee_reference``), each function once for each world, in a
-thread while the port runs.
+thread while the port runs. Its outputs are read from
+``query_grid_reference.npz`` (``port_common.Recording``, keyed by a digest of
+its inputs; rerecord with ``record_references.py cases_query_grid.py``),
+except the grid rays through ``every_shape``, which run live and are held to
+the recording.
 """
 
 from port_common import ieee_reference
@@ -54,7 +58,7 @@ from avian_tpu_torch.math import vec  # noqa: E402
 from avian_tpu_torch.pipeline.broadphase import sweep_cell  # noqa: E402
 from avian_tpu_torch.queries import raycast as traycast  # noqa: E402
 
-from port_common import as_numpy  # noqa: E402
+from port_common import Recording, as_numpy  # noqa: E402
 from query_worlds import SMALL, world  # noqa: E402
 
 torch.set_num_threads(1)
@@ -220,14 +224,28 @@ def _submit(kind, name):
 _JGRID = jax.jit(jaccel.build_query_grid)
 
 
+RECORDING = Recording("query_grid")
+LIVE = ("grid", "every_shape")  # the one function whose reference runs live
+
+
 def _ref(kind, name):
-    fn = _JOBS[(kind, name)].result()
-    return lambda *args: jax.tree.map(np.asarray, fn(*args))
+    """The reference's ``kind`` function for world ``name``: its outputs from
+    the recording, or run live for ``LIVE`` and held to it."""
+
+    def run(*args):
+        return RECORDING((kind, list(args)),
+                         lambda: jax.tree.map(np.asarray, _JOBS[(kind, name)].result()(*args)),
+                         live=(kind, name) == LIVE)
+
+    return run
 
 
+# Compile as the module loads: the live function, or all where the reference
+# is being recorded or checked.
 for _kind, _name in (("grid", "every_shape"), ("grid", "pile"), ("casters", "pile"),
                      ("shape_casters", "pile"), ("grid", "terrain")):
-    _submit(_kind, _name)
+    if RECORDING.mode or (_kind, _name) == LIVE:
+        _submit(_kind, _name)
 
 
 # ---------------------------------------------------------------------------

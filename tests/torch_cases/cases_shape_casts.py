@@ -10,7 +10,11 @@ is ``cast_shape``, every other one ``shape_hits(max_hits=4)`` as well, with
 the world's layer mask and excluded set on every third: collider indices
 and hit flags exactly, distances, points and normals within
 ``cases_queries.TOL``. The other support-map pairs' casts (capsules, cylinders,
-cones) are ``cases_support_casts.py``'s."""
+cones) are ``cases_support_casts.py``'s. The reference's casts are read from
+``shape_casts_reference.npz`` (``port_common.Recording``, keyed by a digest
+of its inputs; rerecord with ``record_references.py cases_shape_casts.py
+cases_support_casts.py``), except the sphere's through the walls, which run
+it live and hold it to the recording."""
 
 from port_common import ieee_reference
 
@@ -29,7 +33,9 @@ from avian_tpu.queries import shapecast as jshapecast  # noqa: E402
 from avian_tpu_torch import queries as tq  # noqa: E402
 
 from cases_queries import N_CASTS, _SHAPE_FIELDS, _filters, _same_hit, _unit, world  # noqa: E402
-from port_common import as_numpy  # noqa: E402
+from port_common import Recording, as_numpy  # noqa: E402
+
+RECORDING = Recording("shape_casts")
 
 
 @partial(jax.jit, static_argnums=(1, 6, 8, 9))
@@ -59,11 +65,13 @@ def casts(name, n, seed):
     return o.astype(np.float32), _unit(q), d
 
 
-def check_casts(name, shape_type, params, n, seed, shape_pairs=None, max_distance=20.0):
+def check_casts(name, shape_type, params, n, seed, shape_pairs=None, max_distance=20.0,
+                live=False, recording=RECORDING):
     """``n`` casts of the shape through world ``name`` by both packages:
     ``cast_shape`` on each, ``shape_hits(max_hits=4)`` on every other one
     (the port sweeps the scene once for each), each with the world's
-    filters on every third cast. Returns how many casts hit."""
+    filters on every third cast; the reference's from ``recording``, or run
+    ``live`` and held to it. Returns how many casts hit."""
     jw, tw = world(name)
     o, q, d = casts(name, n, seed)
     prm = tuple(float(x) for x in params)
@@ -75,8 +83,10 @@ def check_casts(name, shape_type, params, n, seed, shape_pairs=None, max_distanc
             (jnp.asarray(0xFFFFFFFF, jnp.uint32), jnp.zeros(jw.colliders.capacity, bool)),
             tq.QueryFilter())
         args = (tuple(map(float, o[k])), tuple(map(float, q[k])), tuple(map(float, d[k])))
-        want_one, want_many = _j_cast(jw, int(shape_type), jnp.asarray(prm), *args, max_distance,
-                                      jq.QueryFilter(mask=mask, excluded=excl), 4, shape_pairs)
+        ref_args = (jw, int(shape_type), jnp.asarray(prm), *args, max_distance,
+                    jq.QueryFilter(mask=mask, excluded=excl), 4, shape_pairs)
+        want_one, want_many = recording((ref_args[0], repr(ref_args[1:])),
+                                        lambda: _j_cast(*ref_args), live=live)
         got_one = tq.cast_shape(tw, int(shape_type), prm, *args, max_distance, qfilter=qf,
                                 shape_pairs=shape_pairs)
         _same_hit(got_one, want_one, _SHAPE_FIELDS)
@@ -99,7 +109,7 @@ def test_sphere_casts_match_reference(name):
     pairs = _TERRAIN_CAST_PAIRS if name == "terrain" else None
     n = 2 if name == "terrain" else N_CASTS
     assert check_casts(name, ShapeType.SPHERE, (0.3,), n, seed=len(name),
-                       shape_pairs=pairs) >= 1
+                       shape_pairs=pairs, live=name == "walls") >= 1
 
 
 def test_box_casts_match_reference():

@@ -10,7 +10,10 @@ with that test's bounds.
 The reference is compiled one IEEE operation at a time
 (``port_common.ieee_reference``). Its step lists the shape pairs this scene
 produces in those steps (``_STEP_PAIRS``); the port's lists every pair, so a
-pair missing from the list would show as a difference."""
+pair missing from the list would show as a difference. Its steps are read
+from ``shapes_reference.npz`` (``port_common.Recording``, keyed by a digest
+of its inputs; rerecord with ``record_references.py cases_shapes.py``); the
+builder's worlds and the world AABBs run it live."""
 
 from port_common import ieee_reference
 
@@ -19,6 +22,7 @@ ieee_reference()
 from functools import partial  # noqa: E402
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
@@ -31,7 +35,7 @@ from avian_tpu_torch.core.builder import SceneBuilder as TBuilder  # noqa: E402
 from avian_tpu_torch.core.config import PhysicsConfig as TConfig  # noqa: E402
 from avian_tpu_torch.geometry import shapes as tshapes  # noqa: E402
 
-from port_common import (as_numpy, assert_worlds_equal, example_many_shapes, pad8,  # noqa: E402
+from port_common import (Recording, as_numpy, assert_worlds_equal, example_many_shapes, pad8,  # noqa: E402
                          quats, to_torch)
 
 STEP_TOL = 1e-4
@@ -105,27 +109,52 @@ def test_many_shapes_matches_the_example_leaf_for_leaf():
     assert sorted(set(wide.bodies.pos[1:, 1].tolist())) == [1.0, 2.5, 4.0]  # three layers
 
 
+RECORDING = Recording("shapes")
+_DIAG = ("num_pairs", "dropped_pairs", "num_touching", "num_contact_points", "num_sleeping",
+         "nonfinite_bodies")
+
+
+def _ref_step(jw, jcfg):
+    rw, rd = _J_STEP(jw, jcfg)
+    return {"bodies": {n: getattr(rw.bodies, n) for n in ("pos", "quat", "lin_vel", "ang_vel",
+                                                          "sleep_timer", "sleeping")},
+            "contacts": {n: getattr(rw.contacts, n) for n in (
+                "pair_key", "active", "touching", "num_points", "contact_id", "normal_impulse")},
+            "diag": {k: rd[k] for k in _DIAG}}
+
+
 def _assert_step_matches(jw):
     jcfg = JConfig(max_colors=MAX_COLORS, shape_pairs=_STEP_PAIRS)
     tcfg = TConfig(max_colors=MAX_COLORS)
-    rw, rd = _J_STEP(jw, jcfg)
+    ref = RECORDING((jw, repr(jcfg)), lambda: _ref_step(jw, jcfg))
+    rb, rc = ref.bodies, ref.contacts
     pw, pd = physics_step(to_torch(jw), tcfg, return_diagnostics=True)
     assert set(pd["manifold_pairs"]) <= set(_STEP_PAIRS), pd["manifold_pairs"]
     for name in ("pos", "quat", "lin_vel", "ang_vel", "sleep_timer"):
-        np.testing.assert_allclose(as_numpy(getattr(pw.bodies, name)),
-                                   np.asarray(getattr(rw.bodies, name)),
+        np.testing.assert_allclose(as_numpy(getattr(pw.bodies, name)), rb[name],
                                    atol=STEP_TOL, rtol=0, err_msg=name)
-    np.testing.assert_array_equal(as_numpy(pw.bodies.sleeping), np.asarray(rw.bodies.sleeping))
+    np.testing.assert_array_equal(as_numpy(pw.bodies.sleeping), rb["sleeping"])
     for name in ("pair_key", "active", "touching", "num_points", "contact_id"):
         p = as_numpy(getattr(pw.contacts, name))
-        np.testing.assert_array_equal(p, np.asarray(getattr(rw.contacts, name)).astype(p.dtype),
-                                      err_msg=name)
+        np.testing.assert_array_equal(p, rc[name].astype(p.dtype), err_msg=name)
     np.testing.assert_allclose(as_numpy(pw.contacts.normal_impulse).sum(1),
-                               np.asarray(rw.contacts.normal_impulse).sum(1), atol=STEP_TOL, rtol=0)
-    for key in ("num_pairs", "dropped_pairs", "num_touching", "num_contact_points",
-                "num_sleeping", "nonfinite_bodies"):
-        assert int(pd[key]) == int(rd[key]), key
-    return rw, pd
+                               rc["normal_impulse"].sum(1), atol=STEP_TOL, rtol=0)
+    for key in _DIAG:
+        assert int(pd[key]) == int(ref.diag[key]), key
+    return None, pd
+
+
+def _reference_steps(jw, jcfg, steps):
+    """The reference's world after ``steps`` steps of ``jw`` (recorded)."""
+
+    def run():
+        w = jw
+        for _ in range(steps):
+            w, _ = _J_STEP(w, jcfg)
+        return jax.tree.leaves(w)
+
+    leaves = RECORDING((jw, repr(jcfg), steps), run)
+    return jax.tree.unflatten(jax.tree.structure(jw), [jnp.asarray(x) for x in leaves])
 
 
 def test_one_step_from_the_start_and_one_from_step_30_match_reference():
@@ -133,8 +162,7 @@ def test_one_step_from_the_start_and_one_from_step_30_match_reference():
     _, pd = _assert_step_matches(jw)
     assert set(pd["manifold_pairs"]) == {(0, 3), (1, 3), (2, 3), (3, 4), (3, 5)}
     jcfg = JConfig(max_colors=MAX_COLORS, shape_pairs=_STEP_PAIRS)
-    for _ in range(30):
-        jw, _ = _J_STEP(jw, jcfg)
+    jw = _reference_steps(jw, jcfg, 30)
     _, pd = _assert_step_matches(jw)
     # Landed: Kernel N's and O's pairs on the plane, and the support-map
     # pairs of neighbours that meet.

@@ -125,8 +125,10 @@ def test_entry_points_default_to_the_card_and_say_so_without_one():
 
 def test_builder_refuses_unported_shapes():
     """Raw TRIANGLE, TRIMESH and HEIGHTFIELD codes (the builder makes those
-    shapes out of pool-backed CONVEX triangles), convex decomposition and
-    custom shapes are refused."""
+    shapes out of pool-backed CONVEX triangles) and convex decomposition are
+    refused. Custom shapes are ported: ``custom_collider`` stores code
+    ``CUSTOM_SHAPE_BASE + index`` and, as the reference's, refuses a
+    collider without mass and inertia."""
     b = SceneBuilder()
     body = b.add_body()
     for shape in (ttypes.ShapeType.TRIANGLE, ttypes.ShapeType.TRIMESH,
@@ -136,8 +138,10 @@ def test_builder_refuses_unported_shapes():
     with pytest.raises(NotImplementedError):
         b.convex_decomposition(body, [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)],
                                [(0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)])
-    with pytest.raises(NotImplementedError):
-        b.custom_collider(body, index=0, mass=1.0, inertia=(1.0, 1.0, 1.0))
+    assert b.custom_collider(body, index=0, mass=1.0, inertia=(1.0, 1.0, 1.0)) == 0
+    assert b._colliders[0]["shape"] == ttypes.CUSTOM_SHAPE_BASE
+    with pytest.raises(ValueError):
+        b.custom_collider(body, index=0)
 
 
 def test_import_leaves_jax_out():

@@ -1,7 +1,9 @@
 """The ported slice end to end: one ``physics_step`` of a settled pile
 against the JAX reference (1e-4 abs), the ``stack3`` golden trajectory
 (1e-3), the all-asleep early-out, the NaN quarantine, determinism, and the
-cases the slice refuses."""
+cases the slice refuses. The reference's step is read from
+``step_reference.npz`` (``port_common.Recording``, keyed by a digest of its
+inputs; rerecord with ``record_references.py cases_step.py``)."""
 
 import os
 
@@ -16,7 +18,7 @@ from avian_tpu.pipeline.step import physics_step as j_step
 from avian_tpu_torch import PhysicsConfig, World, physics_step, rollout, scenes
 from avian_tpu_torch.core.state import Joints
 
-from port_common import pile_configs, settled_pile, to_jax, to_torch
+from port_common import Recording, pile_configs, settled_pile, to_jax, to_torch
 
 GOLDEN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "golden", "stack3.npz"
@@ -27,10 +29,25 @@ def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+RECORDING = Recording("step")
+
+
+def _ref_step(jw, jcfg):
+    rw, rd = j_step(jw, jcfg, return_diagnostics=True)
+    return {"bodies": {n: getattr(rw.bodies, n) for n in (
+                "pos", "quat", "lin_vel", "ang_vel", "sleep_timer", "sleeping", "island")},
+            "contacts": {n: getattr(rw.contacts, n) for n in (
+                "pair_key", "collider_a", "collider_b", "active", "touching", "num_points",
+                "color", "contact_id", "was_touching", "normal_impulse")},
+            "time": rw.time, "diag": dict(rd)}
+
+
 def test_one_step_of_settled_pile_matches_reference():
     tw, template = settled_pile()
     jcfg, tcfg = pile_configs()
-    jw, jd = j_step(to_jax(tw, template), jcfg, return_diagnostics=True)
+    start = to_jax(tw, template)
+    ref = RECORDING((start, repr(jcfg)), lambda: _ref_step(start, jcfg))
+    jw, jd = ref, ref.diag
     pw, pd = physics_step(tw, tcfg, return_diagnostics=True)
     for name in ("pos", "quat", "lin_vel", "ang_vel", "sleep_timer"):
         np.testing.assert_allclose(_np(getattr(pw.bodies, name)), _np(getattr(jw.bodies, name)),
@@ -131,12 +148,38 @@ def test_rollout_and_determinism():
         assert torch.equal(getattr(a.bodies, name), getattr(b.bodies, name)), name
 
 
+class _Idle:
+    """A custom constraint that changes nothing."""
+
+    def prepare(self, world, s, config):
+        return None
+
+    def solve(self, s, data, h):
+        return s, data
+
+
 @pytest.mark.parametrize("case", ["hooks", "custom_joints", "custom_shapes"])
 def test_unported_features_raise(case):
+    """The step takes hooks, custom joints and custom shapes: an object with
+    neither hook, a constraint that changes nothing and a custom shape no
+    collider uses leave ``stack3``'s step bit for bit as it is without them;
+    a collider whose code names a custom shape past the given tuple
+    raises."""
+    from avian_tpu_torch.api import CustomShape
+
     world, _ = scenes.stack3(device="cpu")
-    kw = {case: (object(),) if case == "custom_shapes" else object()}
-    with pytest.raises(NotImplementedError):
-        physics_step(world, PhysicsConfig(), **kw)
+    shape = CustomShape("unused", support=lambda prm, d: d, aabb_half_extents=lambda prm: prm[:, :3])
+    kw = {"hooks": object(), "custom_joints": _Idle(), "custom_shapes": (shape,)}[case]
+    plain = physics_step(world, PhysicsConfig())
+    got = physics_step(world, PhysicsConfig(), **{case: kw})
+    for name in ("pos", "quat", "lin_vel", "ang_vel"):
+        assert torch.equal(getattr(got.bodies, name), getattr(plain.bodies, name)), name
+    if case == "custom_shapes":
+        st = world.colliders.shape_type.clone()
+        st[1] = 17  # a second custom shape, which the tuple lacks
+        bad = world.replace(colliders=world.colliders.replace(shape_type=st))
+        with pytest.raises(ValueError):
+            physics_step(bad, PhysicsConfig(), **{case: kw})
 
 
 def test_an_active_joint_is_solved():

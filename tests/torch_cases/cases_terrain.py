@@ -14,7 +14,12 @@ The reference is compiled one IEEE operation at a time
 (``port_common.ieee_reference``), once: every stepped world has the same
 capacities, pool size and ``shape_pairs`` (``STEP_PAIRS``, what these
 steps produce). The port's step evaluates every pair it meets, so a pair
-missing from that list would show as a difference."""
+missing from that list would show as a difference.
+
+The reference's steps are read from ``terrain_reference.npz``
+(``port_common.Recording``, keyed by a digest of its inputs; rerecord with
+``record_references.py cases_terrain.py``); the builder's worlds are the
+file's live reference cases."""
 
 from port_common import ieee_reference
 
@@ -37,7 +42,7 @@ from avian_tpu_torch.core.builder import SceneBuilder as TBuilder  # noqa: E402
 from avian_tpu_torch.core.config import PhysicsConfig as TConfig  # noqa: E402
 from avian_tpu_torch.geometry import shapes as tshapes  # noqa: E402
 
-from port_common import as_numpy, assert_worlds_equal, quats, to_torch  # noqa: E402
+from port_common import Recording, as_numpy, assert_worlds_equal, quats, to_torch  # noqa: E402
 
 STEP_TOL = 1e-4
 AABB_TOL = 1e-6
@@ -48,6 +53,9 @@ STEP_PAIRS = ((0, 8), (1, 8), (2, 8), (3, 8), (4, 8), (5, 8), (8, 8))
 CAPACITY = dict(max_bodies=16, max_colliders=64, max_contacts=128)
 POOL_ROWS = 256
 _J_STEP = jax.jit(partial(j_step, return_diagnostics=True), static_argnums=1)
+RECORDING = Recording("terrain")
+_DIAG = ("num_pairs", "dropped_pairs", "num_touching", "num_contact_points", "num_sleeping",
+         "nonfinite_bodies")
 _J_CONFIG = JConfig(max_colors=MAX_COLORS, shape_pairs=STEP_PAIRS)
 _T_CONFIG = TConfig(max_colors=MAX_COLORS)
 
@@ -312,34 +320,48 @@ def _same_shapes(jw):
     return jw.replace(convex_verts=pool, shape_pairs=STEP_PAIRS)
 
 
+def _ref_step(jw):
+    rw, rd = _J_STEP(jw, _J_CONFIG)
+    return {"bodies": {n: getattr(rw.bodies, n) for n in ("pos", "quat", "lin_vel", "ang_vel",
+                                                          "sleep_timer", "sleeping")},
+            "contacts": {n: getattr(rw.contacts, n) for n in (
+                "pair_key", "active", "touching", "num_points", "contact_id", "normal_impulse")},
+            "diag": {k: rd[k] for k in _DIAG}}
+
+
 def _assert_step_matches(jw):
     """One step of the reference's world ``jw`` by both packages; the
-    reference's next world."""
-    rw, rd = _J_STEP(jw, _J_CONFIG)
+    port's diagnostics."""
+    ref = RECORDING(jw, lambda: _ref_step(jw))
+    rb, rc = ref.bodies, ref.contacts
     pw, pd = physics_step(to_torch(jw).replace(shape_pairs=None), _T_CONFIG,
                           return_diagnostics=True)
     assert set(pd["manifold_pairs"]) <= set(STEP_PAIRS), pd["manifold_pairs"]
     for name in ("pos", "quat", "lin_vel", "ang_vel", "sleep_timer"):
-        np.testing.assert_allclose(as_numpy(getattr(pw.bodies, name)),
-                                   np.asarray(getattr(rw.bodies, name)),
+        np.testing.assert_allclose(as_numpy(getattr(pw.bodies, name)), rb[name],
                                    atol=STEP_TOL, rtol=0, err_msg=name)
-    np.testing.assert_array_equal(as_numpy(pw.bodies.sleeping), np.asarray(rw.bodies.sleeping))
+    np.testing.assert_array_equal(as_numpy(pw.bodies.sleeping), rb["sleeping"])
     for name in ("pair_key", "active", "touching", "num_points", "contact_id"):
         p = as_numpy(getattr(pw.contacts, name))
-        np.testing.assert_array_equal(p, np.asarray(getattr(rw.contacts, name)).astype(p.dtype),
-                                      err_msg=name)
+        np.testing.assert_array_equal(p, rc[name].astype(p.dtype), err_msg=name)
     np.testing.assert_allclose(as_numpy(pw.contacts.normal_impulse).sum(1),
-                               np.asarray(rw.contacts.normal_impulse).sum(1), atol=STEP_TOL, rtol=0)
-    for key in ("num_pairs", "dropped_pairs", "num_touching", "num_contact_points",
-                "num_sleeping", "nonfinite_bodies"):
-        assert int(pd[key]) == int(rd[key]), key
-    return rw, pd
+                               rc["normal_impulse"].sum(1), atol=STEP_TOL, rtol=0)
+    for key in _DIAG:
+        assert int(pd[key]) == int(ref.diag[key]), key
+    return None, pd
 
 
 def _reference_steps(jw, steps):
-    for _ in range(steps):
-        jw, _ = _J_STEP(jw, _J_CONFIG)
-    return jw
+    """The reference's world after ``steps`` steps of ``jw`` (recorded)."""
+
+    def run():
+        w = jw
+        for _ in range(steps):
+            w, _ = _J_STEP(w, _J_CONFIG)
+        return jax.tree.leaves(w)
+
+    leaves = RECORDING((jw, steps), run)
+    return jax.tree.unflatten(jax.tree.structure(jw), [jnp.asarray(x) for x in leaves])
 
 
 def test_terrain_steps_match_reference():

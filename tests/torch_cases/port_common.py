@@ -269,3 +269,134 @@ def assert_packed_rows_close(port, ref, valid, tol):
             cols = slice(base + width * i, base + width * (i + 1))
             close(port[..., cols][on[..., i]], ref[..., cols][on[..., i]],
                   f"data {base} point {i}")
+
+
+# ---- recorded reference outputs ------------------------------------------------------
+
+RECORD_ENV = "AVIAN_RECORD"  # "record": run the reference and write; "check": run and compare
+
+
+def digest(inputs) -> str:
+    """A digest of the reference's inputs: every leaf's dtype, shape and
+    bytes and the tree's structure (static metadata included)."""
+    import hashlib
+
+    leaves, tree = jax.tree_util.tree_flatten(inputs)
+    h = hashlib.sha256(str(tree).encode())
+    for x in leaves:
+        a = np.asarray(x)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:20]
+
+
+class Tree(dict):
+    """A recorded output: nested names as attributes and items."""
+
+    __getattr__ = dict.__getitem__
+
+
+def _flatten(outputs):
+    """{path: numpy array} of a pytree of arrays."""
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(outputs)[0]:
+        names = []
+        for k in path:
+            if isinstance(k, jax.tree_util.SequenceKey):
+                names.append(f"#{k.idx}")
+            else:
+                names.append(str(getattr(k, "name", getattr(k, "key", k))))
+        flat["/".join(names)] = np.asarray(leaf)
+    return flat
+
+
+def _unflatten(flat):
+    """The nested ``Tree``/list of ``_flatten``'s paths."""
+    root = {}
+    for path, a in flat.items():
+        node = root
+        *head, last = path.split("/") if path else ("",)
+        for name in head:
+            node = node.setdefault(name, {})
+        node[last] = a
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [build(node[f"#{i}"]) for i in range(len(node))]
+        if list(node) == [""]:
+            return node[""]
+        return Tree({k: build(v) for k, v in node.items()})
+
+    return build(root)
+
+
+class Recording:
+    """The JAX reference's outputs of one case file, recorded beside it in
+    ``<name>_reference.npz`` and keyed by a digest of the reference's inputs,
+    so that a case reads what compiling the reference would give. A case
+    whose inputs changed finds no recording and fails until the recording is
+    made again. With ``AVIAN_RECORD=record`` in the environment the
+    reference runs and the file is written as the process ends; with
+    ``AVIAN_RECORD=check`` it runs and must equal the recording
+    (``tests/torch_cases/record_references.py`` runs a case file either
+    way). A ``live`` call always runs the reference and holds it to the
+    recording: each file keeps one on its cheapest input, so that a
+    recording that has gone stale fails."""
+
+    def __init__(self, name):
+        import os
+
+        self.path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 f"{name}_reference.npz")
+        self.mode = os.environ.get(RECORD_ENV, "")
+        self._stored = None
+        self._new = {}
+
+    def stored(self):
+        import os
+
+        if self._stored is None:
+            self._stored = {}
+            if os.path.exists(self.path):
+                with np.load(self.path) as z:
+                    self._stored = {k: z[k] for k in z.files}
+        return self._stored
+
+    def _entry(self, key):
+        prefix = key + ":"
+        return {k[len(prefix):]: v for k, v in self.stored().items() if k.startswith(prefix)}
+
+    def __call__(self, inputs, compute, live=False):
+        """``compute()``'s outputs (a pytree of arrays, as a ``Tree``), from
+        the recording of ``inputs`` or, recording, checking or ``live``,
+        from the reference itself."""
+        key = digest(inputs)
+        if not (self.mode or live):
+            entry = self._entry(key)
+            assert entry, (f"no recording of these inputs ({key}) in {self.path}: run "
+                           "tests/torch_cases/record_references.py on this case file")
+            return _unflatten(entry)
+        flat = _flatten(compute())
+        if self.mode == "run":  # the reference alone, for a script
+            return _unflatten(flat)
+        if self.mode == "record":
+            if not self._new:
+                import atexit
+
+                atexit.register(self._write)
+            self._new.update({f"{key}:{k}": v for k, v in flat.items()})
+        else:
+            entry = self._entry(key)
+            assert set(entry) == set(flat), f"the recording of {key} is stale"
+            for k, v in flat.items():
+                if v.dtype.kind == "f":
+                    np.testing.assert_allclose(v, entry[k], rtol=1e-6, atol=1e-6,
+                                               err_msg=f"the recording of {key} is stale: {k}")
+                else:
+                    np.testing.assert_array_equal(v, entry[k], err_msg=f"stale: {key} {k}")
+        return _unflatten(flat)
+
+    def _write(self):
+        np.savez_compressed(self.path, **self._new)

@@ -29,6 +29,9 @@ import pytest
 TESTS = os.path.dirname(os.path.abspath(__file__))
 CASES_DIR = os.path.join(TESTS, "torch_cases")
 TIMEOUT_S = 600
+# Plugins the cases never use, whose imports cost a child about a second:
+# hypothesis's, jaxtyping's and anyio's.
+UNUSED_PLUGINS = ("hypothesispytest", "jaxtyping", "anyio")
 
 
 def _child_report(filename):
@@ -39,6 +42,7 @@ def _child_report(filename):
         cmd = [
             sys.executable, "-m", "pytest", os.path.join(CASES_DIR, filename),
             "-q", "-p", "no:cacheprovider", "-o", "addopts=", f"--junitxml={report}",
+            *(f"-pno:{name}" for name in UNUSED_PLUGINS),
         ]
         try:
             proc = subprocess.run(
