@@ -10,8 +10,9 @@ the triangles of trimeshes and heightfields) and user shapes
 rays and shapes into a world and
 projects points and intersects shapes there; ``contact_query`` holds the
 standalone pair queries and the time of impact, ``character`` the kinematic
-move-and-slide controller, ``picking`` the pointer picks; ``dim2`` is the
-native 2D engine (``physics_step_2d``). Thirty-six hand-written Hopper
+move-and-slide controller, ``picking`` the pointer picks; ``parallel``
+steps batches of scenes (``replicate_world``, ``make_batched_step``);
+``dim2`` is the native 2D engine (``physics_step_2d``). Thirty-six hand-written Hopper
 kernels (A-Z, AA-AJ, with Kernel S's overlap and manifold modes and the
 custom-shape instances of E, M, O, P and AF) carry the hot paths (see
 ``avian_tpu_torch.kernels``); on CPU tensors their plain PyTorch twins run.
@@ -22,7 +23,7 @@ from avian_tpu_torch.core.types import BodyType, CoefficientCombine, JointType, 
 from avian_tpu_torch.core.state import Bodies, Colliders, Contacts, Joints, World
 from avian_tpu_torch.core.builder import SceneBuilder
 from avian_tpu_torch.pipeline.step import physics_step, rollout
-from avian_tpu_torch import api, character, dim2, kernels, picking, queries, scenes
+from avian_tpu_torch import api, character, dim2, kernels, parallel, picking, queries, scenes
 from avian_tpu_torch.api import CUSTOM_SHAPE_BASE, CustomShape
 from avian_tpu_torch.geometry import contact_query
 from avian_tpu_torch.queries import (QueryFilter, RayHit, ShapeHit, cast_ray,
@@ -36,5 +37,5 @@ __all__ = [
     "SceneBuilder", "physics_step", "rollout", "kernels", "scenes", "queries", "dim2",
     "cast_ray", "ray_hits", "RayHit", "cast_shape", "shape_hits", "ShapeHit", "QueryFilter",
     "cast_ray_predicate", "cast_shape_predicate", "contact_query", "character", "picking",
-    "api", "CustomShape", "CUSTOM_SHAPE_BASE",
+    "api", "CustomShape", "CUSTOM_SHAPE_BASE", "parallel",
 ]

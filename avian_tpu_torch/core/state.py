@@ -396,6 +396,14 @@ class World:
     def device(self) -> torch.device:
         return self.bodies.pos.device
 
+    @property
+    def scene_count(self) -> int:
+        """1 for a world. ``parallel.make_batched_step`` steps B scenes as one
+        flat world whose columns are the scenes' end to end and whose own
+        leaves (``gravity`` f32[B, 3], ``time``, ``diverged``,
+        ``contacts.next_contact_id``) keep one entry a scene: B."""
+        return self.gravity.shape[0] if self.gravity.dim() == 2 else 1
+
     def to(self, device) -> "World":
         return self.replace(
             bodies=self.bodies.to(device),

@@ -4,7 +4,9 @@
 // (:117), integrator.py::pre_process_velocity_increments (:47) with Kernel
 // C's per-step table, and the force clear of step.py. See
 // kernels/body_pass.py. One thread per body; no gathers, nothing shared
-// between bodies: bound by bytes. Every sum follows the plain version's
+// between bodies: bound by bytes. A flat world of several scenes
+// (avian_tpu_torch/parallel) passes one gravity a scene: body i reads that of
+// scene i / n_scene (a single world: n_scene = n, one gravity). Every sum follows the plain version's
 // order and the file is compiled with -fmad=false, so the results are the
 // plain version's to the bit.
 //
@@ -62,7 +64,7 @@ __device__ __forceinline__ void sym_rotate(const float* s, const M3& r, float* o
 __device__ __forceinline__ float unlocked(int locks, int bit) { return (locks & bit) > 0 ? 0.0f : 1.0f; }
 
 __global__ void prepare_bodies_kernel(
-    int n, const int* __restrict__ body_type, const int* __restrict__ locked_axes,
+    int n, int n_scene, const int* __restrict__ body_type, const int* __restrict__ locked_axes,
     const unsigned char* __restrict__ active, const unsigned char* __restrict__ sleeping,
     const unsigned char* __restrict__ gyroscopic, const float* __restrict__ quat,
     const float* __restrict__ inv_inertia, const float* __restrict__ lin_vel,
@@ -114,7 +116,7 @@ __global__ void prepare_bodies_kernel(
   // Velocity increments.
   long i3 = 3 * (long)i;
   V3 f = (load3(force + i3) + load3(const_force + i3)) + rotate(q, load3(const_local_force + i3));
-  V3 g = load3(gravity) * gravity_scale[i];
+  V3 g = load3(gravity + 3 * (long)(i / n_scene)) * gravity_scale[i];
   V3 lin_acc = ((g + f * im) + load3(const_lin_acc + i3)) + rotate(q, load3(const_local_lin_acc + i3));
   V3 tq = (load3(torque + i3) + load3(const_torque + i3)) + rotate(q, load3(const_local_torque + i3));
   V3 ang_acc = (sym_mv(w_inv_i, tq) + load3(const_ang_acc + i3)) +
@@ -198,7 +200,7 @@ __global__ void writeback_2d_kernel(
 }  // namespace
 
 extern "C" int avian_prepare_bodies(
-    int n, const int* body_type, const int* locked_axes, const unsigned char* active,
+    int n, int n_scene, const int* body_type, const int* locked_axes, const unsigned char* active,
     const unsigned char* sleeping, const unsigned char* gyroscopic, const float* quat,
     const float* inv_inertia, const float* lin_vel, const float* ang_vel, const float* force,
     const float* torque, const float* const_force, const float* const_local_force,
@@ -210,7 +212,7 @@ extern "C" int avian_prepare_bodies(
     float* inv_inertia_out, float* solve_mask, float* table, float h, void* stream) {
   const int threads = 128;
   prepare_bodies_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      n, body_type, locked_axes, active, sleeping, gyroscopic, quat, inv_inertia, lin_vel,
+      n, n_scene, body_type, locked_axes, active, sleeping, gyroscopic, quat, inv_inertia, lin_vel,
       ang_vel, force, torque, const_force, const_local_force, const_torque, const_local_torque,
       const_lin_acc, const_local_lin_acc, const_ang_acc, const_local_ang_acc, inv_mass,
       gravity_scale, lin_damping, ang_damping, max_lin_speed, max_ang_speed, gravity, state,

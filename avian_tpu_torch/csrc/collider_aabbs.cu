@@ -5,16 +5,24 @@
 // update_aabbs (:96) with geometry/shapes.py::world_aabb (:71), and the key
 // emission of broad_phase (:217-279). Bound by bytes: a collider reads about
 // 120 bytes of its own and its body's columns and writes 52 (AABB and pose),
-// then 32 of keys and 52 of table rows; the arithmetic is a few dozen
-// operations. The cell size stays on the device and is read through a
+// then 64 of keys and 52 of table rows; the arithmetic is a few dozen
+// operations. The cell sizes stay on the device and are read through a
 // pointer. The division by the cell size is IEEE (__fdiv_rn), as the plain
 // version's, so a collider on a cell edge lands in the same cell; the clamp
 // to +-2e9 comes before the cast to int, where CUDA and the CPU differ.
+//
+// A flat world of B scenes (avian_tpu_torch/parallel) holds B runs of
+// m_scene colliders: collider i is in scene i / m_scene, divides by that
+// scene's cell size and puts the scene above the 31 bits of its packed key
+// (the 30 bits of the cell, or the sentinel 2^31 - 1), so that one sort
+// keeps every scene's entries together and no run of equal keys crosses two
+// scenes. A single world is one scene: its keys are the 32-bit ones.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kSentinel = 0x7fffffff;
+constexpr int kSceneShift = 31;
 constexpr int kSphere = 0, kCapsule = 1, kBox = 2, kPlane = 3, kCylinder = 4, kCone = 5,
               kSegment = 6, kConvex = 8;
 constexpr int kDynamic = 1;
@@ -88,18 +96,20 @@ __device__ __forceinline__ int cell_of(float x, float cell) {
   return (int)f;
 }
 
-__global__ void cell_keys_kernel(int m, const float* __restrict__ aabb_min,
+__global__ void cell_keys_kernel(int m, int m_scene, const float* __restrict__ aabb_min,
                                  const float* __restrict__ aabb_max,
                                  const float* __restrict__ cell_ptr,
                                  const unsigned char* __restrict__ in_sweep,
                                  const int* __restrict__ body_idx, const int* __restrict__ mem,
                                  const int* __restrict__ fil, const int* __restrict__ body_type,
                                  const unsigned char* __restrict__ body_active,
-                                 int* __restrict__ ckey, float* __restrict__ fpack,
+                                 long long* __restrict__ ckey, float* __restrict__ fpack,
                                  int* __restrict__ ipack) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  float cell = cell_ptr[0];
+  int scene = i / m_scene;
+  float cell = cell_ptr[scene];
+  long long base = (long long)scene << kSceneShift;
   float lo0 = aabb_min[3 * i], lo1 = aabb_min[3 * i + 1], lo2 = aabb_min[3 * i + 2];
   float hi0 = aabb_max[3 * i], hi1 = aabb_max[3 * i + 1], hi2 = aabb_max[3 * i + 2];
   int a0 = cell_of(lo0, cell), a1 = cell_of(lo1, cell), a2 = cell_of(lo2, cell);
@@ -108,7 +118,7 @@ __global__ void cell_keys_kernel(int m, const float* __restrict__ aabb_min,
   for (int j = 0; j < 8; ++j) {
     int c0 = a0 + ((j >> 2) & 1), c1 = a1 + ((j >> 1) & 1), c2 = a2 + (j & 1);
     bool ok = sweep && c0 <= b0 && c1 <= b1 && c2 <= b2;
-    ckey[8 * i + j] = ok ? cell_key(c0, c1, c2) : kSentinel;
+    ckey[8 * (long)i + j] = base | (ok ? cell_key(c0, c1, c2) : kSentinel);
   }
   float* f = fpack + 6 * i;
   f[0] = lo0;
@@ -145,14 +155,15 @@ extern "C" int avian_collider_aabbs(int m, const int* body_idx, const int* shape
   return (int)cudaGetLastError();
 }
 
-extern "C" int avian_cell_keys(int m, const float* aabb_min, const float* aabb_max,
-                               const float* cell_ptr, const unsigned char* in_sweep,
-                               const int* body_idx, const int* mem, const int* fil,
-                               const int* body_type, const unsigned char* body_active, int* ckey,
-                               float* fpack, int* ipack, void* stream) {
+extern "C" int avian_cell_keys(int m, int m_scene, const float* aabb_min,
+                               const float* aabb_max, const float* cell_ptr,
+                               const unsigned char* in_sweep, const int* body_idx,
+                               const int* mem, const int* fil, const int* body_type,
+                               const unsigned char* body_active, long long* ckey, float* fpack,
+                               int* ipack, void* stream) {
   const int threads = 128;
   cell_keys_kernel<<<(m + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      m, aabb_min, aabb_max, cell_ptr, in_sweep, body_idx, mem, fil, body_type, body_active, ckey,
-      fpack, ipack);
+      m, m_scene, aabb_min, aabb_max, cell_ptr, in_sweep, body_idx, mem, fil, body_type,
+      body_active, ckey, fpack, ipack);
   return (int)cudaGetLastError();
 }

@@ -76,12 +76,11 @@ struct RowsIn {
   const float* b_lin_vel;
   const int* hit;
   const unsigned char* survives;
-  const int* new_rank;
+  const int* new_id;
   const unsigned char* o_active;
   const unsigned char* o_touching;
   const int* o_color;
   const int* o_cid;
-  const int* o_next_cid;
   const int* o_fid;
   const float* o_anchor_a;
   const float* o_nimp;
@@ -207,7 +206,7 @@ __global__ void contact_rows_kernel(int c_cap, RowsIn in, float dt, float spec_d
   out.was_touching[c] = (matched && in.o_touching[os] != 0) ? 1 : 0;
   out.is_sensor[c] = (in.col_sensor[ca] != 0 || in.col_sensor[cb] != 0) ? 1 : 0;
   out.color[c] = matched ? in.o_color[os] : -1;
-  out.contact_id[c] = matched ? in.o_cid[os] : (is_new ? in.o_next_cid[0] + in.new_rank[c] : 0);
+  out.contact_id[c] = matched ? in.o_cid[os] : (is_new ? in.new_id[c] : 0);
   out.friction[c] = combine(in.col_fric[ca], in.col_fric[cb], in.col_fcomb[ca], in.col_fcomb[cb]);
   out.sfriction[c] =
       combine(in.col_sfric[ca], in.col_sfric[cb], in.col_fcomb[ca], in.col_fcomb[cb]);
@@ -239,9 +238,9 @@ extern "C" int avian_contact_rows(
     const int* col_body, const float* col_spec, const float* col_margin, const float* col_fric,
     const float* col_sfric, const float* col_rest, const int* col_fcomb, const int* col_rcomb,
     const unsigned char* col_sensor, const float* b_pos, const float* b_quat, const float* b_com,
-    const float* b_lin_vel, const int* hit, const unsigned char* survives, const int* new_rank,
+    const float* b_lin_vel, const int* hit, const unsigned char* survives, const int* new_id,
     const unsigned char* o_active, const unsigned char* o_touching, const int* o_color,
-    const int* o_cid, const int* o_next_cid, const int* o_fid, const float* o_anchor_a,
+    const int* o_cid, const int* o_fid, const float* o_anchor_a,
     const float* o_nimp, const float* o_timp, const int* o_npoints, const int* o_body_a,
     const int* o_body_b, float dt, float spec_default, float tol, float dist_thresh,
     int match_contacts, int* body_a, int* body_b, unsigned char* touching,
@@ -252,9 +251,8 @@ extern "C" int avian_contact_rows(
   RowsIn in{valid,      ca,        cb,        m_pa,     m_pb,       m_sep,     m_fid,
             m_count,    col_body,  col_spec,  col_margin, col_fric, col_sfric, col_rest,
             col_fcomb,  col_rcomb, col_sensor, b_pos,   b_quat,     b_com,     b_lin_vel,
-            hit,        survives,  new_rank,  o_active, o_touching, o_color,   o_cid,
-            o_next_cid, o_fid,     o_anchor_a, o_nimp,  o_timp,     o_npoints, o_body_a,
-            o_body_b};
+            hit,        survives,  new_id,    o_active, o_touching, o_color,   o_cid,
+            o_fid,      o_anchor_a, o_nimp,   o_timp,   o_npoints,  o_body_a,  o_body_b};
   RowsOut out{body_a,     body_b,      touching,   was_touching, is_sensor, num_points,
               anchor_a,   anchor_b,    penetration, feature_id,  nimp,      timp,
               friction,   sfriction,   restitution, color,       contact_id, evicted,

@@ -28,6 +28,11 @@ the plain version to the bit.
 kernel (the device code is ``d2::writeback_body_2d`` in ``csrc/dim2.cuh``).
 Its prologue, the 2D ``prepare``, is Kernel Z's (``integrate_2d.prepare_2d``).
 
+Gravity is f32[B, 3], one row for each of B scenes of N / B bodies (B = 1
+for a world, B > 1 for the flat world that ``parallel.make_batched_step``
+steps): each body takes its own scene's, as ``jax.vmap`` of the reference
+gives each scene its own.
+
 The plain PyTorch versions, ``prepare_bodies_twin``, ``writeback_bodies_twin``
 and ``writeback_2d_twin``, run on CPU tensors; on a CUDA tensor the wrappers
 launch the kernels or raise.
@@ -74,9 +79,18 @@ def moving_mask(bodies):
     return bodies.active & ~bodies.sleeping & (bodies.body_type != types.BodyType.STATIC)
 
 
+def _scene_size(gravity, n):
+    """N / B: the bodies of each scene of the gravity rows ``gravity`` f32[B, 3]."""
+    if gravity.dim() != 2 or gravity.shape[0] == 0 or n % gravity.shape[0]:
+        raise ValueError(f"prepare_bodies: {n} bodies in scenes of gravity "
+                         f"{tuple(gravity.shape)}")
+    return max(n // gravity.shape[0], 1)
+
+
 def prepare_bodies_twin(bodies, gravity, h):
     """Plain PyTorch version; see ``prepare_bodies``."""
     n = bodies.capacity
+    body_gravity = gravity[torch.arange(n, device=gravity.device) // _scene_size(gravity, n)]
     b = bodies
     dynamic = b.body_type == types.BodyType.DYNAMIC
     moving = moving_mask(b)
@@ -101,7 +115,7 @@ def prepare_bodies_twin(bodies, gravity, h):
     q = b.quat
     force = b.force + b.const_force + quat_m.rotate(q, b.const_local_force)
     lin_acc = (
-        gravity[None, :] * b.gravity_scale[:, None]
+        body_gravity * b.gravity_scale[:, None]
         + force * b.inv_mass[:, None]
         + b.const_lin_acc
         + quat_m.rotate(q, b.const_local_lin_acc)
@@ -133,8 +147,8 @@ def prepare_bodies_twin(bodies, gravity, h):
 def prepare_bodies(bodies, gravity, h):
     """``(state f32[N, 13], inv_mass f32[N, 3], inv_inertia f32[N, 6],
     solve_mask f32[N], table f32[N, 22])`` for one step of substep ``h``
-    under ``gravity`` f32[3] (column layout of ``table`` in
-    ``kernels/integrate_bodies.py``)."""
+    under ``gravity`` f32[B, 3] of B scenes of N / B bodies (column layout
+    of ``table`` in ``kernels/integrate_bodies.py``)."""
     dev = bodies.pos.device
     if dev.type == "cpu":
         return prepare_bodies_twin(bodies, gravity, h)
@@ -144,6 +158,7 @@ def prepare_bodies(bodies, gravity, h):
 
     n = bodies.capacity
     b = bodies
+    n_scene = _scene_size(gravity, n)
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
     v3 = [(name, getattr(b, name), (n, 3), f32) for name in (
         "lin_vel", "ang_vel", "force", "torque", "const_force", "const_local_force",
@@ -156,7 +171,8 @@ def prepare_bodies(bodies, gravity, h):
         ("body_type", b.body_type, (n,), i32), ("locked_axes", b.locked_axes, (n,), i32),
         ("active", b.active, (n,), u8), ("sleeping", b.sleeping, (n,), u8),
         ("gyroscopic", b.gyroscopic, (n,), u8), ("quat", b.quat, (n, 4), f32),
-        ("inv_inertia", b.inv_inertia, (n, 6), f32), ("gravity", gravity, (3,), f32),
+        ("inv_inertia", b.inv_inertia, (n, 6), f32),
+        ("gravity", gravity, (gravity.shape[0], 3), f32),
     ])
     state = torch.empty((n, STATE_COLS), dtype=f32, device=dev)
     inv_mass = torch.empty((n, 3), dtype=f32, device=dev)
@@ -165,7 +181,7 @@ def prepare_bodies(bodies, gravity, h):
     table = torch.empty((n, TABLE_COLS), dtype=f32, device=dev)
     if n == 0:
         return state, inv_mass, inv_inertia, solve_mask, table
-    build.launch("avian_prepare_bodies", dev, n, b.body_type, b.locked_axes, b.active,
+    build.launch("avian_prepare_bodies", dev, n, n_scene, b.body_type, b.locked_axes, b.active,
                  b.sleeping, b.gyroscopic, b.quat, b.inv_inertia, *(x for _, x, _, _ in v3),
                  *(x for _, x, _, _ in s1), gravity, state, inv_mass, inv_inertia, solve_mask,
                  table, float(h))

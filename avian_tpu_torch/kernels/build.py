@@ -59,10 +59,10 @@ _SIGNATURES = {
     "avian_solve_color": [_I] * 5 + [_P] * 10 + [_F] * 5 + [_P],
     # Kernel E
     "avian_collider_aabbs": [_I] + [_P] * 10 + [_F] * 3 + [_P] * 4 + [_P],
-    "avian_cell_keys": [_I] + [_P] * 12 + [_P],
+    "avian_cell_keys": [_I, _I] + [_P] * 12 + [_P],
     # Kernel F
     "avian_contact_join": [_I] + [_P] * 4 + [_P],
-    "avian_contact_rows": [_I] + [_P] * 36 + [_F] * 4 + [_I] + [_P] * 21 + [_P],
+    "avian_contact_rows": [_I] + [_P] * 35 + [_F] * 4 + [_I] + [_P] * 21 + [_P],
     # Kernel G
     "avian_run_rank": [_I] + [_P] * 2 + [_P],
     "avian_color_keys": [_I, _I] + [_P] * 6 + [_P],
@@ -86,13 +86,13 @@ _SIGNATURES = {
     "avian_sleep_update": [_I] + [_P] * 20 + [_F] * 4 + [_P],
     "avian_sleep_update_2d": [_I] + [_P] * 14 + [_F] * 4 + [_P],
     # Kernel K
-    "avian_prepare_bodies": [_I] + [_P] * 31 + [_F] + [_P],
+    "avian_prepare_bodies": [_I, _I] + [_P] * 31 + [_F] + [_P],
     "avian_writeback_bodies": [_I] + [_P] * 15 + [_P],
     "avian_writeback_2d": [_I] + [_P] * 15 + [_P],
     # Kernel L
-    "avian_pair_counts": [_I] * 4 + [_P] * 16 + [_P],
-    "avian_pair_slots": [_I] * 4 + [_P] * 9 + [_P],
-    "avian_pair_finish": [_I] * 6 + [_P] * 14 + [_P],
+    "avian_pair_counts": [_I] * 5 + [_P] * 16 + [_P],
+    "avian_pair_slots": [_I] * 5 + [_P] * 9 + [_P],
+    "avian_pair_finish": [_I] * 7 + [_P] * 14 + [_P],
     # Kernels U-Z of the 2D engine
     "avian_grid_counts_2d": [_I] * 4 + [_P] * 17 + [_P],
     "avian_manifold_2d": [_I] + [_P] * 14 + [_P],

@@ -136,7 +136,7 @@ def first_argmax(score):
     return torch.where(is_max, lanes, score.shape[-1] - 1).amin(dim=-1)
 
 
-def contact_rows_twin(bodies, col, old, valid, ca, cb, man, hit, survives, new_rank,
+def contact_rows_twin(bodies, col, old, valid, ca, cb, man, hit, survives, new_id,
                       p: RowParams):
     """Plain PyTorch version; see ``contact_rows``."""
     b = bodies
@@ -191,7 +191,7 @@ def contact_rows_twin(bodies, col, old, valid, ca, cb, man, hit, survives, new_r
     contact_id = torch.where(
         matched,
         old.contact_id[old_slot],
-        torch.where(is_new, old.next_contact_id + new_rank, 0),
+        torch.where(is_new, new_id, 0),
     ).to(torch.int32)
 
     # ---- per-point warm-start matching (reference :203-235) -------------
@@ -244,7 +244,7 @@ def contact_rows_twin(bodies, col, old, valid, ca, cb, man, hit, survives, new_r
     )
 
 
-def contact_rows(bodies, col, old, valid, ca, cb, man, hit, survives, new_rank,
+def contact_rows(bodies, col, old, valid, ca, cb, man, hit, survives, new_id,
                  p: RowParams):
     """This step's contact rows, as a dict of the ``ROW_COLUMNS`` of
     ``Contacts``.
@@ -252,11 +252,13 @@ def contact_rows(bodies, col, old, valid, ca, cb, man, hit, survives, new_rank,
     ``bodies``, ``col``: the world's ``Bodies`` and ``Colliders``; ``old``:
     last step's ``Contacts``; ``valid`` bool[C], ``ca``/``cb`` i32[C]: the
     broadphase's pair slots; ``man``: their manifolds; ``hit``, ``survives``:
-    from ``contact_join``; ``new_rank`` i32[C]: ``cumsum(valid & hit == 0) - 1``."""
+    from ``contact_join``; ``new_id`` i32[C]: the contact id of each new pair
+    (its scene's next id plus its rank among the scene's new pairs), read
+    where ``valid & hit == 0``."""
     dev = col.params.device
     if dev.type == "cpu":
         return contact_rows_twin(bodies, col, old, valid, ca, cb, man, hit, survives,
-                                 new_rank, p)
+                                 new_id, p)
     if dev.type != "cuda":
         raise RuntimeError(f"contact_rows: unsupported device {dev}")
     from avian_tpu_torch.kernels import build
@@ -280,10 +282,9 @@ def contact_rows(bodies, col, old, valid, ca, cb, man, hit, survives, new_rank,
         ("pos", bodies.pos, (n, 3), f32), ("quat", bodies.quat, (n, 4), f32),
         ("com", bodies.com, (n, 3), f32), ("lin_vel", bodies.lin_vel, (n, 3), f32),
         ("hit", hit, (c,), i32), ("survives", survives, (c,), u8),
-        ("new_rank", new_rank, (c,), i32),
+        ("new_id", new_id, (c,), i32),
         ("old.active", old.active, (c,), u8), ("old.touching", old.touching, (c,), u8),
         ("old.color", old.color, (c,), i32), ("old.contact_id", old.contact_id, (c,), i32),
-        ("old.next_contact_id", old.next_contact_id, (), i32),
         ("old.feature_id", old.feature_id, (c, k), i32),
         ("old.anchor_a", old.anchor_a, (c, k, 3), f32),
         ("old.normal_impulse", old.normal_impulse, (c, k), f32),

@@ -83,15 +83,21 @@ def grid_pairs_2d_twin(skey, scol, sf, si, w, col: kl.Colliders, g_idx, g_valid,
                        global_overflow, jkeys, n_bodies, c_cap) -> kl.Pairs:
     """Plain PyTorch version; see ``grid_pairs_2d``."""
     bits, rank = sweep_2d_twin(skey, sf, si, w)
-    return kl.compact_pairs_twin(bits, rank, skey, scol, w, col, g_idx, g_valid,
-                                 global_overflow, jkeys, n_bodies, c_cap)
+    return _one_scene(kl.compact_pairs_twin(bits, rank, skey, scol, w, col, g_idx[None],
+                                            g_valid[None], global_overflow.reshape(1), jkeys,
+                                            n_bodies, c_cap))
+
+
+def _one_scene(pairs: kl.Pairs) -> kl.Pairs:
+    """Kernel L's pairs of one scene with the world's 0-d counts."""
+    return pairs._replace(num_pairs=pairs.num_pairs[0], dropped=pairs.dropped[0])
 
 
 def grid_counts_2d_twin(skey, sf, si, w, col: kl.Colliders, g_idx, g_valid):
     """Plain PyTorch version; see ``grid_counts_2d``."""
     bits, rank = sweep_2d_twin(skey, sf, si, w)
     cnt = ((bits[:, None] >> torch.arange(w, device=bits.device)) & 1).sum(1).to(torch.int32)
-    gflag = kl.global_ok(col, g_idx, g_valid).reshape(-1).to(torch.int32)
+    gflag = kl.global_ok(col, g_idx[None], g_valid[None]).reshape(-1).to(torch.int32)
     window_overflow = ((rank > w) & (skey != SENTINEL)).sum().to(torch.int32)
     return bits, cnt, gflag, window_overflow
 
@@ -165,5 +171,6 @@ def grid_pairs_2d(skey, scol, sf, si, w, col: kl.Colliders, g_idx, g_valid,
         raise RuntimeError(f"grid_pairs_2d: unsupported device {dev}")
     _check(skey, scol, sf, si, w, col, g_idx, g_valid, global_overflow, jkeys, c_cap)
     bits, cnt, gflag, window_overflow = grid_counts_2d(skey, sf, si, w, col, g_idx, g_valid)
-    return kl.place_pairs(bits, cnt, gflag, window_overflow, scol, col.body, g_idx,
-                          global_overflow, jkeys, n_bodies, c_cap)
+    return _one_scene(kl.place_pairs(bits, cnt, gflag, window_overflow.reshape(1), scol,
+                                     col.body, g_idx[None], global_overflow.reshape(1), jkeys,
+                                     n_bodies, c_cap))

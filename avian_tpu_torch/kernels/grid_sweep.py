@@ -23,6 +23,13 @@ also takes 33..64 (the reference refuses them), which pairs the entries of
 a cell run of up to 65 where the reference drops those past 33 (ROADMAP 3b:
 the window cliff; the terrain path needs it).
 
+The keys are Kernel E's (``collider_aabbs.cell_keys``): int64, a scene above
+the 31 bits of the packed cell or of ``SENTINEL`` (``scene_key``). A run of
+equal keys is one cell of one scene, so the flat world of many scenes that
+``parallel.make_batched_step`` steps pairs no two scenes, and a single
+world (scene 0) sweeps exactly the reference's 32-bit keys. The plain
+version also takes int32 keys.
+
 The plain PyTorch version, ``grid_sweep_twin``, runs on CPU tensors; on a
 CUDA tensor the wrapper launches the kernel or raises.
 """
@@ -41,11 +48,23 @@ def cell_key(c):
     return ((c[..., 0] & 1023) << 20) | ((c[..., 1] & 1023) << 10) | (c[..., 2] & 1023)
 
 
+def scene_key(scene, key):
+    """i64: the 31-bit packed cell (or ``SENTINEL``) ``key`` of scene
+    ``scene``, the scene above it. Scene 0's keys are the 32-bit ones."""
+    return (scene.long() << 31) | key.long()
+
+
+def cell_bits(skey):
+    """The packed cell of a (scene) key: ``SENTINEL`` where there is none."""
+    return skey & SENTINEL
+
+
 def grid_sweep_twin(skey, sf, si, w):
     """Plain PyTorch version: (bits i64[n_e], rank i32[n_e])."""
     n_e = skey.shape[0]
     dev = skey.device
-    spad_key = torch.cat([skey, torch.full((w,), SENTINEL, dtype=torch.int32, device=dev)])
+    spad_key = torch.cat([skey, torch.full((w,), SENTINEL, dtype=skey.dtype, device=dev)])
+    cell = cell_bits(skey)
     inf6 = torch.tensor([float("inf")] * 3 + [-float("inf")] * 3, device=dev)
     spad_f = torch.cat([sf, inf6.expand(w, F_COLS)])
     spad_i = torch.cat([si, torch.zeros((w, I_COLS), dtype=torch.int32, device=dev)])
@@ -58,12 +77,12 @@ def grid_sweep_twin(skey, sf, si, w):
         b_key = spad_key[k:k + n_e]
         b_f = spad_f[k:k + n_e]
         b_i = spad_i[k:k + n_e]
-        same_cell = (b_key == skey) & (skey != SENTINEL)
+        same_cell = (b_key == skey) & (cell != SENTINEL)
         overlap = ((b_f[:, 0:3] <= a_max) & (a_min <= b_f[:, 3:6])).all(dim=-1)
         canon_key = cell_key(torch.maximum(a_i0, b_i[:, 0:3]))
         ok = (
             same_cell
-            & (canon_key == skey)
+            & (canon_key == cell)
             & overlap
             & (a_body != b_i[:, 3])
             & ((a_mem & b_i[:, 5]) != 0)
@@ -82,7 +101,8 @@ def grid_sweep_twin(skey, sf, si, w):
 def grid_sweep(skey, sf, si, w):
     """Window sweep over the cell-sorted grid entries.
 
-    ``skey`` i32[n_e] sorted cell keys (``SENTINEL`` = no cell), ``sf``
+    ``skey`` i64[n_e] sorted scene and cell keys (``cell_bits`` ``SENTINEL``
+    = no cell; Kernel E's ``cell_keys``), ``sf``
     f32[n_e, 6], ``si`` i32[n_e, 7] the entries' fields in sorted order.
     Returns ``bits`` (i64 bit pattern of the 64-bit candidate mask) and the
     run rank capped at ``w + 1``."""
@@ -93,8 +113,8 @@ def grid_sweep(skey, sf, si, w):
     n_e = skey.shape[0]
     if not (1 <= w <= MAX_WINDOW):
         raise ValueError(f"grid_sweep: window {w} outside 1..{MAX_WINDOW}")
-    if skey.dtype != torch.int32 or si.dtype != torch.int32 or sf.dtype != torch.float32:
-        raise TypeError("grid_sweep: want i32 keys, f32[.,6] and i32[.,7] tables")
+    if skey.dtype != torch.int64 or si.dtype != torch.int32 or sf.dtype != torch.float32:
+        raise TypeError("grid_sweep: want i64 keys, f32[.,6] and i32[.,7] tables")
     if sf.shape != (n_e, F_COLS) or si.shape != (n_e, I_COLS):
         raise ValueError(f"grid_sweep: shapes {tuple(sf.shape)}, {tuple(si.shape)}")
     if not (sf.device == si.device == skey.device):

@@ -78,55 +78,53 @@ def _cross(ax, ay, bx, by):
 
 
 def _row_update(mode, d, irows, sa, sb, rlx, p: SolveParams2D):
-    """Deltas (d_va [R, 2], d_wa [R], d_vb, d_wb) and new impulse rows [R, 6]
-    of R rows, every operation in the reference's order."""
+    """Deltas ``[2, R, 3]`` (side a, side b: linear x, y, angular) and new
+    impulse rows [R, 6] of R rows, every operation in the reference's order.
+    The two sides are one tensor ``[2, R]``, side a's inverse mass and
+    inertia negated, so that ``d - p * m`` is ``d + p * (-m)``: the same
+    rounding in half the operations."""
     nx, ny = d[:, N_], d[:, N_ + 1]
     tx, ty = ny, -nx  # the single 2D tangent, perp(n)
-    imax, imay, imbx, imby = d[:, IMA], d[:, IMA + 1], d[:, IMB], d[:, IMB + 1]
-    iia, iib = d[:, IIA], d[:, IIB]
-    r1 = [(d[:, AA + 2 * i], d[:, AA + 2 * i + 1]) for i in range(2)]
-    r2 = [(d[:, AB + 2 * i], d[:, AB + 2 * i + 1]) for i in range(2)]
+    imx = torch.stack([-d[:, IMA], d[:, IMB]])
+    imy = torch.stack([-d[:, IMA + 1], d[:, IMB + 1]])
+    ii = torch.stack([-d[:, IIA], d[:, IIB]])
+    r = [(torch.stack([d[:, AA + 2 * i], d[:, AB + 2 * i]]),
+          torch.stack([d[:, AA + 2 * i + 1], d[:, AB + 2 * i + 1]])) for i in range(2)]
     pm = [d[:, PM], d[:, PM + 1]]
     new = irows.clone()
 
     if mode == WARM:
-        px, py, cra, crb = None, None, None, None
+        px, py, cr = None, None, None
         for i in range(2):
             np_ = irows[:, i] * pm[i]
             tp = irows[:, 2 + i] * pm[i]
             pxi = (np_ * nx + tp * tx) * p.warm_coefficient
             pyi = (np_ * ny + tp * ty) * p.warm_coefficient
-            ca = _cross(r1[i][0], r1[i][1], pxi, pyi)
-            cb = _cross(r2[i][0], r2[i][1], pxi, pyi)
+            ci = _cross(r[i][0], r[i][1], pxi, pyi)
             if i == 0:
-                px, py, cra, crb = pxi, pyi, ca, cb
+                px, py, cr = pxi, pyi, ci
             else:
-                px, py, cra, crb = px + pxi, py + pyi, cra + ca, crb + cb
-        d_va = torch.stack([-px * imax, -py * imay], -1)
-        d_vb = torch.stack([px * imbx, py * imby], -1)
-        return d_va, -(iia * cra), d_vb, iib * crb, new
+                px, py, cr = px + pxi, py + pyi, cr + ci
+        return torch.stack([px * imx, py * imy, ii * cr], -1), new
 
-    vax, vay, wa = sa[:, 0], sa[:, 1], sa[:, 2]
-    vbx, vby, wb = sb[:, 0], sb[:, 1], sb[:, 2]
-    z = torch.zeros_like(vax)
-    dvax, dvay, dwa, dvbx, dvby, dwb = z, z, z, z, z, z
+    s = torch.stack([sa, sb])
+    vx, vy, w = s[..., 0], s[..., 1], s[..., 2]
+    dvx = dvy = dw = torch.zeros_like(vx)
 
     def rel_vel(i):
-        wbt, wat = wb + dwb, wa + dwa
-        rvx = ((vbx + dvbx) + wbt * -r2[i][1]) - ((vax + dvax) + wat * -r1[i][1])
-        rvy = ((vby + dvby) + wbt * r2[i][0]) - ((vay + dvay) + wat * r1[i][0])
-        return rvx, rvy
+        wt = w + dw
+        ux = (vx + dvx) + wt * -r[i][1]
+        uy = (vy + dvy) + wt * r[i][0]
+        return ux[1] - ux[0], uy[1] - uy[0]
 
     def apply(applied, ux, uy, i):
-        nonlocal dvax, dvay, dwa, dvbx, dvby, dwb
+        nonlocal dvx, dvy, dw
         pvx, pvy = applied * ux, applied * uy
-        dvax, dvay = dvax - pvx * imax, dvay - pvy * imay
-        dwa = dwa - iia * _cross(r1[i][0], r1[i][1], pvx, pvy)
-        dvbx, dvby = dvbx + pvx * imbx, dvby + pvy * imby
-        dwb = dwb + iib * _cross(r2[i][0], r2[i][1], pvx, pvy)
+        dvx, dvy = dvx + pvx * imx, dvy + pvy * imy
+        dw = dw + ii * _cross(r[i][0], r[i][1], pvx, pvy)
 
     def deltas():
-        return torch.stack([dvax, dvay], -1), dwa, torch.stack([dvbx, dvby], -1), dwb
+        return torch.stack([dvx, dvy, dw], -1)
 
     if mode == RESTITUTION:
         rest = d[:, RESTITUTION_COL]
@@ -144,17 +142,18 @@ def _row_update(mode, d, irows, sa, sb, rlx, p: SolveParams2D):
             new[:, i] = torch.where(pmi > 0, new_acc, acc)
             new[:, 4 + i] = irows[:, 4 + i] + applied
             apply(applied, nx, ny, i)
-        return (*deltas(), new)
+        return deltas(), new
 
     use_bias = mode == BIAS
-    ca, sa_ = torch.cos(sa[:, 5]), torch.sin(sa[:, 5])
-    cb, sb_ = torch.cos(sb[:, 5]), torch.sin(sb[:, 5])
+    cos, sin = torch.cos(s[..., 5]), torch.sin(s[..., 5])
     dtx, dty = sb[:, 3] - sa[:, 3], sb[:, 4] - sa[:, 4]
     soft_bias, soft_mass, soft_imp = d[:, SOFT], d[:, SOFT + 1], d[:, SOFT + 2]
     for i in range(2):
-        (r1x, r1y), (r2x, r2y) = r1[i], r2[i]
-        dsx = dtx + ((cb * r2x - sb_ * r2y) - (ca * r1x - sa_ * r1y))
-        dsy = dty + ((sb_ * r2x + cb * r2y) - (sa_ * r1x + ca * r1y))
+        rx, ry = r[i]
+        turned_x = cos * rx - sin * ry
+        turned_y = sin * rx + cos * ry
+        dsx = dtx + (turned_x[1] - turned_x[0])
+        dsy = dty + (turned_y[1] - turned_y[0])
         sep = (dsx * nx + dsy * ny) + d[:, SEP + i]
         rvx, rvy = rel_vel(i)
         vn = rvx * nx + rvy * ny
@@ -186,7 +185,7 @@ def _row_update(mode, d, irows, sa, sb, rlx, p: SolveParams2D):
         applied = (new_acc - acc) * pm[i]
         new[:, 2 + i] = torch.where(pm[i] > 0, new_acc, acc)
         apply(applied, tx, ty, i)
-    return (*deltas(), new)
+    return deltas(), new
 
 
 def solve_2d_twin(mode, color, state, data, imp, bucket_a, bucket_b, bucket_valid, relax,
@@ -199,15 +198,13 @@ def solve_2d_twin(mode, color, state, data, imp, bucket_a, bucket_b, bucket_vali
         return
     a = bucket_a[color, rows].long()
     b = bucket_b[color, rows].long()
-    d_va, d_wa, d_vb, d_wb, new = _row_update(
+    delta, new = _row_update(
         mode, data[color, rows], imp[color, rows], state[a], state[b], relax[color, rows],
         params,
     )
     if mode != WARM:
         imp[color, rows] = new
-    delta = torch.cat([torch.cat([d_va, d_wa[:, None]], -1),
-                       torch.cat([d_vb, d_wb[:, None]], -1)], 0)
-    state[:, 0:3].index_add_(0, torch.cat([a, b]), delta)
+    state[:, 0:3].index_add_(0, torch.cat([a, b]), delta.reshape(-1, 3))
 
 
 def overflow_order(data_last, bucket_a_last, bucket_b_last, valid_last, n_bodies):

@@ -82,82 +82,85 @@ class SolveParams(NamedTuple):
 
 
 def _mv(m, v):
-    """``m @ v`` for m [R, 3, 3], v [R, 3], each row summed left to right as
-    the kernel does: ``(m0 * x + m1 * y) + m2 * z``."""
-    t = m * v[:, None, :]
-    return t[..., 0] + t[..., 1] + t[..., 2]
+    """``m @ v`` for m [..., 3, 3], v [..., 3], each row summed left to right
+    as the kernel does: ``(m0 * x + m1 * y) + m2 * z``."""
+    x, y, z = (m * v[..., None, :]).unbind(-1)
+    return x + y + z
 
 
 def _sym_mat(s):
-    """sym6 [R, 6] -> [R, 3, 3]."""
-    return torch.stack(
-        [s[:, 0], s[:, 3], s[:, 4], s[:, 3], s[:, 1], s[:, 5], s[:, 4], s[:, 5], s[:, 2]],
-        dim=-1,
-    ).reshape(-1, 3, 3)
+    """sym6 [..., 6] -> [..., 3, 3]."""
+    xx, yy, zz, xy, xz, yz = s.unbind(-1)
+    return torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], dim=-1).reshape(
+        s.shape[:-1] + (3, 3))
 
 
 def _skew(a):
     """[..., 3] -> [..., 3, 3] with ``skew(a) @ b == cross(a, b)`` rounded
     as the kernel's ``a.y * b.z - a.z * b.y`` (up to the sign of a zero)."""
-    z = torch.zeros_like(a[..., 0])
-    x, y, w = a[..., 0], a[..., 1], a[..., 2]
+    x, y, w = a.unbind(-1)
+    z = torch.zeros_like(x)
     return torch.stack([z, -w, y, w, z, -x, -y, x, z], dim=-1).reshape(
         a.shape[:-1] + (3, 3)
     )
 
 
 def _dot(a, b):
-    t = a * b
-    return t[..., 0] + t[..., 1] + t[..., 2]
+    x, y, z = (a * b).unbind(-1)
+    return x + y + z
 
 
 def _row_update(mode, d, irows, sa, sb, rlx, p: SolveParams):
-    """Deltas (d_va, d_wa, d_vb, d_wb) and new impulse rows for R rows.
+    """Deltas ``[2, R, 6]`` (side a, side b: linear then angular) and new
+    impulse rows for R rows.
 
     Every operation is the kernel's, in the kernel's order, so that the two
-    agree to the bit: a resting contact sits at separation ~0, where the
-    speculative and the soft branch give different impulses."""
+    agree to the bit (up to the sign of a zero): a resting contact sits at
+    separation ~0, where the speculative and the soft branch give different
+    impulses. The two sides are one tensor ``[2, R, ...]``, side a's inverse
+    mass and inertia negated, so that ``d - p * m`` is ``d + p * (-m)``: the
+    same rounding in half the operations."""
     n = d[:, N_:N_ + 3]
-    ima, imb = d[:, IMA:IMA + 3], d[:, IMB:IMB + 3]
-    mia, mib = _sym_mat(d[:, IIA:IIA + 6]), _sym_mat(d[:, IIB:IIB + 6])
-    r1 = d[:, AA:AA + 12].reshape(-1, 4, 3)
-    r2 = d[:, AB:AB + 12].reshape(-1, 4, 3)
-    k1s, k2s = _skew(r1), _skew(r2)
+    im = torch.stack([-d[:, IMA:IMA + 3], d[:, IMB:IMB + 3]])
+    mi = torch.stack([-_sym_mat(d[:, IIA:IIA + 6]), _sym_mat(d[:, IIB:IIB + 6])])
+    r = torch.stack([d[:, AA:AA + 12], d[:, AB:AB + 12]]).reshape(2, -1, 4, 3)
+    ks = _skew(r)                                            # [2, R, 4, 3, 3]
     pm = d[:, PM:PM + 4]
-    va, wa, vb, wb = sa[:, 0:3], sa[:, 3:6], sb[:, 0:3], sb[:, 3:6]
-    d_va = torch.zeros_like(va)
-    d_wa = torch.zeros_like(wa)
-    d_vb = torch.zeros_like(vb)
-    d_wb = torch.zeros_like(wb)
+    s = torch.stack([sa, sb])
+    v, w = s[..., 0:3], s[..., 3:6]
+    dv = torch.zeros_like(v)
+    dw = torch.zeros_like(w)
     new = irows.clone()
 
     def apply(pvec, i):
-        nonlocal d_va, d_wa, d_vb, d_wb
-        d_va = d_va - pvec * ima
-        d_wa = d_wa - _mv(mia, _mv(k1s[:, i], pvec))
-        d_vb = d_vb + pvec * imb
-        d_wb = d_wb + _mv(mib, _mv(k2s[:, i], pvec))
+        nonlocal dv, dw
+        dv = dv + pvec * im
+        dw = dw + _mv(mi, _mv(ks[:, :, i], pvec))
 
     def rel_vel(i):
         # cross(u, r) = -(skew(r) @ u)
-        return (vb + d_vb - _mv(k2s[:, i], wb + d_wb)) - (
-            va + d_va - _mv(k1s[:, i], wa + d_wa)
-        )
+        u = (v + dv) - _mv(ks[:, :, i], w + dw)
+        return u[1] - u[0]
+
+    def deltas():
+        return torch.cat([dv, dw], -1)
 
     if mode == WARM:
         t1, t2 = d[:, T1:T1 + 3], d[:, T2:T2 + 3]
-        p_sum, ca, cb = None, None, None
+        p_sum, c = None, None
         for i in range(4):
             np_ = irows[:, i:i + 1] * pm[:, i:i + 1]
             tp0 = irows[:, 4 + 2 * i:5 + 2 * i] * pm[:, i:i + 1]
             tp1 = irows[:, 5 + 2 * i:6 + 2 * i] * pm[:, i:i + 1]
             pv = (n * np_ + t1 * tp0 + t2 * tp1) * p.warm_coefficient
-            c1 = _mv(k1s[:, i], pv)
-            c2 = _mv(k2s[:, i], pv)
+            ci = _mv(ks[:, :, i], pv)
             p_sum = pv if p_sum is None else p_sum + pv
-            ca = c1 if ca is None else ca + c1
-            cb = c2 if cb is None else cb + c2
-        return -p_sum * ima, -_mv(mia, ca), p_sum * imb, _mv(mib, cb), new
+            c = ci if c is None else c + ci
+        # Side a's angular delta is -(mia @ c), the sum negated, so that an
+        # exact zero keeps the kernel's sign.
+        sides = torch.tensor((-1.0, 1.0), dtype=d.dtype, device=d.device)
+        ang = _mv(mi * sides[:, None, None, None], c) * sides[:, None, None]
+        return torch.cat([p_sum * im, ang], -1), new
 
     if mode == RESTITUTION:
         vmask = (d[:, RESTITUTION_COL] > 0.0).float()
@@ -173,64 +176,71 @@ def _row_update(mode, d, irows, sa, sb, rlx, p: SolveParams):
             new[:, i] = torch.where(pmi > 0, new_acc, acc)
             new[:, 12 + i] = irows[:, 12 + i] + applied
             apply(applied[:, None] * n, i)
-        return d_va, d_wa, d_vb, d_wb, new
+        return deltas(), new
 
     use_bias = mode == BIAS
-    h = p.h
     # Separation depends only on the delta poses, which a pass never
-    # changes: all 4 points at once.
-    dq_a = sa[:, None, 9:13]
-    dq_b = sb[:, None, 9:13]
-    delta_sep = (sb[:, None, 6:9] - sa[:, None, 6:9]) + (
-        quat_m.rotate(dq_b, r2) - quat_m.rotate(dq_a, r1)
-    )
+    # changes: all 4 points at once, and with it every per-point term that
+    # does not depend on the velocities the points change.
+    turned = quat_m.rotate(s[:, :, None, 9:13], r)
+    delta_sep = (sb[:, None, 6:9] - sa[:, None, 6:9]) + (turned[1] - turned[0])
     separation = _dot(delta_sep, n[:, None, :]) + d[:, SEP:SEP + 4]
-    soft_bias, soft_mass, soft_imp = d[:, SOFT], d[:, SOFT + 1], d[:, SOFT + 2]
+    neg_m = -d[:, NM:NM + 4]
+    spec_sep = separation / p.h
+    acc_n = irows[:, 0:4]
+    if use_bias:
+        soft_bias, soft_mass, soft_imp = d[:, SOFT, None], d[:, SOFT + 1, None], d[:, SOFT + 2, None]
+        bias = torch.clamp(soft_bias * separation, min=-p.max_overlap_speed)
+        soft_m = neg_m * soft_mass
+        soft_acc = soft_imp * acc_n
+    speculative = separation > 0.0
+    new_n = []
     for i in range(4):
-        sep_i = separation[:, i]
         vn = _dot(rel_vel(i), n)
-        m_eff = d[:, NM + i]
-        acc = irows[:, i]
-        spec = -m_eff * (vn + sep_i / h)
+        acc = acc_n[:, i]
+        spec = neg_m[:, i] * (vn + spec_sep[:, i])
         if use_bias:
-            sbias = torch.clamp(soft_bias * sep_i, min=-p.max_overlap_speed)
-            inner = -m_eff * soft_mass * (vn + sbias) - soft_imp * acc
+            inner = soft_m[:, i] * (vn + bias[:, i]) - soft_acc[:, i]
         else:
-            inner = -m_eff * vn
-        delta = torch.where(sep_i > 0.0, spec, inner)
+            inner = neg_m[:, i] * vn
+        delta = torch.where(speculative[:, i], spec, inner)
         new_acc = torch.clamp(acc + rlx * delta, min=0.0)
-        applied = (new_acc - acc) * pm[:, i]
-        on = pm[:, i] > 0
-        new[:, i] = torch.where(on, new_acc, acc)
-        new[:, 12 + i] = irows[:, 12 + i] + torch.where(on, new_acc, 0.0)
-        apply(applied[:, None] * n, i)
+        new_n.append(new_acc)
+        apply(((new_acc - acc) * pm[:, i])[:, None] * n, i)
+    on = pm > 0
+    new_n = torch.stack(new_n, -1)
+    normal = torch.where(on, new_n, acc_n)
+    new[:, 0:4] = normal
+    new[:, 12:16] = irows[:, 12:16] + torch.where(on, new_n, 0.0)
 
-    t1, t2 = d[:, T1:T1 + 3], d[:, T2:T2 + 3]
+    tt = torch.stack([d[:, T1:T1 + 3], d[:, T2:T2 + 3]], 1)  # [R, 2, 3]: t1, t2
     sv = d[:, SV:SV + 3]
+    mu_slow, mu_fast = d[:, SF], d[:, FRICTION]
     for i in range(4):
-        rv = rel_vel(i) + sv
-        vt1 = _dot(rv, t1)
-        vt2 = _dot(rv, t2)
-        k1, k2, k12 = d[:, TK + 3 * i], d[:, TK + 3 * i + 1], d[:, TK + 3 * i + 2]
-        t11, t22, t12 = vt1 * vt1, vt2 * vt2, vt1 * vt2
-        inv = t11 * k1 + t22 * k2 + t12 * k12
+        vt = _mv(tt, rel_vel(i) + sv)                         # [R, 2]: vt1, vt2
+        vt1, vt2 = vt.unbind(-1)
+        k1, k2, k12 = d[:, TK + 3 * i:TK + 3 * i + 3].unbind(-1)
+        t11, t22 = (vt * vt).unbind(-1)
+        inv = t11 * k1 + t22 * k2 + (vt1 * vt2) * k12
         recip = torch.where(inv != 0.0, 1.0 / torch.where(inv == 0.0, 1.0, inv), 0.0)
-        m_eff = (t11 + t22) * recip
+        speed2 = t11 + t22
+        m_eff = speed2 * recip
         m_eff = torch.where(torch.isfinite(m_eff), m_eff, 0.0)
         acc = irows[:, 4 + 2 * i:6 + 2 * i]
-        mu = torch.where(t11 + t22 <= p.stiction_t2, d[:, SF], d[:, FRICTION])
-        limit = mu * new[:, i]
-        x = acc - rlx[:, None] * (m_eff[:, None] * torch.stack([vt1, vt2], -1))
-        n2 = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+        limit = torch.where(speed2 <= p.stiction_t2, mu_slow, mu_fast) * normal[:, i]
+        x = acc - rlx[:, None] * (m_eff[:, None] * vt)
+        x0, x1 = x.unbind(-1)
+        n2 = x0 * x0 + x1 * x1
         scale = torch.where(
             n2 > limit * limit, limit / torch.sqrt(torch.clamp(n2, min=1e-12)), 1.0
         )
         new_acc = x * scale[:, None]
-        on = pm[:, i] > 0
+        on = pm[:, i, None] > 0
         applied = (new_acc - acc) * pm[:, i, None]
-        new[:, 4 + 2 * i:6 + 2 * i] = torch.where(on[:, None], new_acc, acc)
-        apply(applied[:, 0:1] * t1 + applied[:, 1:2] * t2, i)
-    return d_va, d_wa, d_vb, d_wb, new
+        new[:, 4 + 2 * i:6 + 2 * i] = torch.where(on, new_acc, acc)
+        a0, a1 = applied[:, None, :].unbind(-1)
+        apply(a0 * tt[:, 0] + a1 * tt[:, 1], i)
+    return deltas(), new
 
 
 def solve_color_twin(mode, color, state, data, imp, bucket_a, bucket_b,
@@ -243,17 +253,13 @@ def solve_color_twin(mode, color, state, data, imp, bucket_a, bucket_b,
         return
     a = bucket_a[color, rows].long()
     b = bucket_b[color, rows].long()
-    d_va, d_wa, d_vb, d_wb, new = _row_update(
+    delta, new = _row_update(
         mode, data[color, rows], imp[color, rows], state[a], state[b],
         relax[color, rows], params,
     )
     if mode != WARM:
         imp[color, rows] = new
-    idx = torch.cat([a, b])
-    delta = torch.cat(
-        [torch.cat([d_va, d_wa], -1), torch.cat([d_vb, d_wb], -1)], dim=0
-    )
-    state[:, 0:6].index_add_(0, idx, delta)
+    state[:, 0:6].index_add_(0, torch.cat([a, b]), delta.reshape(-1, 6))
 
 
 def overflow_order(data_last, bucket_a_last, bucket_b_last, valid_last, n_bodies):

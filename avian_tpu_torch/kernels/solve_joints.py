@@ -158,23 +158,33 @@ def joint_rows(joints, bodies, inv_mass, inv_inertia, solve_mask):
 joint_rows.launches = 0
 
 
-def _angular_correction(d, diff, compliance, hh, active):
-    """(rotvec_a, rotvec_b, impulse) of one angular constraint."""
-    iia, iib = d[:, IIA:IIA + 6], d[:, IIB:IIB + 6]
+_SIDES = (1.0, -1.0)  # side a's and side b's sign of a shared impulse
+
+
+def _pair(d, col, width):
+    """``[2, R, width]``: the a-side and b-side columns of ``d`` that start at
+    ``col[0]`` and ``col[1]``."""
+    return torch.stack([d[:, col[0]:col[0] + width], d[:, col[1]:col[1] + width]])
+
+
+def _angular_correction(ii, diff, compliance, hh, active):
+    """(rotvec f32[2, R, 3] of the two ends, impulse) of one angular
+    constraint; ``ii`` the ends' world inverse inertia [2, R, 6]."""
     angle = vec.length(diff)
     ok = active & (angle > 1e-9)
     axis = diff / torch.clamp(angle, min=1e-9)[:, None]
-    w1 = vec.dot(axis, sym3.mv(iia, axis))
-    w2 = vec.dot(axis, sym3.mv(iib, axis))
-    w_sum = w1 + w2
+    w = vec.dot(axis, sym3.mv(ii, axis))
+    w_sum = w[0] + w[1]
     tilde = compliance / hh
     dl = torch.where(ok & (w_sum > 1e-12), -angle / torch.clamp(w_sum + tilde, min=1e-12), 0.0)
     impulse = -dl[:, None] * axis
-    return sym3.mv(iia, impulse), -sym3.mv(iib, impulse), impulse
+    sides = torch.tensor(_SIDES, dtype=ii.dtype, device=ii.device)[:, None, None]
+    return sym3.mv(ii, impulse) * sides, impulse
 
 
 def _angle_limit(limit_axis, axis1, axis2, lo, hi, enabled):
-    """3D ``AngleLimit::compute_correction``: (correction, violated)."""
+    """3D ``AngleLimit::compute_correction``: (correction, violated); the
+    axes may carry leading axes ahead of the rows."""
     sphi = torch.clamp(vec.dot(vec.cross(axis1, axis2), limit_axis), -1.0, 1.0)
     phi = torch.asin(sphi)
     phi = torch.where(vec.dot(axis1, axis2) < 0.0, _PI - phi, phi)
@@ -183,7 +193,7 @@ def _angle_limit(limit_axis, axis1, axis2, lo, hi, enabled):
     phi_t = torch.minimum(torch.maximum(phi, lo), hi)
     rot = quat_m.from_axis_angle(limit_axis, phi_t)
     corr = vec.clamp_length_max(vec.cross(quat_m.rotate(rot, axis1), axis2), _PI)
-    return torch.where(violated[:, None], corr, 0.0), violated
+    return torch.where(violated[..., None], corr, 0.0), violated
 
 
 def joint_increments(d, jtype, dp_a, dp_b, dq_a, dq_b, lam, hh):
@@ -191,7 +201,9 @@ def joint_increments(d, jtype, dp_a, dp_b, dq_a, dq_b, lam, hh):
     rotvec_b, new lam)`` from the rows ``d`` f32[R, JD], types, the ends'
     delta positions and rotations, the Lagrange totals f32[R, 6] and
     ``hh = h * h``. Every joint in ``d`` is active (reference ``_solve_color``
-    for the rows of one colour)."""
+    for the rows of one colour). The two ends are one tensor ``[2, R, ...]``
+    wherever they do the same operations: half the operations, the same
+    rounding."""
     r = d.shape[0]
     is_fixed = jtype == JointType.FIXED
     is_distance = jtype == JointType.DISTANCE
@@ -200,74 +212,71 @@ def joint_increments(d, jtype, dp_a, dp_b, dq_a, dq_b, lam, hh):
     is_spherical = jtype == JointType.SPHERICAL
     x_axis = torch.zeros((r, 3), dtype=d.dtype, device=d.device)
     x_axis[:, 0] = 1.0
-    zero3 = torch.zeros((r, 3), dtype=d.dtype, device=d.device)
-    acc_dp_a, acc_dp_b, acc_rv_a, acc_rv_b = zero3, zero3, zero3, zero3
+    acc_rv = torch.zeros((2, r, 3), dtype=d.dtype, device=d.device)
     tot_pos, tot_rot = lam[:, 0:3], lam[:, 3:6]
     lmin, lmax, len_ = d[:, LMIN], d[:, LMAX], d[:, LEN] > 0.0
     comp = d[:, COMP:COMP + 4]
+    dq = torch.stack([dq_a, dq_b])
+    ii = _pair(d, (IIA, IIB), 6)
+    axes = torch.stack([_pair(d, (AXA, AXB), 3), _pair(d, (SECA, SECB), 3)], 2)  # [2, R, 2, 3]
 
     def cur():
-        return (quat_m.mul(quat_m.from_scaled_axis(acc_rv_a), dq_a),
-                quat_m.mul(quat_m.from_scaled_axis(acc_rv_b), dq_b))
+        return quat_m.mul(quat_m.from_scaled_axis(acc_rv), dq)
 
-    def add(cond, rv_a, rv_b, imp):
-        nonlocal acc_rv_a, acc_rv_b, tot_rot
+    def add(cond, rv, imp):
+        nonlocal acc_rv, tot_rot
         c = cond[:, None]
-        acc_rv_a = acc_rv_a + torch.where(c, rv_a, 0.0)
-        acc_rv_b = acc_rv_b + torch.where(c, rv_b, 0.0)
+        acc_rv = acc_rv + torch.where(c, rv, 0.0)
         tot_rot = tot_rot + torch.where(c, imp, 0.0)
 
     # 1. Alignment: full orientation lock (fixed, prismatic), hinge axes
     #    (revolute).
-    qd_a, qd_b = cur()
-    full = quat_m.mul(quat_m.mul(d[:, ROTD:ROTD + 4], qd_a), quat_m.conj(qd_b))[:, :3] * -2.0
-    a1 = quat_m.rotate(qd_a, d[:, AXA:AXA + 3])
-    a2 = quat_m.rotate(qd_b, d[:, AXB:AXB + 3])
-    hinge = vec.cross(a1, a2)
+    qd = cur()
+    full = quat_m.mul(quat_m.mul(d[:, ROTD:ROTD + 4], qd[0]), quat_m.conj(qd[1]))[:, :3] * -2.0
+    a = quat_m.rotate(qd, axes[:, :, 0])
+    hinge = vec.cross(a[0], a[1])
     diff = torch.where((is_fixed | is_prismatic)[:, None], full,
                        torch.where(is_revolute[:, None], hinge, 0.0))
     on = is_fixed | is_prismatic | is_revolute
-    add(on, *_angular_correction(d, diff, comp[:, 1], hh, on))
+    add(on, *_angular_correction(ii, diff, comp[:, 1], hh, on))
 
-    # 2. Angle limits: about the hinge (revolute), swing (spherical).
-    qd_a, qd_b = cur()
-    a1 = quat_m.rotate(qd_a, d[:, AXA:AXA + 3])
-    a2 = quat_m.rotate(qd_b, d[:, AXB:AXB + 3])
-    b1 = quat_m.rotate(qd_a, d[:, SECA:SECA + 3])
-    b2 = quat_m.rotate(qd_b, d[:, SECB:SECB + 3])
-    corr_rev, viol_rev = _angle_limit(a1, b1, b2, lmin, lmax, len_)
+    # 2. Angle limits: about the hinge (revolute), swing (spherical), one
+    #    call for both.
+    qd = cur()
+    ab = quat_m.rotate(qd[:, :, None], axes)
+    (a1, b1), (a2, b2) = ab[0].unbind(1), ab[1].unbind(1)
     n_sw = vec.normalize_or(vec.cross(a1, a2), x_axis)
-    corr_sph, viol_sph = _angle_limit(n_sw, a1, a2, lmin, lmax, len_)
-    corr = torch.where(is_revolute[:, None], corr_rev,
-                       torch.where(is_spherical[:, None], corr_sph, 0.0))
-    on = (is_revolute & viol_rev) | (is_spherical & viol_sph)
-    add(on, *_angular_correction(d, corr, comp[:, 2], hh, on))
+    corr, viol = _angle_limit(torch.stack([a1, n_sw]), torch.stack([b1, a1]),
+                              torch.stack([b2, a2]), lmin, lmax, len_)
+    corr = torch.where(is_revolute[:, None], corr[0],
+                       torch.where(is_spherical[:, None], corr[1], 0.0))
+    on = (is_revolute & viol[0]) | (is_spherical & viol[1])
+    add(on, *_angular_correction(ii, corr, comp[:, 2], hh, on))
 
     # 2b. Spherical twist about n = normalize(a1 + a2).
-    qd_a, qd_b = cur()
-    a1 = quat_m.rotate(qd_a, d[:, AXA:AXA + 3])
-    a2 = quat_m.rotate(qd_b, d[:, AXB:AXB + 3])
-    b1 = quat_m.rotate(qd_a, d[:, SECA:SECA + 3])
-    b2 = quat_m.rotate(qd_b, d[:, SECB:SECB + 3])
-    n_tw = vec.normalize_or(a1 + a2, x_axis)
-    n1 = vec.normalize_or(b1 - n_tw * vec.dot(n_tw, b1)[:, None], x_axis)
-    n2 = vec.normalize_or(b2 - n_tw * vec.dot(n_tw, b2)[:, None], x_axis)
-    corr_tw, viol_tw = _angle_limit(n_tw, n1, n2, d[:, TMIN], d[:, TMAX], d[:, TEN] > 0.0)
+    qd = cur()
+    ab = quat_m.rotate(qd[:, :, None], axes)
+    a, b = ab[:, :, 0], ab[:, :, 1]
+    n_tw = vec.normalize_or(a[0] + a[1], x_axis)
+    n12 = vec.normalize_or(b - n_tw * vec.dot(n_tw, b)[..., None], x_axis)
+    corr_tw, viol_tw = _angle_limit(n_tw, n12[0], n12[1], d[:, TMIN], d[:, TMAX],
+                                    d[:, TEN] > 0.0)
     on = is_spherical & viol_tw
-    add(on, *_angular_correction(d, torch.where(on[:, None], corr_tw, 0.0), comp[:, 3], hh, on))
+    add(on, *_angular_correction(ii, torch.where(on[:, None], corr_tw, 0.0), comp[:, 3], hh, on))
 
     # 3. Positional correction at the anchors.
-    qd_a, qd_b = cur()
-    r1 = quat_m.rotate(qd_a, d[:, R1:R1 + 3])
-    r2 = quat_m.rotate(qd_b, d[:, R2:R2 + 3])
-    sep = ((dp_b + acc_dp_b) - (dp_a + acc_dp_a)) + (r2 - r1) + d[:, CD:CD + 3]
+    qd = cur()
+    anchors = _pair(d, (R1, R2), 3)
+    ra = quat_m.rotate(qd[:, :, None], torch.stack([anchors, axes[:, :, 0]], 2))
+    r_, axis1 = ra[:, :, 0], ra[0, :, 1]
+    zero3 = torch.zeros_like(dp_a)  # the positional deltas so far, as the reference adds them
+    sep = ((dp_b + zero3) - (dp_a + zero3)) + (r_[1] - r_[0]) + d[:, CD:CD + 3]
     dist = vec.length(sep)
     dir_ = sep / torch.clamp(dist, min=1e-9)[:, None]
     dist_corr = torch.where(
         (dist < lmin)[:, None], -dir_ * (lmin - dist)[:, None],
         torch.where((dist > lmax)[:, None], dir_ * (dist - lmax)[:, None], 0.0),
     )
-    axis1 = quat_m.rotate(qd_a, d[:, AXA:AXA + 3])
     along = vec.dot(sep, axis1)
     perp = sep - axis1 * along[:, None]
     along_corr = torch.where(
@@ -279,28 +288,21 @@ def joint_increments(d, jtype, dp_a, dp_b, dq_a, dq_b, lam, hh):
                              torch.where(is_prismatic[:, None], pris_corr, sep))
     # The reference turns the anchors by the accumulated rotation and then
     # by the current delta rotation, which already holds it.
-    w_r1 = quat_m.rotate(quat_m.from_scaled_axis(acc_rv_a), d[:, R1:R1 + 3])
-    w_r2 = quat_m.rotate(quat_m.from_scaled_axis(acc_rv_b), d[:, R2:R2 + 3])
+    r_ = quat_m.rotate(qd, quat_m.rotate(quat_m.from_scaled_axis(acc_rv), anchors))
     c = vec.length(correction)
     ok = c > 1e-9
     dir_ = -correction / torch.clamp(c, min=1e-9)[:, None]
-    r1 = quat_m.rotate(qd_a, w_r1)
-    r2 = quat_m.rotate(qd_b, w_r2)
-    iia, iib = d[:, IIA:IIA + 6], d[:, IIB:IIB + 6]
-    r1xn = vec.cross(r1, dir_)
-    r2xn = vec.cross(r2, dir_)
-    w1 = d[:, IMA] + vec.dot(r1xn, sym3.mv(iia, r1xn))
-    w2 = d[:, IMB] + vec.dot(r2xn, sym3.mv(iib, r2xn))
-    w_sum = w1 + w2
+    rxn = vec.cross(r_, dir_)
+    w = _pair(d, (IMA, IMB), 1)[..., 0] + vec.dot(rxn, sym3.mv(ii, rxn))
+    w_sum = w[0] + w[1]
     tilde = comp[:, 0] / hh
     dl = torch.where(ok & (w_sum > 1e-12), -c / torch.clamp(w_sum + tilde, min=1e-12), 0.0)
     impulse = dl[:, None] * dir_
-    acc_dp_a = acc_dp_a + impulse * d[:, IMVA:IMVA + 3]
-    acc_dp_b = acc_dp_b + -impulse * d[:, IMVB:IMVB + 3]
-    acc_rv_a = acc_rv_a + sym3.mv(iia, vec.cross(r1, impulse))
-    acc_rv_b = acc_rv_b + -sym3.mv(iib, vec.cross(r2, impulse))
+    acc_dp = zero3 + torch.stack([impulse, -impulse]) * _pair(d, (IMVA, IMVB), 3)
+    sides = torch.tensor(_SIDES, dtype=d.dtype, device=d.device)[:, None, None]
+    acc_rv = acc_rv + sym3.mv(ii, vec.cross(r_, impulse)) * sides
     tot_pos = tot_pos + impulse
-    return acc_dp_a, acc_dp_b, acc_rv_a, acc_rv_b, torch.cat([tot_pos, tot_rot], dim=-1)
+    return acc_dp[0], acc_dp[1], acc_rv[0], acc_rv[1], torch.cat([tot_pos, tot_rot], dim=-1)
 
 
 def joint_color_twin(color, state, data, lam, jtype, body_a, body_b, jcolor, mask, hh):

@@ -14,8 +14,8 @@ def identity(shape=(), device=None):
 
 def mul(q1, q2):
     """Hamilton product ``q1 * q2`` (apply q2 first, then q1)."""
-    x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
-    x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
     return torch.stack(
         [
             w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
@@ -82,7 +82,7 @@ def from_axis_angle(axis, angle):
 
 def to_mat3(q):
     """Rotation matrix ``[..., 3, 3]`` from quaternion."""
-    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    x, y, z, w = q.unbind(-1)
     x2, y2, z2 = x + x, y + y, z + z
     xx, yy, zz = x * x2, y * y2, z * z2
     xy, xz, yz = x * y2, x * z2, y * z2
@@ -100,8 +100,6 @@ def to_mat3(q):
 
 def fast_renormalize(q):
     """First-order renormalization (one Newton step)."""
-    n2 = (
-        q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1]
-        + q[..., 2] * q[..., 2] + q[..., 3] * q[..., 3]
-    )
+    x, y, z, w = q.unbind(-1)
+    n2 = x * x + y * y + z * z + w * w
     return q * (0.5 * (3.0 - n2))[..., None]

@@ -8,10 +8,11 @@ XX, YY, ZZ, XY, XZ, YZ = 0, 1, 2, 3, 4, 5
 
 def mv(s, v):
     """Matrix-vector product of the symmetric tensor with ``v``."""
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    rx = s[..., XX] * x + s[..., XY] * y + s[..., XZ] * z
-    ry = s[..., XY] * x + s[..., YY] * y + s[..., YZ] * z
-    rz = s[..., XZ] * x + s[..., YZ] * y + s[..., ZZ] * z
+    x, y, z = v.unbind(-1)
+    xx, yy, zz, xy, xz, yz = s.unbind(-1)
+    rx = xx * x + xy * y + xz * z
+    ry = xy * x + yy * y + yz * z
+    rz = xz * x + yz * y + zz * z
     return torch.stack([rx, ry, rz], dim=-1)
 
 
@@ -50,8 +51,7 @@ def rotate(s, rot_mat):
 
 def inverse_or_zero(s):
     """Closed-form inverse via the adjugate; a singular tensor maps to 0."""
-    a, b, c = s[..., XX], s[..., YY], s[..., ZZ]
-    d, e, f = s[..., XY], s[..., XZ], s[..., YZ]
+    a, b, c, d, e, f = s.unbind(-1)
     ca = b * c - f * f
     cb = a * c - e * e
     cc = a * b - d * d

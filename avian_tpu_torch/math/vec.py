@@ -12,14 +12,15 @@ _EPS = 1e-12
 
 
 def dot(a, b):
-    """Dot product along the last axis."""
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    """Dot product along the last axis, ``(x + y) + z`` of the products."""
+    x, y, z = (a * b).unbind(-1)
+    return x + y + z
 
 
 def cross(a, b):
     """3D cross product along the last axis (broadcasts)."""
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
     return torch.stack(
         [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1
     )

@@ -8,7 +8,11 @@ deduplication (Kernel B, ``kernels/grid_sweep.py``), compaction in
 (entry, window position) order, then a dense pass against at most 16
 "global" colliders (half-spaces and colliders > 4x the median extent), and
 the pairs of two bodies joined by a ``collision_disabled`` joint dropped.
-Slots, pair keys and ``dropped`` match the reference exactly. Poses, AABBs
+Slots, pair keys and ``dropped`` match the reference exactly. The flat
+world of B scenes that ``parallel.make_batched_step`` steps
+(``World.scene_count``) gets what ``jax.vmap`` gives each scene: its own
+cell size, median extent, globals, slots (``C / B`` each), ``num_pairs``
+and ``dropped`` (i32[B]), and no pair across two scenes. Poses, AABBs
 and key emission are Kernel E (``kernels/collider_aabbs.py``); the sorts are
 ``torch.sort`` (the reference calls ``lax.sort`` there); compaction, the
 global pass, the joint probe and the keys are Kernel L
@@ -38,15 +42,15 @@ class BroadPhaseResult:
     collider_b: torch.Tensor  # i32[C]
     pair_key: torch.Tensor    # i64[C]; -1 for empty slots
     valid: torch.Tensor       # bool[C]
-    num_pairs: torch.Tensor   # i32[]
-    dropped: torch.Tensor     # i32[] candidates that fit in no slot
+    num_pairs: torch.Tensor   # i32[] (i32[B] for B scenes: ``World.time``'s shape)
+    dropped: torch.Tensor     # i32[] candidates that fit in no slot (i32[B])
 
 
 @dataclass(frozen=True)
 class GridEntries:
     """The cell-sorted grid table Kernel B sweeps."""
 
-    skey: torch.Tensor  # i32[8M] sorted cell keys
+    skey: torch.Tensor  # i64[8M] sorted scene and cell keys (Kernel E)
     scol: torch.Tensor  # i64[8M] collider of each sorted entry
     sf: torch.Tensor    # f32[8M, 6]
     si: torch.Tensor    # i32[8M, 7]
@@ -98,33 +102,37 @@ def sweep_window(config: PhysicsConfig, m: int) -> int:
     return w
 
 
-def sweep_cell(col):
-    """``(cell f32[], in_sweep bool[M], is_global bool[M])``: the grid's cell
-    size (1.001 x the largest in-sweep AABB extent, on the device) and which
-    colliders go through the grid; half-spaces and colliders > 4x the median
-    extent are "global" (reference :217-243)."""
-    m = col.capacity
-    ext_axis = col.aabb_max - col.aabb_min
+def sweep_cell(col, scenes=1):
+    """``(cell f32[B], in_sweep bool[M], is_global bool[M])`` of the colliders
+    of ``scenes`` B scenes of M / B (B = 1 for a world): each scene's grid
+    cell size (1.001 x its largest in-sweep AABB extent, on the device) and
+    which colliders go through the grid; half-spaces and colliders > 4x
+    their scene's median extent are "global" (reference :217-243)."""
+    m = col.capacity // scenes
+    ext_axis = (col.aabb_max - col.aabb_min).reshape(scenes, m, 3)
     ext_c = ext_axis.amax(dim=-1)
+    active = col.active.reshape(scenes, m)
     is_plane = ext_c > shapes.BIG
-    finite = col.active & ~is_plane
-    n_finite = finite.sum()
-    ext_sorted = torch.sort(torch.where(finite, ext_c, float("inf"))).values
-    median_ext = ext_sorted[torch.clamp(n_finite // 2, 0, m - 1)]
+    finite = active & ~is_plane
+    n_finite = finite.sum(dim=1, keepdim=True)
+    ext_sorted = torch.sort(torch.where(finite, ext_c, float("inf")), dim=1).values
+    median_ext = ext_sorted.gather(1, torch.clamp(n_finite // 2, 0, m - 1))
     is_big = finite & (ext_c > 4.0 * torch.clamp(median_ext, min=1e-6))
     is_global = is_plane | is_big
-    in_sweep = col.active & ~is_global
+    in_sweep = active & ~is_global
     cell = 1.001 * torch.clamp(
-        torch.where(in_sweep[:, None], ext_axis, 0.0).max(), min=1e-3
+        torch.where(in_sweep[..., None], ext_axis, 0.0).reshape(scenes, -1).amax(dim=1),
+        min=1e-3,
     )
-    return cell, in_sweep, is_global
+    return cell, in_sweep.reshape(-1), is_global.reshape(-1)
 
 
 def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
     """Emit, sort and gather the grid entries (reference :217-279)."""
     col = world.colliders
-    w = sweep_window(config, col.capacity)
-    cell, in_sweep, is_global = sweep_cell(col)
+    scenes = world.scene_count
+    w = sweep_window(config, col.capacity // scenes)
+    cell, in_sweep, is_global = sweep_cell(col, scenes)
     ckey, fpack, ipack = ke.cell_keys(world.bodies, col, cell, in_sweep)
     skey, order = torch.sort(ckey, stable=True)
     scol = order // 8
@@ -141,20 +149,24 @@ def grid_entries(world: World, config: PhysicsConfig) -> GridEntries:
 
 def compaction_args(world: World, g: GridEntries, bits, rank) -> tuple:
     """Kernel L's arguments after Kernel B's sweep: the global colliders of
-    the dense pass (at most MAX_GLOBALS, lowest index first), the colliders'
-    filter columns and the joint-disabled body pairs."""
+    the dense pass (each scene's own, at most MAX_GLOBALS, lowest index
+    first: [B, G]), the colliders' filter columns and the joint-disabled
+    body pairs."""
     col = world.colliders
-    score = (g.is_global & col.active).to(torch.int32)
-    g_idx = torch.argsort(-score, stable=True)[:min(MAX_GLOBALS, col.capacity)].contiguous()
-    g_valid = (score[g_idx] > 0).contiguous()
-    global_overflow = torch.clamp(score.sum() - g_idx.shape[0], min=0).to(torch.int64)
+    scenes = world.scene_count
+    m = col.capacity // scenes
+    score = (g.is_global & col.active).to(torch.int32).reshape(scenes, m)
+    local = torch.argsort(-score, dim=1, stable=True)[:, :min(MAX_GLOBALS, m)]
+    g_valid = score.gather(1, local) > 0
+    global_overflow = torch.clamp(score.sum(dim=1) - local.shape[1], min=0).to(torch.int64)
+    g_idx = local + torch.arange(scenes, device=local.device)[:, None] * m
     n_bodies = world.bodies.capacity
     return (
         bits, rank, g.skey, g.scol.contiguous(), g.window,
         kl.Colliders(col.aabb_min, col.aabb_max, col.active, g.is_global, g.dyn,
                      col.body_idx, col.layer_members, col.layer_filter),
-        g_idx, g_valid, global_overflow, kl.joint_keys(world.joints, n_bodies), n_bodies,
-        world.contacts.capacity,
+        g_idx.contiguous(), g_valid.contiguous(), global_overflow,
+        kl.joint_keys(world.joints, n_bodies), n_bodies, world.contacts.capacity // scenes,
     )
 
 
@@ -162,4 +174,7 @@ def broad_phase(world: World, config: PhysicsConfig) -> BroadPhaseResult:
     """Grid cell-list broadphase (reference ``broad_phase`` :179)."""
     g = grid_entries(world, config)
     bits, rank = kb.grid_sweep(g.skey, g.sf, g.si, g.window)
-    return BroadPhaseResult(*kl.compact_pairs(*compaction_args(world, g, bits, rank)))
+    pairs = kl.compact_pairs(*compaction_args(world, g, bits, rank))
+    # The counts of Kernel L's B scenes shaped as the world's own: 0-d for a world.
+    return BroadPhaseResult(*pairs._replace(num_pairs=pairs.num_pairs.reshape(world.time.shape),
+                                            dropped=pairs.dropped.reshape(world.time.shape)))

@@ -9,7 +9,9 @@ pair keys, the speculative keep predicate, in-row point compaction, anchors,
 contact ids, feature-id / anchor-distance warm-start matching, material
 combination and eviction flags. Between its two launches stand the two
 library calls the reference also makes: one stable sort of the int64 pair
-keys and one ``cumsum`` over the new pairs.
+keys and one ``cumsum`` over the new pairs. In the flat world of B scenes
+(``World.scene_count``) the cumsum runs within each scene's slots and each
+scene mints its contact ids from its own ``next_contact_id`` (i32[B]).
 """
 
 import torch
@@ -57,12 +59,16 @@ def narrow_phase(world: World, bp: BroadPhaseResult, config: PhysicsConfig, pose
     ks, s = torch.sort(torch.cat([old.pair_key, bp.pair_key]), stable=True)
     hit, survives = kf.contact_join(ks, s, c_cap)
     is_new = bp.valid & (hit == 0)
-    minted = torch.cumsum(is_new.to(torch.int32), dim=0, dtype=torch.int32)
-    num_new = minted[-1] if c_cap else torch.zeros((), dtype=torch.int32, device=dev)
-
+    # Each scene's new ids follow its own count: its next id plus the rank
+    # among its new pairs.
+    next_id = old.next_contact_id.reshape(-1, 1)
+    minted = torch.cumsum(is_new.to(torch.int32).reshape(next_id.shape[0], -1), dim=1,
+                          dtype=torch.int32)
+    num_new = (minted[:, -1] if c_cap else torch.zeros_like(next_id[:, 0])).reshape(
+        old.next_contact_id.shape)
     rows = kf.contact_rows(
-        world.bodies, col, old, bp.valid, bp.collider_a, bp.collider_b, man,
-        hit, survives, minted - 1, row_params(config),
+        world.bodies, col, old, bp.valid, bp.collider_a, bp.collider_b, man, hit, survives,
+        (next_id + (minted - 1)).reshape(-1), row_params(config),
     )
     contacts = Contacts(
         pair_key=bp.pair_key,

@@ -125,6 +125,28 @@ def prepare_constraints(world: World, contacts: Contacts, s: SolverState,
     )
 
 
+def overflow_by_scene(con: ContactConstraints, scenes: int):
+    """``(overflow_dropped i32[B], num_overflow i32[B])`` of B scenes of
+    C / B constraints (B = 1 for a world, where they are Kernel G's own
+    counts): each scene's solved rows that found no bucket slot, and those
+    plus its rows in the last colour's bucket. The buckets of the flat world
+    of ``parallel.make_batched_step`` are pooled (sized from its whole C),
+    so a scene drops rows only when the pooled bucket of a colour is full,
+    where ``jax.vmap`` of the reference gives each scene buckets of its own."""
+    c = con.color_c.shape[0]
+    dev = con.color_c.device
+
+    def placed(buckets, valid):
+        flag = torch.zeros((c + 1,), dtype=torch.bool, device=dev)
+        flag.index_fill_(0, torch.where(valid, buckets, c).reshape(-1), True)
+        return flag[:c].reshape(scenes, -1)
+
+    solved = (con.color_c >= 0).reshape(scenes, -1)
+    dropped = (solved & ~placed(con.buckets, con.bucket_valid)).sum(dim=1)
+    in_last = placed(con.buckets[-1], con.bucket_valid[-1]).sum(dim=1)
+    return dropped.to(torch.int32), (in_last + dropped).to(torch.int32)
+
+
 def _run_colors(mode, s: SolverState, con: ContactConstraints, params):
     for color in range(con.data.shape[0]):
         kd.solve_color(

@@ -51,8 +51,10 @@ def prepare_with_table(bodies: Bodies, gravity, h: float):
     """``(SolverState, table)``: the solver state of one step (reference
     ``prepare`` solver_body.py:85) and Kernel C's per-step table with the
     velocity increments (reference ``pre_process_velocity_increments``),
-    both from one launch of Kernel K (``kernels/body_pass.py``)."""
-    state, inv_mass, inv_inertia, solve_mask, table = kk.prepare_bodies(bodies, gravity, h)
+    both from one launch of Kernel K (``kernels/body_pass.py``). ``gravity``
+    is f32[3] for a world, f32[B, 3] for B scenes of N / B bodies."""
+    state, inv_mass, inv_inertia, solve_mask, table = kk.prepare_bodies(
+        bodies, gravity.reshape(-1, 3), h)
     return SolverState(state=state, inv_mass=inv_mass, inv_inertia=inv_inertia,
                        solve_mask=solve_mask), table
 

@@ -19,7 +19,7 @@ TRIMESH and HEIGHTFIELD written into a world directly); nothing is skipped
 silently.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -103,6 +103,9 @@ def run_substeps(p: Prepared, config: PhysicsConfig):
 
 
 def _core(world: World, config: PhysicsConfig, hooks, custom_joints, custom_shapes):
+    """The full step after the early-out and before the quarantine:
+    ``(new world, stats)``, the counts among the stats per scene (i32[B],
+    B = ``World.scene_count``)."""
     p = prepare_step(world, config, hooks, custom_joints, custom_shapes)
     s, con = run_substeps(p, config)
     swept, n_swept = {}, 0
@@ -120,13 +123,15 @@ def _core(world: World, config: PhysicsConfig, hooks, custom_joints, custom_shap
     new_world = p.world.replace(
         bodies=bodies, contacts=contacts, joints=joints, time=p.world.time + config.dt
     )
-    num_points = torch.where(contacts.touching, contacts.num_points, 0).sum()
+    scenes = world.scene_count
+    points = torch.where(contacts.touching, contacts.num_points, 0)
+    overflow_dropped, num_overflow = sol_m.overflow_by_scene(con, scenes)
     stats = {
-        "num_pairs": p.num_pairs,
-        "dropped_pairs": p.dropped,
-        "overflow_dropped": con.overflow_dropped,
-        "num_overflow": con.num_overflow,
-        "num_contact_points": num_points,
+        "num_pairs": p.num_pairs.reshape(scenes),
+        "dropped_pairs": p.dropped.reshape(scenes),
+        "overflow_dropped": overflow_dropped,
+        "num_overflow": num_overflow,
+        "num_contact_points": _by_scene(points, scenes).sum(dim=1),
         "manifold_pairs": p.manifold_pairs,
         "swept_pairs": swept,
         "swept_colliders": n_swept,
@@ -155,14 +160,14 @@ def wake_pushed(world: World) -> World:
         sleeping=b.sleeping & ~pushed, sleep_timer=torch.where(pushed, 0.0, b.sleep_timer)))
 
 
-def needs_step(world: World) -> torch.Tensor:
-    """bool[]: some body can move this step (the all-asleep early-out's
-    predicate, reference step.py:195-216). Besides the reference's awake
-    dynamic bodies, moving kinematic bodies and teleported sleepers, a
-    velocity written to a sleeping dynamic body also counts, and so does a
-    sleeping dynamic body with a force or torque (``pushed_sleepers``): the
-    reference skips that step and loses the write."""
-    b = world.bodies
+def can_move(b) -> torch.Tensor:
+    """bool[N]: the bodies that can move this step; the all-asleep
+    early-out is taken when none can (reference step.py:195-216). Besides
+    the reference's awake dynamic bodies, moving kinematic bodies and
+    teleported sleepers, a velocity written to a sleeping dynamic body also
+    counts, and so does a sleeping dynamic body with a force or torque
+    (``pushed_sleepers``): the reference skips that step and loses the
+    write."""
     dyn = b.active & (b.body_type == types.BodyType.DYNAMIC)
     moving = (b.lin_vel != 0.0).any(-1) | (b.ang_vel != 0.0).any(-1)
     kin_moving = b.active & (b.body_type == types.BodyType.KINEMATIC) & moving
@@ -173,81 +178,128 @@ def needs_step(world: World) -> torch.Tensor:
     return (
         (dyn & ~b.sleeping) | (dyn & b.sleeping & moving) | kin_moving | teleported
         | pushed_sleepers(b)
-    ).any()
+    )
+
+
+def _by_scene(x, scenes: int):
+    """``x`` [B·K, ...] as [B, K·...]: one row of each scene's entries."""
+    return x.reshape(scenes, x.numel() // scenes)
+
+
+def _pick(keep, new, old):
+    """Per scene, ``new`` where ``keep`` bool[B] else ``old``: columns of B
+    scenes [B·K, ...], or the world's own leaves (0-d for a world, [B])."""
+    if new is old:
+        return new
+    b = keep.shape[0]
+    shaped = new.reshape(b, new.shape[0] // b if new.dim() else 1, *new.shape[1:])
+    k = keep.reshape(b, *([1] * (shaped.dim() - 1)))
+    return torch.where(k, shaped, old.reshape(shaped.shape)).reshape(new.shape)
+
+
+def _pick_world(keep, new: World, old: World) -> World:
+    def group(name):
+        g_new, g_old = getattr(new, name), getattr(old, name)
+        return g_new.replace(**{f.name: _pick(keep, getattr(g_new, f.name), getattr(g_old, f.name))
+                                for f in fields(g_new)})
+
+    return new.replace(
+        bodies=group("bodies"), colliders=group("colliders"), contacts=group("contacts"),
+        joints=group("joints"), time=_pick(keep, new.time, old.time),
+        diverged=_pick(keep, new.diverged, old.diverged),
+    )
+
+
+def step_scenes(world: World, config: PhysicsConfig, return_diagnostics=False, hooks=None,
+                custom_joints=None, custom_shapes=()):
+    """One step of the B = ``World.scene_count`` scenes of ``world`` (B = 1
+    for a world; the flat world of ``parallel.make_batched_step``): the new
+    world, or ``(world, diagnostics)`` with each diagnostic shaped as
+    ``world.time``. The early-out and the NaN quarantine are per scene, as
+    ``jax.vmap`` of the reference gives them: a scene with no body that can
+    move gets the early-out's result (forces cleared, ``time + dt``, nothing
+    else touched) while others step, and a scene with a non-finite body is
+    frozen as it was, flagged ``diverged``. One host read decides the
+    shortcut of a world whose every scene sleeps; the quarantine reads
+    nothing."""
+    b = world.scene_count
+    n = world.bodies.capacity // b
+    dev = world.device
+    early = config.sleeping_enabled and config.sleep_early_out
+    stepped = (can_move(world.bodies).reshape(b, n).any(dim=1) if early
+               else torch.ones((b,), dtype=torch.bool, device=dev))
+    ran = not early or bool(stepped.any())
+    if ran:
+        core, stats = _core(wake_pushed(world) if config.sleeping_enabled else world,
+                            config, hooks, custom_joints, custom_shapes)
+
+    old = world.bodies
+    zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+    nonfinite = zero
+    if config.nan_guard:
+        src = core.bodies if ran else old
+        moved = [_pick(stepped, getattr(src, k), getattr(old, k))
+                 for k in ("pos", "quat", "lin_vel", "ang_vel")]
+        finite = torch.stack([torch.isfinite(x).all(-1) for x in moved]).all(0)
+        nonfinite = (~finite & old.active).reshape(b, n).sum(dim=1).to(torch.int32)
+    bad = nonfinite > 0
+    # The early-out's result, or the quarantine's: forces cleared where the
+    # scene skipped, kept where it froze; time advances either way.
+    z3 = torch.zeros_like(old.force)
+    rest = world.replace(
+        bodies=old.replace(force=_pick(bad, old.force, z3), torque=_pick(bad, old.torque, z3)),
+        time=world.time + config.dt, diverged=world.diverged | bad.reshape(world.diverged.shape),
+    )
+    out = _pick_world(stepped & ~bad, core, rest) if ran else rest
+    if not return_diagnostics:
+        return out
+
+    def ran_step(key):
+        return torch.where(stepped, stats[key], 0).to(torch.int32) if ran else zero
+
+    c = out.contacts
+    lanes = torch.arange(c.penetration.shape[1], device=dev)[None, :]
+    penetration = torch.where(c.touching[:, None] & (lanes < c.num_points[:, None]),
+                              c.penetration, 0.0)
+    diagnostics = {
+        "num_pairs": ran_step("num_pairs"),
+        "dropped_pairs": ran_step("dropped_pairs"),
+        "overflow_dropped": ran_step("overflow_dropped"),
+        "num_overflow": ran_step("num_overflow"),
+        "num_touching": _by_scene(c.touching, b).sum(dim=1).to(torch.int32),
+        "num_contact_points": ran_step("num_contact_points"),
+        "num_sleeping": _by_scene(out.bodies.sleeping, b).sum(dim=1).to(torch.int32),
+        "nonfinite_bodies": nonfinite,
+        "diverged": out.diverged,
+        "max_penetration": _by_scene(penetration, b).amax(dim=1),
+    }
+    diagnostics = {k: v.reshape(world.time.shape) for k, v in diagnostics.items()}
+    # Port-only: whether the full step ran (False = the all-asleep early-out;
+    # a world's is the host's branch, B scenes' bool[B]), the pairs each
+    # narrowphase launch and each swept-CCD launch covered over the world,
+    # by canonical shape pair, and the colliders swept.
+    diagnostics.update(
+        stepped=stepped if world.time.dim() else ran,
+        manifold_pairs=stats["manifold_pairs"] if ran else {},
+        swept_pairs=stats["swept_pairs"] if ran else {},
+        swept_colliders=stats["swept_colliders"] if ran else 0,
+    )
+    return out, diagnostics
 
 
 def physics_step(world: World, config: PhysicsConfig, return_diagnostics=False,
                  hooks=None, custom_joints=None, custom_shapes=()):
-    """Advance the world by ``config.dt`` seconds. ``hooks`` (an object with
-    ``filter_pairs(world, collider_a, collider_b, valid) -> valid`` and or
-    ``modify_contacts(world, contacts) -> contacts``), ``custom_joints``
-    (``api/custom.py``) and ``custom_shapes`` (a tuple of ``CustomShape``,
-    which takes precedence over ``world.custom_shapes``) are used as the
-    reference uses them."""
-    custom_shapes = resolve_shapes(world, custom_shapes)
-    # The early-out is a host-side branch on one device-to-host read; the
-    # rest of the step reads counts to the host as well (compaction and
-    # pair buckets), so this costs no extra synchronisation in kind.
-    if config.sleeping_enabled and config.sleep_early_out and not bool(needs_step(world)):
-        z3 = torch.zeros_like(world.bodies.force)
-        new_world = world.replace(
-            bodies=world.bodies.replace(force=z3, torque=z3),
-            time=world.time + config.dt,
-        )
-        zero = torch.zeros((), dtype=torch.int32, device=world.device)
-        stats = {
-            "num_pairs": zero, "dropped_pairs": zero, "overflow_dropped": zero,
-            "num_overflow": zero, "num_contact_points": zero,
-            "manifold_pairs": {}, "swept_pairs": {}, "swept_colliders": 0,
-        }
-        stepped = False
-    else:
-        new_world, stats = _core(wake_pushed(world) if config.sleeping_enabled else world,
-                                 config, hooks, custom_joints, custom_shapes)
-        stepped = True
-
-    nonfinite = torch.zeros((), dtype=torch.int32, device=world.device)
-    if config.nan_guard:
-        b = new_world.bodies
-        bad = ~(
-            torch.isfinite(b.pos).all(-1) & torch.isfinite(b.quat).all(-1)
-            & torch.isfinite(b.lin_vel).all(-1) & torch.isfinite(b.ang_vel).all(-1)
-        ) & b.active
-        nonfinite = bad.sum().to(torch.int32)
-        if int(nonfinite) != 0:
-            # Quarantine: freeze the world as it was, flagged diverged.
-            new_world = world.replace(
-                time=world.time + config.dt,
-                diverged=torch.ones((), dtype=torch.bool, device=world.device),
-            )
-
-    if not return_diagnostics:
-        return new_world
-    b = new_world.bodies
-    c = new_world.contacts
-    lanes = torch.arange(c.penetration.shape[1], device=world.device)[None, :]
-    diagnostics = {
-        "num_pairs": stats["num_pairs"],
-        "dropped_pairs": stats["dropped_pairs"],
-        "overflow_dropped": stats["overflow_dropped"],
-        "num_overflow": stats["num_overflow"],
-        "num_touching": c.touching.sum().to(torch.int32),
-        "num_contact_points": stats["num_contact_points"],
-        "num_sleeping": b.sleeping.sum().to(torch.int32),
-        "nonfinite_bodies": nonfinite,
-        "diverged": new_world.diverged,
-        "max_penetration": torch.where(
-            c.touching[:, None] & (lanes < c.num_points[:, None]), c.penetration, 0.0
-        ).max(),
-        # Port-only: whether the full step ran (False = all-asleep
-        # early-out), the pairs each narrowphase launch and each swept-CCD
-        # launch covered, by canonical shape pair, and the colliders swept.
-        "stepped": stepped,
-        "manifold_pairs": stats["manifold_pairs"],
-        "swept_pairs": stats["swept_pairs"],
-        "swept_colliders": stats["swept_colliders"],
-    }
-    return new_world, diagnostics
+    """Advance the world by ``config.dt`` seconds (``step_scenes`` of one
+    scene). ``hooks`` (an object with ``filter_pairs(world, collider_a,
+    collider_b, valid) -> valid`` and or ``modify_contacts(world, contacts)
+    -> contacts``), ``custom_joints`` (``api/custom.py``) and
+    ``custom_shapes`` (a tuple of ``CustomShape``, which takes precedence
+    over ``world.custom_shapes``) are used as the reference uses them."""
+    if world.scene_count != 1:
+        raise ValueError("physics_step: a batched world (gravity [B, 3]); step it with "
+                         "avian_tpu_torch.parallel.make_batched_step")
+    return step_scenes(world, config, return_diagnostics, hooks, custom_joints,
+                       resolve_shapes(world, custom_shapes))
 
 
 def rollout(world: World, config: PhysicsConfig, num_steps: int) -> World:

@@ -60,9 +60,10 @@ def build_query_grid(world) -> QueryGrid:
     cell, in_grid, is_global = sweep_cell(col)
     ckey, _, _ = ke.cell_keys(world.bodies, col, cell, in_grid)
     skey, order = torch.sort(ckey, stable=True)
+    skey = skey.to(torch.int32)  # one scene: E's keys are the 32-bit ones AG searches
     score = (is_global & col.active).to(torch.int32)
     g_idx = torch.argsort(-score, stable=True)[:min(MAX_GLOBALS, m)]
-    return QueryGrid(cell=cell.to(torch.float32).contiguous(), skey=skey.contiguous(),
+    return QueryGrid(cell=cell[0].contiguous(), skey=skey.contiguous(),
                      scol=(order // 8).to(torch.int32).contiguous(),
                      global_idx=g_idx.to(torch.int32).contiguous(),
                      global_valid=(score[g_idx] > 0).contiguous())

@@ -4,7 +4,7 @@
 
 Builds the hand-written kernels from ``avian_tpu_torch/csrc`` (and, beside
 them, the generated unit of the extensions phase's custom shape), holds each of
-the 35 kernels (A-Z, AA-AI) and S's overlap and manifold modes against its
+the 36 kernels (A-Z, AA-AJ) and S's overlap and manifold modes against its
 plain PyTorch twin at the main paths' shapes (the 10,000-cube pile after 60 steps; the
 base-100 box pyramid after 2 steps, when most of its constraints sit in the
 overflow colour, and after 30; the hinged boxes, ``hinge_blocks(84)``, after 30 steps; every
@@ -42,7 +42,13 @@ instances of M, O, P and AF and Kernel AJ held to their plain versions, 1,024
 rays, their picks and 1,024 points; the custom-collider examples with their
 checks; collision hooks on the 10,000-cube pile, the one-way platform and the
 conveyor belt; 1,024 custom pendulums with no joint slots and the custom
-constraint example), steps the pyramid, the hinged
+constraint example), drives the batched step (phase ``batched``: 4,096
+``cube_pile(27)`` scenes with seeded gravity jitter through
+``parallel.make_batched_step`` for 60 steps and on until every scene sleeps, with
+no drop in any scene, no host read more than a single world's step, Kernels
+E, B, L and K held to their plain versions at the flat world's shapes, 16
+seeded scenes stepped alone bit for bit their batched copies, and 64 scenes
+on the plain versions), steps the pyramid, the hinged
 boxes, 2,000 mixed shapes, a 2,000-body terrain and a 2,000-body
 ``terrain_ccd`` once more with every kernel replaced by its plain version
 and holds the kernels' trajectories to those, and checks that two runs are
@@ -167,6 +173,8 @@ from avian_tpu_torch.geometry.narrowphase import canonical_spans
 from avian_tpu_torch.kernels import toi_pair as kai
 from avian_tpu_torch.kernels import custom_build
 from avian_tpu_torch.kernels import custom_shapes as kcs
+from avian_tpu_torch.parallel import make_batched_step, replicate_world
+from avian_tpu_torch.parallel.sharding import flatten
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests", "torch_cases"))
@@ -632,7 +640,7 @@ def sweep_tests(skey, w):
     """How many (entry, later entry of the same cell within the window)
     tests Kernel B makes on these sorted keys."""
     keys, runs = torch.unique_consecutive(skey, return_counts=True)
-    runs = runs[keys != kb.SENTINEL].double()
+    runs = runs[kb.cell_bits(keys) != kb.SENTINEL].double()
     short = runs * (runs - 1) / 2
     long = w * (w + 1) / 2 + (runs - w - 1) * w
     return float(torch.where(runs <= w + 1, short, long).sum())
@@ -821,7 +829,7 @@ def kernels_efgh(world, config):
     compare("contact_join survives", survives, survives_t)
     minted = torch.cumsum((bp.valid & (hit == 0)).to(torch.int32), dim=0, dtype=torch.int32)
     f_in = (b, col, old, bp.valid, bp.collider_a, bp.collider_b, man, hit, survives,
-            minted - 1, np_m.row_params(config))
+            old.next_contact_id + (minted - 1), np_m.row_params(config))
     rows = kf.contact_rows(*f_in)
     rows_t = kf.contact_rows_twin(*f_in)
     err_f = 0.0
@@ -971,7 +979,7 @@ def kernels_ijkl(world, config):
     h = config.substep_dt
 
     # --- K: solver-body prepare and writeback ------------------------------
-    k_in = (b, world.gravity, h)
+    k_in = (b, world.gravity[None], h)
     got = kk.prepare_bodies(*k_in)
     err_k = 0.0
     for name, x, y in zip(("state", "inv_mass", "inv_inertia", "solve_mask", "table"), got,
@@ -2776,7 +2784,8 @@ def phase_grid_queries(device, smi, world):
     cc = lo_c.to(torch.int32)[:, None, :] + torch.tensor(ke._CELL_OFFSETS, dtype=torch.int32,
                                                          device=device)
     inside_aabb = (cc <= hi_c.to(torch.int32)[:, None, :]).all(-1) & in_grid[:, None]
-    packed = torch.where(inside_aabb, kb.cell_key(cc), kb.SENTINEL).reshape(-1)
+    # One scene: E's int64 keys are the 32-bit packing.
+    packed = torch.where(inside_aabb, kb.cell_key(cc), kb.SENTINEL).reshape(-1).long()
     compare("cell_keys against the unclamped packing",
             ke.cell_keys(world.bodies, col, cell, in_grid)[0], packed)
     # AG against T's brute force: every run in the window, then the default.
@@ -2935,20 +2944,32 @@ def toi_work(pairs, pool, rounds):
 
 def counting_syncs(fn):
     """``(fn(), where it synchronized)``: the ``file:line`` of each host read
-    or blocking copy ``fn`` made, by PyTorch's sync debug mode."""
+    or blocking copy ``fn`` made, by PyTorch's sync debug mode, each at the
+    innermost frame of the repo's own code that led to it (and the
+    library's frame after it, where the read happened inside a library)."""
+    import traceback
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(ROOT) and f.filename != os.path.abspath(__file__)]
+        site = f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno}" if ours else ""
+        if not filename.startswith(ROOT):
+            site += f" ({filename}:{lineno})"
+        sites.append(site)
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    sites = []
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            path = os.path.relpath(w.filename, ROOT) if w.filename.startswith(ROOT) else w.filename
-            sites.append(f"{path}:{w.lineno}")
     return out, sites
 
 
@@ -5284,6 +5305,317 @@ def phase_extensions(device, smi):
         + show("times", out) + f"; launches {dict((k, counts[k]) for k in CUSTOM_KERNELS)}; {line} [{smi}]")
     return out, counts
 
+# The batched step (phase ``batched``): the reference bench's batched scene
+# (``bench.py:128-162``, BASELINE config 5), 4,096 copies of
+# ``cube_pile(27)`` at 8 N with gravity jittered per scene.
+BATCH_SCENES, BATCH_CUBES = 4096, 27
+BATCH_SLOTS = 8 * BATCH_CUBES
+BATCH_CONFIG = PhysicsConfig(substeps=4, max_colors=4, sap_window=8, shape_pairs=(
+    (int(ShapeType.BOX), int(ShapeType.BOX)), (int(ShapeType.BOX), int(ShapeType.PLANE))))
+BATCH_STEPS = 60           # through the sleep onset (the first scenes sleep at step 50)
+BATCH_MAX_STEPS = 120      # then on until every scene sleeps (256 on the CPU: the last at 81)
+BATCH_AWAKE = (5, 45)      # steps timed as awake steps, [from, to)
+BATCH_KERNEL_STEP = 20     # E, B, L and K held to their plain versions on this step's world
+BATCH_ALONE = 16           # seeded scenes stepped alone through physics_step
+BATCH_PLAIN_SCENES, BATCH_PLAIN_STEPS = 64, 20
+BATCH_SYNC_STEP = 10       # the step whose host reads are counted
+BATCH_BELOW_TOL = 0.05     # a cube's centre no lower than half its side less this
+BATCH_KERNELS = ("collider_aabbs", "grid_sweep", "compact_pairs", "body_pass")
+
+
+def batched_piles(device, scenes_n):
+    """``(batched world, gravity jitter f32[scenes_n])``: the bench's batched
+    scene, its jitter 1 + 0.1 N(0, 1) from a seeded generator."""
+    world, _ = scenes.cube_pile(BATCH_CUBES, max_contacts=BATCH_SLOTS, device=device)
+    gen = torch.Generator().manual_seed(0)
+    jitter = (1.0 + 0.1 * torch.randn(BATCH_SCENES, generator=gen))[:scenes_n].to(device)
+    batched = replicate_world(world, scenes_n)
+    return batched.replace(gravity=batched.gravity * jitter[:, None]), jitter
+
+
+def scene_of(batched, i):
+    """Scene ``i`` of a batched world as a world of its own."""
+    def group(g):
+        return g.replace(**{k: v[i].clone() for k, v in vars(g).items()})
+
+    return batched.replace(
+        bodies=group(batched.bodies), colliders=group(batched.colliders),
+        contacts=group(batched.contacts), joints=group(batched.joints),
+        gravity=batched.gravity[i].clone(), time=batched.time[i].clone(),
+        diverged=batched.diverged[i].clone(), convex_verts=batched.convex_verts[i].clone())
+
+
+def batched_kernels(batched, config):
+    """E, B, L and K at the batched shapes: each against its plain version on
+    the flat world of ``batched`` (every scene's pairs inside the scene);
+    {name: measurements}."""
+    out = {}
+    flat = flatten(batched)
+    b = flat.bodies
+    m_s = batched.colliders.capacity
+    dt, spec = config.dt, config.narrow_phase.default_speculative_margin
+    tol = config.narrow_phase.contact_tolerance * config.length_unit
+
+    # E: poses and AABBs, then the scene keys with each scene's cell size.
+    e_in = (b, flat.colliders, dt, spec, tol)
+    got = ke.collider_aabbs(*e_in)
+    err_e = 0.0
+    for name, x, y in zip(("aabb_min", "aabb_max", "pos", "quat"), got,
+                          ke.collider_aabbs_twin(*e_in)):
+        err_e = max(err_e, compare(f"batched collider_aabbs {name}", x, y, TOL_E))
+    w2 = bp_m.update_aabbs(flat, config)
+    col2 = w2.colliders
+    cell, in_sweep, _ = bp_m.sweep_cell(col2, BATCH_SCENES)
+    k_in = (b, col2, cell, in_sweep)
+    got_k = ke.cell_keys(*k_in)
+    want_k = ke.cell_keys_twin(*k_in)
+    compare("batched cell_keys ckey", got_k[0], want_k[0])
+    err_e = max(err_e, compare("batched cell_keys fpack", got_k[1], want_k[1], TOL_E))
+    compare("batched cell_keys ipack", got_k[2], want_k[2])
+    scene = got_k[0] >> 31
+    if not torch.equal(scene, torch.arange(col2.capacity, device=scene.device).repeat_interleave(8)
+                       // m_s):
+        raise AssertionError("batched cell_keys: a key carries another collider's scene")
+
+    def run_e(f_aabb, f_keys):
+        f_aabb(*e_in)
+        f_keys(*k_in)
+
+    out["collider_aabbs"] = measured(
+        err_e, lambda: run_e(ke.collider_aabbs, ke.cell_keys),
+        lambda: run_e(ke.collider_aabbs_twin, ke.cell_keys_twin),
+        nbytes(col2.body_idx, col2.shape_type, col2.params, col2.local_pos, col2.local_quat,
+               col2.speculative_margin, col2.collision_margin, b.pos, b.quat, b.lin_vel, *got)
+        + nbytes(cell, in_sweep, col2.layer_members, col2.layer_filter, b.body_type, b.active,
+                 *got_k),
+        180 * col2.capacity,
+    )
+
+    # B: the sweep over the scene-sorted keys.
+    g = bp_m.grid_entries(w2, config)
+    args = (g.skey, g.sf, g.si, g.window)
+    bk, rk = kb.grid_sweep(*args)
+    bt, rt = kb.grid_sweep_twin(*args)
+    compare("batched grid_sweep bits", bk, bt)
+    compare("batched grid_sweep rank", rk, rt)
+    out["grid_sweep"] = measured(
+        0.0, lambda: kb.grid_sweep(*args), lambda: kb.grid_sweep_twin(*args),
+        nbytes(g.skey, g.sf, g.si, bk, rk),
+        16 * sweep_tests(g.skey, g.window) + 4 * g.skey.numel(),
+    )
+
+    # L: each scene's globals, slots, counts and drops.
+    l_in = bp_m.compaction_args(w2, g, bk, rk)
+    pairs = kl.compact_pairs(*l_in)
+    for name, x, y in zip(kl.Pairs._fields, pairs, kl.compact_pairs_twin(*l_in)):
+        compare(f"batched compact_pairs {name}", x, y)
+    valid = pairs.valid
+    if not torch.equal((pairs.collider_a // m_s)[valid], (pairs.collider_b // m_s)[valid]):
+        raise AssertionError("batched compact_pairs: a pair joins two scenes")
+    c_s, g_cap, j_keys = l_in[11], l_in[6].shape[-1], l_in[9]
+    out["compact_pairs"] = measured(
+        0.0, lambda: kl.compact_pairs(*l_in), lambda: kl.compact_pairs_twin(*l_in),
+        nbytes(bk, rk, g.skey, l_in[3], *l_in[5], l_in[6], l_in[7], l_in[8], j_keys, *pairs),
+        bk.numel() + 20 * g_cap * col2.capacity
+        + BATCH_SCENES * c_s * (4 + 2 * math.ceil(math.log2(j_keys.numel() + 1))),
+    )
+
+    # K: prepare with each scene's gravity, and writeback.
+    h = config.substep_dt
+    p_in = (b, flat.gravity, h)
+    got_p = kk.prepare_bodies(*p_in)
+    err_k = 0.0
+    for name, x, y in zip(("state", "inv_mass", "inv_inertia", "solve_mask", "table"), got_p,
+                          kk.prepare_bodies_twin(*p_in)):
+        err_k = max(err_k, compare(f"batched prepare_bodies {name}", x, y))
+    moved_state = kc.integrate_bodies(
+        kc.integrate_bodies(got_p[0], got_p[4], h, kc.VELOCITIES), got_p[4], h, kc.POSITIONS)
+    wb_out = kk.writeback_bodies(b, moved_state)
+    for name, x, y in zip(("pos", "quat", "lin_vel", "ang_vel", "force", "torque"), wb_out,
+                          kk.writeback_bodies_twin(b, moved_state)):
+        err_k = max(err_k, compare(f"batched writeback_bodies {name}", x, y))
+
+    def run_k(f_prep, f_wb):
+        f_prep(*p_in)
+        f_wb(b, moved_state)
+
+    out["body_pass"] = measured(
+        err_k, lambda: run_k(kk.prepare_bodies, kk.writeback_bodies),
+        lambda: run_k(kk.prepare_bodies_twin, kk.writeback_bodies_twin),
+        nbytes(b.body_type, b.locked_axes, b.active, b.sleeping, b.gyroscopic, b.quat,
+               b.inv_inertia, b.lin_vel, b.ang_vel, b.force, b.torque, b.const_force,
+               b.const_local_force, b.const_torque, b.const_local_torque, b.const_lin_acc,
+               b.const_local_lin_acc, b.const_ang_acc, b.const_local_ang_acc, b.inv_mass,
+               b.gravity_scale, b.lin_damping, b.ang_damping, b.max_lin_speed, b.max_ang_speed,
+               flat.gravity, *got_p)
+        + nbytes(moved_state, b.pos, b.quat, b.com, b.lin_vel, b.ang_vel, b.active, b.sleeping,
+                 b.body_type, *wb_out),
+        330 * b.capacity,
+    )
+    return out, f"{int(valid.sum())} pairs in {BATCH_SCENES} scenes, cell sizes " \
+        f"{float(cell.min()):.4f}-{float(cell.max()):.4f} m"
+
+
+def phase_batched(device, smi):
+    """The batched step at full width: ``BATCH_SCENES`` x ``cube_pile(27)``
+    (114,688 bodies and colliders, 884,736 contact slots) through
+    ``make_batched_step`` for ``BATCH_STEPS`` steps and on until every scene
+    sleeps (at most ``BATCH_MAX_STEPS``), the launches counted over them.
+    Fails on a dropped pair or overflow drop in any scene (running maxima), a
+    non-finite state, a cube below the plane, a scene awake at the last step,
+    a kernel of the path never launched, or a batched step with more host
+    reads than a single-world step (PyTorch's sync debug mode, step
+    ``BATCH_SYNC_STEP``). Then: E, B, L and K against their plain versions
+    on step ``BATCH_KERNEL_STEP``'s flat world; ``BATCH_ALONE`` seeded scenes
+    stepped alone through ``physics_step``, bit for bit the batched scenes at
+    every step (no kernel reduces across scenes, and every kernel is
+    deterministic); the first ``BATCH_PLAIN_SCENES`` scenes rerun on the plain
+    versions for ``BATCH_PLAIN_STEPS`` steps, within ``PLAIN_TOL`` of the
+    kernels. Returns (measured rows, launches)."""
+    t_phase = time.perf_counter()
+    config = BATCH_CONFIG
+    batched, jitter = batched_piles(device, BATCH_SCENES)
+    start = batched
+    step = make_batched_step(config)
+    gen = torch.Generator().manual_seed(1)
+    alone_ids = torch.randperm(BATCH_SCENES, generator=gen)[:BATCH_ALONE].tolist()
+    alone_idx = torch.tensor(alone_ids, device=device)
+    plain_n = BATCH_PLAIN_SCENES
+    worst_drop = torch.zeros((BATCH_SCENES,), dtype=torch.int32, device=device)
+    alone_pos, alone_stepped, plain_ref, seconds, stepped_n = [], [], [], [], []
+    expect = dict.fromkeys(kernels.WRAPPERS, 0)
+    low = float("inf")
+    syncs_batched = at_kernel_step = None
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    awake_at = []
+    for i in range(BATCH_MAX_STEPS):
+        if i >= BATCH_STEPS and awake_at[-1] == 0:
+            break
+        if i + 1 == BATCH_SYNC_STEP:
+            (batched, diag), syncs_batched = counting_syncs(
+                lambda: step(batched, return_diagnostics=True))
+            dt_s = None
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched, diag = step(batched, return_diagnostics=True)
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t0
+        if BATCH_AWAKE[0] <= i < BATCH_AWAKE[1] and dt_s is not None:
+            seconds.append(dt_s)
+        worst_drop = torch.maximum(worst_drop, torch.maximum(diag["dropped_pairs"],
+                                                             diag["overflow_dropped"]))
+        stepped_n.append(int(diag["stepped"].sum()))
+        alone_pos.append(batched.bodies.pos[alone_idx].clone())
+        alone_stepped.append(diag["stepped"][alone_idx].clone())
+        if i < BATCH_PLAIN_STEPS:
+            plain_ref.append(batched.bodies.pos[:plain_n].clone())
+        low = min(low, float(batched.bodies.pos[:, 1:, 1].min()))
+        if bool(diag["stepped"].any()):
+            for pair, n in diag["manifold_pairs"].items():
+                expect[PAIR_KERNELS[pair][1]] += int(n > 0)
+            for name, per_step in STEP_LAUNCHES.items():
+                expect[name] += per_step(config, False)
+        if i + 1 == BATCH_KERNEL_STEP:
+            at_kernel_step = batched
+        awake_at.append(int((diag["num_sleeping"] != BATCH_CUBES).sum()))
+    steps_run = len(awake_at)
+    launches = kernels.launches()
+    kernels_out, note = batched_kernels(at_kernel_step, config)
+    del at_kernel_step
+    b = batched.bodies
+    for name in ("pos", "quat", "lin_vel", "ang_vel"):
+        if not bool(torch.isfinite(getattr(b, name)).all()):
+            raise AssertionError(f"batched: non-finite {name}")
+    if bool(batched.diverged.any()):
+        raise AssertionError("batched: a scene diverged")
+    if int(worst_drop.max()) != 0:
+        raise AssertionError(f"batched: {int((worst_drop > 0).sum())} scenes dropped pairs or "
+                             f"overflow rows (most {int(worst_drop.max())})")
+    if low < 0.5 - BATCH_BELOW_TOL:
+        raise AssertionError(f"batched: a cube's centre at {low} m, below the plane")
+    if awake_at[-1]:
+        raise AssertionError(f"batched: {awake_at[-1]} scenes awake after {steps_run} steps")
+    if launches != expect:
+        raise AssertionError(f"batched: launches {launches} != expected {expect}")
+    if any(launches[name] == 0 for name in BATCH_KERNELS):
+        raise AssertionError(f"batched: a kernel of the path never launched: {launches}")
+    first_asleep = [next((i for i in range(steps_run) if not bool(alone_stepped[i][k])),
+                         steps_run) for k in range(BATCH_ALONE)]
+
+    # The seeded scenes alone, bit for bit.
+    t0 = time.perf_counter()
+    syncs_alone = None
+    for k, sid in enumerate(alone_ids):
+        world = scene_of(start, sid)
+        for i in range(steps_run):
+            if k == 0 and i + 1 == BATCH_SYNC_STEP:
+                (world, d), syncs_alone = counting_syncs(
+                    lambda: physics_step(world, config, return_diagnostics=True))
+            else:
+                world, d = physics_step(world, config, return_diagnostics=True)
+            if not (torch.equal(world.bodies.pos, alone_pos[i][k])
+                    and bool(d["stepped"]) == bool(alone_stepped[i][k])):
+                gap = float((world.bodies.pos - alone_pos[i][k]).abs().max())
+                raise AssertionError(f"batched: scene {sid} alone parts from its batched copy at "
+                                     f"step {i + 1} by {gap} m")
+        for group in ("bodies", "contacts", "joints"):
+            for name, x in vars(getattr(world, group)).items():
+                if not torch.equal(x, getattr(getattr(batched, group), name)[sid]):
+                    raise AssertionError(f"batched: scene {sid} alone differs in {group}.{name}")
+    alone_s = time.perf_counter() - t0
+    if len(syncs_batched) > len(syncs_alone):
+        raise AssertionError(f"batched: {len(syncs_batched)} host reads a step ({syncs_batched}) "
+                             f"against {len(syncs_alone)} alone ({syncs_alone})")
+
+    # The first scenes on the plain versions.
+    small, _ = batched_piles(device, plain_n)
+    frames = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_versions():
+        for _ in range(BATCH_PLAIN_STEPS):
+            small = step(small)
+            frames.append(small.bodies.pos.clone())
+    plain_s = time.perf_counter() - t0
+    if any(kernels.launches().values()):
+        raise AssertionError(f"batched plain path: kernels were launched: {kernels.launches()}")
+    # The plain versions on the card sum Kernel D's deltas with atomics
+    # (``index_add_``), in another order than the kernel, and the landing
+    # piles amplify that: held as the other plain paths are, every cube
+    # within PLAIN_TOL over the first PLAIN_TIGHT_STEPS steps and within
+    # PLAIN_APEX_TOL over all.
+    gaps = [float((x - y).abs().max()) for x, y in zip(frames, plain_ref)]
+    plain_gap, tight_gap = max(gaps), max(gaps[:PLAIN_TIGHT_STEPS])
+    if not (tight_gap <= PLAIN_TOL and plain_gap <= PLAIN_APEX_TOL):
+        raise AssertionError(f"batched plain path: {tight_gap} m from the kernels' trajectory "
+                             f"in {PLAIN_TIGHT_STEPS} steps (limit {PLAIN_TOL}), {plain_gap} m in "
+                             f"{BATCH_PLAIN_STEPS} (limit {PLAIN_APEX_TOL}); by step: {gaps}")
+
+    awake_ms = 1e3 * sum(seconds) / len(seconds)
+    envs = BATCH_SCENES * 1e3 / awake_ms
+    say("batched", f"{BATCH_SCENES} x cube_pile({BATCH_CUBES}) = {b.capacity * BATCH_SCENES} "
+        f"bodies, {batched.contacts.capacity * BATCH_SCENES} contact slots, {steps_run} steps: "
+        f"awake step (steps {BATCH_AWAKE[0] + 1}-{BATCH_AWAKE[1]}, {len(seconds)} timed) "
+        f"{awake_ms:.3f} ms (median {1e3 * sorted(seconds)[len(seconds) // 2]:.3f}), "
+        f"{envs:.0f} env-steps/s, {envs * BATCH_CUBES:.0f} body-steps/s; scenes stepping at "
+        f"steps 45-{steps_run}: {stepped_n[44:]}; awake at step {BATCH_STEPS}: "
+        f"{awake_at[BATCH_STEPS - 1]}, every scene asleep after step {steps_run}, the seeded "
+        f"ones asleep from step {sorted(first_asleep)}; gravity x {float(jitter.min()):.3f}-"
+        f"{float(jitter.max()):.3f}; dropped 0 and overflow drops 0 in every scene, lowest "
+        f"centre {low:.4f} m; host reads at step {BATCH_SYNC_STEP}: {len(syncs_batched)} "
+        f"batched {syncs_batched}, {len(syncs_alone)} alone {syncs_alone}; {BATCH_ALONE} "
+        f"scenes alone bit for bit through {steps_run} steps ({alone_s:.1f} s); {plain_n} "
+        f"scenes on the plain versions {BATCH_PLAIN_STEPS} steps ({plain_s:.1f} s), largest "
+        f"gap to the kernels by step: "
+        + ", ".join(f"{g:.2g}" for g in gaps) + " m; "
+        f"E, B, L, K at step {BATCH_KERNEL_STEP}: {note}; "
+        + show("times", kernels_out)
+        + f"; launches {dict((k, launches[k]) for k in BATCH_KERNELS)}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return kernels_out, launches
+
 
 def main():
     smi = phase_device()
@@ -5320,6 +5652,7 @@ def main():
     del query_world
     measured_ext, ext_launches = timed("extensions", phase_extensions, device, smi)
     measured_by_kernel.update(measured_ext)
+    measured_batched, batched_launches = timed("batched", phase_batched, device, smi)
     measured_by_kernel.update(timed("dim2 kernels", phase_dim2_kernels, device))
     timed("dim2 golden", phase_dim2_golden, device)
     dim2_launches = timed("pyramid2d", phase_pyramid2d, device, smi)
@@ -5377,7 +5710,15 @@ def main():
                          queries2d_launches=q2d_launches[name],
                          controller2d_launches=controller_launches[name],
                          extension_launches=ext_launches[name],
+                         batched_launches=batched_launches[name],
                          **measured_by_kernel[name]))
+    # E, B, L and K again at the batched step's shapes (4,096 scenes), with
+    # the launches of its run.
+    for name in BATCH_KERNELS:
+        route, source, replaces = REPLACES[name]
+        rows.append(dict(name=f"{name} (batched {BATCH_SCENES} x {BATCH_CUBES})", route=route,
+                         source=source, replaces=replaces, launches=batched_launches[name],
+                         batched_launches=batched_launches[name], **measured_batched[name]))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Where one full step of the port spends its time on a CUDA card.
 
     python3 profile_step.py [--scene pile|pyramid|hinges|shapes|terrain|terrain_ccd|
-                                     pyramid2d|many_pyramids2d|hinges2d|pyramid_ccd2d]
+                                     batched|pyramid2d|many_pyramids2d|hinges2d|pyramid_ccd2d]
                             [--out profile.json]
 
 Settles the scene with the smoke's config for 30 steps (40 for ``shapes``
@@ -28,7 +28,12 @@ boxes, 7,560 revolute joints) with 16 slots per body and
 ``pyramid_ccd2d`` is ``pyramid_ccd_2d(100, 32)`` (the base-100 2D pyramid
 and 32 bullets fired down at 300 m/s, 24 slots per body) with swept CCD, two
 steps in: the bullets are 2 m above the apex and meet the pyramid in the
-measured steps. Then it measures from
+measured steps. ``batched`` is the reference bench's batched scene: 4,096
+copies of ``cube_pile(27)`` with 216 slots each and gravity jittered by 1 +
+0.1 N(0, 1) (seed 0), ``PhysicsConfig(substeps=4, max_colors=4,
+sap_window=8)`` and box pairs, stepped by ``parallel.make_batched_step``;
+its stages are timed on the flat world the batched step runs (114,688
+bodies, 884,736 slots). Then it measures from
 that state:
 
 - ``stage_ms``: each stage of ``physics_step`` on the host clock, the card
@@ -74,6 +79,8 @@ from avian_tpu_torch.dim2 import solver as sol2
 from avian_tpu_torch.dim2 import xpbd as xpbd2
 from avian_tpu_torch.dim2.step import update_sleeping as update_sleeping_2d
 from avian_tpu_torch.geometry.narrowphase import manifold_buckets
+from avian_tpu_torch.parallel import make_batched_step, replicate_world
+from avian_tpu_torch.parallel.sharding import flatten
 from avian_tpu_torch.pipeline import broadphase as bp_m
 from avian_tpu_torch.pipeline import ccd as ccd_m
 from avian_tpu_torch.pipeline import contacts as np_m
@@ -98,6 +105,8 @@ TERRAIN_CONFIG = CONFIG.replace(sap_window=64, shape_pairs=tuple(
     (a, b) for i, a in enumerate(_TERRAIN_SHAPES) for b in _TERRAIN_SHAPES[i:]))
 CCD_BULLETS, CCD_SETTLE_STEPS = 32, 2
 CONFIG_2D = PhysicsConfig(substeps=4, max_colors=8)
+BATCH_SCENES, BATCH_CUBES = 4096, 27
+BATCH_CONFIG = CONFIG.replace(max_colors=4, sap_window=8)
 KERNEL_OF = {"box_manifold": "Kernel A", "convex_manifold": "Kernel M",
              "round_manifold": "Kernel N", "plane_patch_manifold": "Kernel O",
              "hull_manifold": "Kernel P", "plane_hull_manifold": "Kernel Q"}
@@ -230,7 +239,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="pile",
                     choices=("pile", "pyramid", "hinges", "shapes", "terrain", "terrain_ccd",
-                             "pyramid2d", "many_pyramids2d", "hinges2d", "pyramid_ccd2d"))
+                             "batched", "pyramid2d", "many_pyramids2d", "hinges2d", "pyramid_ccd2d"))
     ap.add_argument("--out", help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -272,6 +281,16 @@ def main():
             TERRAIN_N, per_row=TERRAIN_PER_ROW, bullets=CCD_BULLETS,
             max_contacts=24 * (TERRAIN_N + CCD_BULLETS), device=device)
         ids = ids + shots
+    elif args.scene == "batched":
+        config = BATCH_CONFIG
+        batched_step = make_batched_step(config)
+        step = lambda w, _: batched_step(w)  # noqa: E731
+        single, _ = scenes.cube_pile(BATCH_CUBES, max_contacts=8 * BATCH_CUBES, device=device)
+        world = replicate_world(single, BATCH_SCENES)
+        gen = torch.Generator().manual_seed(0)
+        jitter = (1.0 + 0.1 * torch.randn(BATCH_SCENES, generator=gen)).to(device)
+        world = world.replace(gravity=world.gravity * jitter[:, None])
+        ids = range(BATCH_SCENES * BATCH_CUBES)
     elif args.scene == "pile":
         world, ids = scenes.cube_pile(N_CUBES, max_contacts=16 * N_CUBES, device=device)
     elif args.scene == "pyramid":
@@ -283,12 +302,14 @@ def main():
         world = step(world, config)
     torch.cuda.synchronize()
 
-    runs = [stages(world, config) for _ in range(3)]
+    # The batched step's stages run on its flat world.
+    staged = flatten(world) if args.scene == "batched" else world
+    runs = [stages(staged, config) for _ in range(3)]
     result = {"card": smi, "scene": args.scene, "bodies": len(ids),
-              "contact_slots": world.contacts.capacity, "after_steps": settle,
+              "contact_slots": staged.contacts.capacity, "after_steps": settle,
               "stage_ms": {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}}
-    if step is physics_step:
-        splits = [narrowphase_split_ms(world, config) for _ in range(3)]
+    if stages is stage_ms:
+        splits = [narrowphase_split_ms(staged, config) for _ in range(3)]
         result["narrowphase_split_ms"] = {k: sum(r[k] for r in splits) / len(splits)
                                           for k in splits[0]}
 

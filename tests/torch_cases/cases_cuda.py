@@ -237,7 +237,7 @@ def test_contact_rows_match_twin(cuda, settled):
     assert int((hit > 0).sum()) > 0
     minted = torch.cumsum((bp.valid & (hit == 0)).to(torch.int32), 0, dtype=torch.int32)
     args = (w2.bodies, col, old, bp.valid, bp.collider_a, bp.collider_b, man, hit, survives,
-            minted - 1, np_m.row_params(CONFIG))
+            old.next_contact_id + (minted - 1), np_m.row_params(CONFIG))
     got, want = kf.contact_rows(*args), kf.contact_rows_twin(*args)
     for name in kf.ROW_COLUMNS:
         _same(got[name], want[name], 1e-6)
@@ -375,8 +375,8 @@ def test_body_pass_matches_twin(cuda, any_scene):
         gyroscopic=torch.from_numpy(rng.random(n) < 0.5).to(cuda),
     )
     for bodies in (b, noisy):
-        got = kk.prepare_bodies(bodies, any_scene.gravity, 1.0 / 240.0)
-        want = kk.prepare_bodies_twin(bodies, any_scene.gravity, 1.0 / 240.0)
+        got = kk.prepare_bodies(bodies, any_scene.gravity[None], 1.0 / 240.0)
+        want = kk.prepare_bodies_twin(bodies, any_scene.gravity[None], 1.0 / 240.0)
         for x, y in zip(got, want):
             _same(x, y)
         state = got[0].clone()
@@ -1213,3 +1213,86 @@ def test_dim2_step_launches_aa_and_ab(cuda):
         world = physics_step_2d(world, cfg)
     got = kernels.launches()
     assert got["swept_toi_2d"] == 3 and got["solve_joints_2d"] == 0
+
+
+def test_batched_step_kernels_match_twins_and_scenes_alone(cuda):
+    """32 jittered ``cube_pile(27)`` scenes through ``make_batched_step``:
+    Kernels E, B, L and K at the flat world's shapes against their twins (no
+    pair across two scenes), and 3 scenes stepped alone bit for bit their
+    batched copies; the batched step reads the host no more often than a
+    single world's."""
+    import warnings
+
+    from avian_tpu_torch.kernels import body_pass as kk
+    from avian_tpu_torch.kernels import compact_pairs as kl
+    from avian_tpu_torch.parallel import make_batched_step, replicate_world
+    from avian_tpu_torch.parallel.sharding import flatten
+
+    config = PhysicsConfig(substeps=4, max_colors=4, sap_window=8, shape_pairs=((2, 2), (2, 3)))
+    single, _ = scenes.cube_pile(27, max_contacts=216, device=cuda)
+    jitter = torch.from_numpy(
+        (1.0 + 0.1 * np.random.default_rng(3).standard_normal(32)).astype(np.float32)).to(cuda)
+    batched = replicate_world(single, 32)
+    batched = batched.replace(gravity=batched.gravity * jitter[:, None])
+    start = batched
+    step = make_batched_step(config)
+    for _ in range(12):
+        batched = step(batched)
+    flat = bp_m.update_aabbs(flatten(batched), config)
+    cell, in_sweep, _ = bp_m.sweep_cell(flat.colliders, 32)
+    k_in = (flat.bodies, flat.colliders, cell, in_sweep)
+    for x, y in zip(ke.cell_keys(*k_in), ke.cell_keys_twin(*k_in)):
+        assert torch.equal(x, y)
+    g = bp_m.grid_entries(flat, config)
+    bits, rank = kb.grid_sweep(g.skey, g.sf, g.si, g.window)
+    want = kb.grid_sweep_twin(g.skey, g.sf, g.si, g.window)
+    assert torch.equal(bits, want[0]) and torch.equal(rank, want[1])
+    args = bp_m.compaction_args(flat, g, bits, rank)
+    pairs = kl.compact_pairs(*args)
+    for x, y in zip(pairs, kl.compact_pairs_twin(*args)):
+        assert torch.equal(x, y)
+    m = single.colliders.capacity
+    assert torch.equal((pairs.collider_a // m)[pairs.valid], (pairs.collider_b // m)[pairs.valid])
+    assert int(pairs.valid.sum()) > 32 * 27
+    for x, y in zip(kk.prepare_bodies(flat.bodies, flat.gravity, config.substep_dt),
+                    kk.prepare_bodies_twin(flat.bodies, flat.gravity, config.substep_dt)):
+        assert torch.equal(x, y)
+
+    def reads(fn):
+        """``(fn(), the host reads the port's own code made)``: a read whose
+        stack holds no frame of ``avian_tpu_torch`` (the first call in sync
+        debug mode makes one inside ``torch.cuda``) is not the step's."""
+        import traceback
+
+        torch.cuda.synchronize()
+        sites = []
+
+        def record(message, *args, **kwargs):
+            if "synchroniz" in str(message) and any(
+                    "avian_tpu_torch" in f.filename for f in traceback.extract_stack()):
+                sites.append(str(message))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, len(sites)
+
+    for sid in (0, 17, 31):
+        world = start.replace(
+            **{group: getattr(start, group).replace(**{
+                k: v[sid].clone() for k, v in vars(getattr(start, group)).items()})
+               for group in ("bodies", "colliders", "contacts", "joints")},
+            gravity=start.gravity[sid].clone(), time=start.time[sid].clone(),
+            diverged=start.diverged[sid].clone(), convex_verts=start.convex_verts[sid].clone())
+        for _ in range(12):
+            world = physics_step(world, config)
+        assert torch.equal(world.bodies.pos, batched.bodies.pos[sid])
+        assert torch.equal(world.contacts.pair_key, batched.contacts.pair_key[sid])
+    _, batched_reads = reads(lambda: step(batched))
+    _, alone_reads = reads(lambda: physics_step(world, config))
+    assert 0 < batched_reads <= alone_reads  # the early-out's read, at least

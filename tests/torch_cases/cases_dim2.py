@@ -43,7 +43,9 @@ from avian_tpu_torch.dim2 import dynamics as tdyn  # noqa: E402
 from avian_tpu_torch.dim2 import scenes as tscenes  # noqa: E402
 from avian_tpu_torch.dim2 import solver as tsol  # noqa: E402
 from avian_tpu_torch.kernels import manifold_2d as kv  # noqa: E402
+from avian_tpu_torch.kernels import solve_2d as ky  # noqa: E402
 
+import per_side_rows  # noqa: E402
 from port_common import as_numpy  # noqa: E402
 from random_pairs_2d import random_pairs  # noqa: E402
 
@@ -353,3 +355,23 @@ def test_prepare_writeback_and_sleep_update_match_reference(pyramid20):
             _close(getattr(got, name), getattr(want, name), 0.0, name)
         asleep = int(got.sleeping.sum())
         assert asleep == 0 if time_to_sleep else 0 < asleep < n  # wakes, then sleeps
+
+
+def test_row_update_equals_its_per_side_spelling():
+    """Kernel Y's plain row update, both ends as one [2, R] tensor, equals
+    the same update written one end at a time (``per_side_rows.py``) bit for
+    bit, on 800 seeded rows in every mode."""
+    g = torch.Generator().manual_seed(1)
+    for trial in range(4):
+        d, irows, sa, sb, rlx = per_side_rows.random_rows("Y", 200, g)
+        p = ky.SolveParams2D(h=1 / 240, max_overlap_speed=4.0, stiction_t2=0.5 * trial,
+                             warm_coefficient=1.0, restitution_threshold=0.5)
+        for mode in (ky.WARM, ky.BIAS, ky.RELAX, ky.RESTITUTION):
+            d_va, d_wa, d_vb, d_wb, want = per_side_rows._row_update_2d(
+                mode, d, irows, sa, sb, rlx, p)
+            delta, new = ky._row_update(mode, d, irows, sa, sb, rlx, p)
+            per_side_rows.assert_same_bits(
+                delta, torch.stack([torch.cat([d_va, d_wa[:, None]], -1),
+                                    torch.cat([d_vb, d_wb[:, None]], -1)]),
+                (trial, mode, "deltas"))
+            per_side_rows.assert_same_bits(new, want, (trial, mode, "impulses"))

@@ -45,11 +45,13 @@ from avian_tpu.pipeline.step import physics_step as j_step
 from avian_tpu_torch import physics_step, scenes
 from avian_tpu_torch.core.builder import SceneBuilder as TBuilder
 from avian_tpu_torch.core.config import PhysicsConfig as TConfig
+from avian_tpu_torch.kernels import solve_joints as ki
 from avian_tpu_torch.pipeline import broadphase as tbp
 from avian_tpu_torch.pipeline import sleeping as tsleep
 from avian_tpu_torch.pipeline import solver_body as tsb
 from avian_tpu_torch.pipeline import xpbd as txpbd
 
+import per_side_rows
 from port_common import (PAIRS, Recording, as_numpy, assert_columns, assert_worlds_equal,
                          to_torch)
 
@@ -424,3 +426,36 @@ if __name__ == "__main__":
         print(step, ("golden frame: " if frame else "against the reference: ")
               + "port %.3g, reference nudged 1 ulp %.3g; one port step from the reference's "
               "state %.3g" % (port, nudge, one))
+
+
+def test_joint_increments_equal_their_per_side_spelling():
+    """Kernel I's plain joint update, both ends as one [2, R] tensor, equals
+    the same update written one end at a time (``per_side_rows.py``) bit for
+    bit, on 900 seeded rows of every joint type: limits on and off, zero
+    compliance on some, and rows with no motion yet."""
+    g = torch.Generator().manual_seed(0)
+    r = 150
+    for trial in range(6):
+        d = torch.randn(r, ki.JD, generator=g) * 0.5
+        d[:, ki.LEN] = (torch.rand(r, generator=g) > 0.5).float()
+        d[:, ki.TEN] = (torch.rand(r, generator=g) > 0.5).float()
+        d[:, ki.LMIN] = -torch.rand(r, generator=g)
+        d[:, ki.LMAX] = torch.rand(r, generator=g)
+        d[:, ki.TMIN] = -torch.rand(r, generator=g)
+        d[:, ki.TMAX] = torch.rand(r, generator=g)
+        if trial % 3 == 0:
+            d[:, ki.COMP:ki.COMP + 4] = 0.0
+        jtype = torch.randint(0, 5, (r,), generator=g).to(torch.int32)
+
+        def quats():
+            return torch.nn.functional.normalize(torch.randn(r, 4, generator=g), dim=-1)
+
+        if trial % 5 == 0:
+            moved = (torch.zeros(r, 3), -torch.zeros(r, 3), quats(), quats(), torch.zeros(r, 6))
+        else:
+            moved = (torch.randn(r, 3, generator=g) * 0.01, torch.randn(r, 3, generator=g) * 0.01,
+                     quats(), quats(), torch.randn(r, 6, generator=g))
+        args = (d, jtype, *moved, 1.0 / 240 ** 2)
+        for k, (x, y) in enumerate(zip(ki.joint_increments(*args),
+                                       per_side_rows.joint_increments(*args))):
+            per_side_rows.assert_same_bits(x, y, (trial, k))

@@ -28,6 +28,7 @@ from avian_tpu_torch.pipeline import sleeping as tsleep
 from avian_tpu_torch.pipeline import solver as tsol
 from avian_tpu_torch.pipeline import solver_body as tsb
 
+import per_side_rows
 from port_common import (assert_packed_rows_close, pile_configs, settled_pile, to_jax,
                          to_torch)
 
@@ -196,3 +197,22 @@ def test_solve_color_refuses_other_devices():
     meta = torch.zeros(4, 13, device="meta")
     with pytest.raises(RuntimeError):
         kd.solve_color(kd.BIAS, 0, meta, *([None] * 8), kd.SolveParams(1.0, 1.0, 1.0, 1.0, 1.0))
+
+
+def test_row_update_equals_its_per_side_spelling():
+    """Kernel D's plain row update, both ends as one [2, R] tensor, equals
+    the same update written one end at a time (``per_side_rows.py``) bit for
+    bit, on 800 seeded rows in every mode."""
+    g = torch.Generator().manual_seed(0)
+    for trial in range(4):
+        d, irows, sa, sb, rlx = per_side_rows.random_rows("D", 200, g)
+        p = kd.SolveParams(h=1 / 240, max_overlap_speed=4.0, stiction_t2=0.5 * trial,
+                           warm_coefficient=1.0, restitution_threshold=0.5)
+        for mode in (kd.WARM, kd.BIAS, kd.RELAX, kd.RESTITUTION):
+            d_va, d_wa, d_vb, d_wb, want = per_side_rows._row_update_3d(
+                mode, d, irows, sa, sb, rlx, p)
+            delta, new = kd._row_update(mode, d, irows, sa, sb, rlx, p)
+            per_side_rows.assert_same_bits(
+                delta, torch.stack([torch.cat([d_va, d_wa], -1), torch.cat([d_vb, d_wb], -1)]),
+                (trial, mode, "deltas"))
+            per_side_rows.assert_same_bits(new, want, (trial, mode, "impulses"))
